@@ -1,0 +1,222 @@
+"""ResNet v1 backbones with the Faster R-CNN two-part split (port of
+mtlx/backbones/resnet.py).
+
+  * proposal features: conv1 (7x7/2) -> maxpool/2 -> block1 -> block2/2 ->
+    block3/2 (total stride 16, 1024 channels)
+  * box classifier features: block4 at stride 1 on the 14x14 -> 7x7
+    max-pooled ROI crops (2048 channels); the caller pools.
+
+The public modules take and return NHWC tensors, as in `mtlx`; inside,
+the convolutions run on NCHW views of the same memory (an NHWC tensor
+permuted to NCHW is `channels_last`, the layout cuDNN prefers).
+Submodule names repeat the flax names (`block1.unit1.conv1`, `bn1`), so
+the weight bridge is a path-to-path map.
+
+Padding follows flax exactly: `padding="SAME"` on a strided conv pads
+(0, 1) on even inputs and (1, 1) on odd ones, which a symmetric
+`nn.Conv2d(padding=1)` cannot express, so `same_pad` pads explicitly
+before a `padding=0` conv.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor, nn
+
+BLOCK_SIZES = {
+    # depth 10 is a wiring-validation size (1 bottleneck per stage)
+    10: (1, 1, 1, 1),
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
+
+
+class BNSpec(NamedTuple):
+    """Batch-norm hyperparameters (slim resnet_arg_scope defaults:
+    decay 0.997, epsilon 1e-5, center + scale affine)."""
+
+    momentum: float = 0.997
+    epsilon: float = 1e-5
+    center: bool = True
+    scale: bool = True
+
+
+def same_pad(x: Tensor, kernel: int, stride: int, dilation: int = 1,
+             value: float = 0.0) -> Tensor:
+    """Pad an NCHW tensor as flax/TF `padding="SAME"` does: total padding
+    max((ceil(n / s) - 1) * s + k_eff - n, 0) per spatial axis, the odd
+    pixel after."""
+    k_eff = (kernel - 1) * dilation + 1
+    pads = []
+    for n in (x.shape[3], x.shape[2]):  # F.pad lists the last axis first
+        total = max((-(-n // stride) - 1) * stride + k_eff - n, 0)
+        pads += [total // 2, total - total // 2]
+    if not any(pads):
+        return x
+    return F.pad(x, pads, value=value)
+
+
+class FrozenBatchNorm(nn.Module):
+    """y = gamma * (x - mean) / sqrt(var + eps) + beta with fixed moving
+    statistics, folded in float32 into one multiply-add and cast back to
+    the compute type (as mtlx's FrozenBatchNorm). Absent center/scale
+    parameters act as 0/1 and have no buffer, as in flax."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True):
+        super().__init__()
+        self.epsilon = epsilon
+        if scale:
+            self.register_buffer("scale", torch.ones(features))
+        if center:
+            self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: Tensor) -> Tensor:  # NCHW
+        gamma = self.scale if hasattr(self, "scale") else torch.ones_like(self.mean)
+        beta = self.bias if hasattr(self, "bias") else torch.zeros_like(self.mean)
+        inv = gamma * torch.reciprocal(torch.sqrt(self.var + self.epsilon))
+        shift = beta - self.mean * inv
+        y = x.float() * inv[:, None, None] + shift[:, None, None]
+        return y.to(x.dtype)
+
+
+def make_norm(features: int, trainable: bool, bn: BNSpec = BNSpec()) -> nn.Module:
+    if trainable:
+        raise NotImplementedError(
+            "LiveBatchNorm (feature_extractor.batch_norm_trainable) is not "
+            "ported yet: ROADMAP.md queue 2, LiveBatchNorm as a "
+            "torch.autograd.Function"
+        )
+    return FrozenBatchNorm(features, bn.epsilon, bn.center, bn.scale)
+
+
+class Bottleneck(nn.Module):
+    """ResNet v1 bottleneck: 1x1 -> 3x3(stride) -> 1x1, post-activation.
+    slim_padding pads the strided 3x3 symmetrically (slim conv2d_same)
+    instead of SAME. Shortcut: 1x1 conv when the depth changes, a
+    parameterless subsample when only the stride does."""
+
+    def __init__(self, in_depth: int, depth: int, depth_bottleneck: int,
+                 stride: int = 1, dtype: torch.dtype = torch.bfloat16,
+                 bn_trainable: bool = False, slim_padding: bool = False,
+                 bn: BNSpec = BNSpec()):
+        super().__init__()
+        self.stride = stride
+        self.slim_padding = slim_padding
+        conv = lambda i, o, k, s: nn.Conv2d(i, o, k, stride=s, bias=False, dtype=dtype)
+        self.conv1 = conv(in_depth, depth_bottleneck, 1, 1)
+        self.bn1 = make_norm(depth_bottleneck, bn_trainable, bn)
+        self.conv2 = conv(depth_bottleneck, depth_bottleneck, 3, stride)
+        self.bn2 = make_norm(depth_bottleneck, bn_trainable, bn)
+        self.conv3 = conv(depth_bottleneck, depth, 1, 1)
+        self.bn3 = make_norm(depth, bn_trainable, bn)
+        if in_depth != depth:
+            # a 1x1 SAME conv pads nothing at any stride
+            self.conv_shortcut = conv(in_depth, depth, 1, stride)
+            self.bn_shortcut = make_norm(depth, bn_trainable, bn)
+
+    def forward(self, x: Tensor) -> Tensor:  # NCHW
+        y = F.relu(self.bn1(self.conv1(x)))
+        if self.stride > 1 and self.slim_padding:
+            y = F.pad(y, (1, 1, 1, 1))
+        else:
+            y = same_pad(y, 3, self.stride)
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        if hasattr(self, "conv_shortcut"):
+            residual = self.bn_shortcut(self.conv_shortcut(x))
+        elif self.stride != 1:
+            residual = x[:, :, :: self.stride, :: self.stride]
+        else:
+            residual = x
+        return F.relu(residual + y)
+
+
+class ResNetStage(nn.Sequential):
+    """A stack of bottleneck units `unit1..unitN`. The stride goes on the
+    FIRST unit, or on the LAST with slim_stride_order (slim resnet_v1)."""
+
+    def __init__(self, num_units: int, in_depth: int, depth: int, stride: int,
+                 dtype: torch.dtype = torch.bfloat16, bn_trainable: bool = False,
+                 slim_stride_order: bool = False, bn: BNSpec = BNSpec()):
+        super().__init__()
+        stride_unit = num_units - 1 if slim_stride_order else 0
+        for i in range(num_units):
+            self.add_module(f"unit{i + 1}", Bottleneck(
+                in_depth if i == 0 else depth, depth, depth // 4,
+                stride=stride if i == stride_unit else 1, dtype=dtype,
+                bn_trainable=bn_trainable, slim_padding=slim_stride_order, bn=bn,
+            ))
+
+
+def _nchw(x: Tensor) -> Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: Tensor) -> Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class ResNetProposalFeatures(nn.Module):
+    """conv1 + block1..block3 -> the stride-16 map. NHWC in, NHWC out."""
+
+    def __init__(self, depth: int = 50, dtype: torch.dtype = torch.bfloat16,
+                 bn_trainable: bool = False, slim_stride_order: bool = False,
+                 conv0_space_to_depth: bool = False, bn: BNSpec = BNSpec()):
+        super().__init__()
+        if conv0_space_to_depth:
+            raise NotImplementedError(
+                "SpaceToDepthConv1 (conv0_space_to_depth) is not ported: "
+                "ROADMAP.md queue 1, the other backbone options"
+            )
+        sizes = BLOCK_SIZES[depth]
+        self.dtype = dtype
+        self.slim_stride_order = so = slim_stride_order
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
+        self.bn1 = make_norm(64, bn_trainable, bn)
+        strides = (2, 2, 1) if so else (1, 2, 2)
+        self.block1 = ResNetStage(sizes[0], 64, 256, strides[0], dtype, bn_trainable, so, bn)
+        self.block2 = ResNetStage(sizes[1], 256, 512, strides[1], dtype, bn_trainable, so, bn)
+        self.block3 = ResNetStage(sizes[2], 512, 1024, strides[2], dtype, bn_trainable, so, bn)
+
+    def forward(self, images: Tensor) -> Tensor:
+        x = _nchw(images.to(self.dtype))
+        x = F.relu(self.bn1(self.conv1(x)))
+        if self.slim_stride_order:  # slim pools with SAME padding
+            x = F.max_pool2d(same_pad(x, 3, 2, value=float("-inf")), 3, 2)
+        else:  # symmetric (1, 1), padded with -inf
+            x = F.max_pool2d(x, 3, 2, padding=1)
+        x = self.block3(self.block2(self.block1(x)))
+        return _nhwc(x)
+
+
+class ResNetBoxClassifierFeatures(nn.Module):
+    """block4 at stride 1 on ROI crops: [N, h, w, 1024] -> [N, h, w, 2048]."""
+
+    def __init__(self, depth: int = 50, dtype: torch.dtype = torch.bfloat16,
+                 bn_trainable: bool = False, slim_stride_order: bool = False,
+                 bn: BNSpec = BNSpec()):
+        super().__init__()
+        self.dtype = dtype
+        self.block4 = ResNetStage(BLOCK_SIZES[depth][3], 1024, 2048, 1, dtype,
+                                  bn_trainable, slim_stride_order, bn)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return _nhwc(self.block4(_nchw(x.to(self.dtype))))
+
+
+# Canonical per-channel means the reference subtracts in preprocess
+# (R, G, B order, 0-255 scale).
+RGB_MEANS = (123.68, 116.779, 103.939)
+
+
+def preprocess_images(images: Tensor) -> Tensor:
+    """Subtract the ImageNet channel means. Input [..., H, W, 3] in 0-255
+    RGB float."""
+    return images - torch.tensor(RGB_MEANS, dtype=images.dtype, device=images.device)

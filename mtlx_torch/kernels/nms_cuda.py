@@ -1,0 +1,136 @@
+"""Greedy non-max suppression: the CUDA kernel `csrc/nms.cu` and its plain
+PyTorch version (port of mtlx/kernels/nms_pallas.py).
+
+`non_max_suppression` solves P independent single-class problems in one
+launch: `[P, N, 4]` float32 boxes, `[P, N]` float32 scores and `[P, N]`
+bool validity -> `[P, max_out]` int32 indices and `[P, max_out]` bool
+keep. Priority is score descending, then the lower index; a box is
+suppressed when its IoU with the pick is greater than `iou_threshold`;
+invalid rows and rows whose score is not greater than `score_threshold`
+never get picked; empty slots hold index 0 and keep False.
+
+CPU tensors take `non_max_suppression_plain`; CUDA tensors launch the
+kernel or raise. The two agree exactly: the kernel evaluates IoU in the
+plain version's operation order and is compiled without fused
+multiply-add.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch import Tensor
+
+from mtlx_torch.kernels import build
+
+_NEG = -1e10  # mtlx.ops.nms._NEG: the score of a dead row
+# the largest N one problem can hold: the shared memory a block may use
+# on Hopper (227 KB) minus the kernel's static reduction scratch (16 warp
+# keys + the winner, 8 bytes each), at 24 bytes a box (4 coordinate
+# planes, the area and the live score, float32)
+MAX_BOXES = (232448 - 17 * 8) // 24
+
+
+def non_max_suppression_plain(
+    boxes: Tensor,
+    scores: Tensor,
+    valid: Tensor,
+    max_out: int,
+    iou_threshold: float = 0.5,
+    score_threshold: float = float("-inf"),
+):
+    """Greedy NMS over P problems at once, in plain PyTorch (the
+    reference loop of mtlx.ops.nms.non_max_suppression_padded and the
+    arithmetic of mtlx.kernels.nms_pallas._nms_kernel)."""
+    p, n = scores.shape
+    dev = scores.device
+    live = torch.where(valid, scores, _NEG)
+    live = torch.where(live > score_threshold, live, _NEG)
+    ymin, xmin, ymax, xmax = boxes.unbind(-1)
+    area = (ymax - ymin) * (xmax - xmin)
+    col = torch.arange(n, device=dev)
+    rows = torch.arange(p, device=dev)
+    idx = torch.zeros((p, max_out), dtype=torch.int32, device=dev)
+    keep = torch.zeros((p, max_out), dtype=torch.bool, device=dev)
+    for k in range(max_out):
+        best = torch.argmax(live, dim=1)  # the first maximum: lower index wins ties
+        ok = live[rows, best] > _NEG / 2
+        if not bool(ok.any()):
+            break  # every later slot stays empty
+        by0 = ymin[rows, best][:, None]
+        bx0 = xmin[rows, best][:, None]
+        by1 = ymax[rows, best][:, None]
+        bx1 = xmax[rows, best][:, None]
+        barea = (by1 - by0) * (bx1 - bx0)
+        ih = torch.clamp_min(torch.minimum(ymax, by1) - torch.maximum(ymin, by0), 0.0)
+        iw = torch.clamp_min(torch.minimum(xmax, bx1) - torch.maximum(xmin, bx0), 0.0)
+        inter = ih * iw
+        union = area + barea - inter
+        iou = torch.where(union > 0, inter / torch.clamp_min(union, 1e-30), 0.0)
+        suppress = (iou > iou_threshold) | (col[None, :] == best[:, None])
+        live = torch.where(ok[:, None] & suppress, _NEG, live)
+        idx[:, k] = torch.where(ok, best, 0).to(torch.int32)
+        keep[:, k] = ok
+    return idx, keep
+
+
+def non_max_suppression(
+    boxes: Tensor,
+    scores: Tensor,
+    valid: Tensor,
+    max_out: int,
+    iou_threshold: float = 0.5,
+    score_threshold: float = float("-inf"),
+):
+    """Greedy NMS over P problems: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. See the module docstring."""
+    if scores.dim() != 2 or boxes.shape != (*scores.shape, 4) or valid.shape != scores.shape:
+        raise ValueError(
+            f"want boxes [P, N, 4], scores [P, N], valid [P, N]; got "
+            f"{tuple(boxes.shape)}, {tuple(scores.shape)}, {tuple(valid.shape)}"
+        )
+    if valid.dtype != torch.bool:
+        raise TypeError(f"valid must be bool, got {valid.dtype}")
+    if boxes.device.type == "cpu":
+        return non_max_suppression_plain(
+            boxes, scores, valid, max_out, iou_threshold, score_threshold
+        )
+    if boxes.device.type != "cuda":
+        raise ValueError(f"unsupported device {boxes.device}")
+    lib = build.load_library("nms")  # raises without CUDA or nvcc
+    for name, t in (("boxes", boxes), ("scores", scores), ("valid", valid)):
+        if t.device != boxes.device:
+            raise ValueError(f"{name} is on {t.device}, boxes on {boxes.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(
+            f"the NMS kernel takes float32 boxes and scores, got "
+            f"{boxes.dtype} and {scores.dtype}"
+        )
+    p, n = scores.shape
+    if n > MAX_BOXES:
+        raise ValueError(
+            f"N={n} boxes do not fit one block's shared memory (at most {MAX_BOXES})"
+        )
+    idx = torch.empty((p, max_out), dtype=torch.int32, device=boxes.device)
+    keep = torch.empty((p, max_out), dtype=torch.bool, device=boxes.device)
+    if p == 0 or max_out == 0:
+        return idx, keep
+    if n == 0:
+        return idx.zero_(), keep.zero_()
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        err = lib.mtlx_nms_f32(
+            boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), p, n,
+            max_out, ctypes.c_float(iou_threshold),
+            ctypes.c_float(score_threshold), idx.data_ptr(), keep.data_ptr(),
+            stream,
+        )
+    build.check(lib, err, "nms")
+    non_max_suppression.launches += 1
+    return idx, keep
+
+
+non_max_suppression.launches = 0
