@@ -12,6 +12,9 @@ permuted to NCHW is `channels_last`, the layout cuDNN prefers).
 Submodule names repeat the flax names (`block1.unit1.conv1`, `bn1`), so
 the weight bridge is a path-to-path map.
 
+Parameters are float32 and cast to the compute type at use, as flax's
+`param_dtype=float32` (mtlx_torch/layers.py).
+
 Padding follows flax exactly: `padding="SAME"` on a strided conv pads
 (0, 1) on even inputs and (1, 1) on odd ones, which a symmetric
 `nn.Conv2d(padding=1)` cannot express, so `same_pad` pads explicitly
@@ -25,6 +28,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+
+from mtlx_torch.layers import Conv2d
 
 BLOCK_SIZES = {
     # depth 10 is a wiring-validation size (1 bottleneck per stage)
@@ -63,17 +68,19 @@ def same_pad(x: Tensor, kernel: int, stride: int, dilation: int = 1,
 class FrozenBatchNorm(nn.Module):
     """y = gamma * (x - mean) / sqrt(var + eps) + beta with fixed moving
     statistics, folded in float32 into one multiply-add and cast back to
-    the compute type (as mtlx's FrozenBatchNorm). Absent center/scale
-    parameters act as 0/1 and have no buffer, as in flax."""
+    the compute type (as mtlx's FrozenBatchNorm). gamma (`scale`) and
+    beta (`bias`) are float32 parameters and train, as in flax's `params`;
+    the statistics `mean` and `var` are buffers and never change. Absent
+    center/scale parameters act as 0/1 and do not exist, as in flax."""
 
     def __init__(self, features: int, epsilon: float = 1e-5,
                  center: bool = True, scale: bool = True):
         super().__init__()
         self.epsilon = epsilon
         if scale:
-            self.register_buffer("scale", torch.ones(features))
+            self.scale = nn.Parameter(torch.ones(features))
         if center:
-            self.register_buffer("bias", torch.zeros(features))
+            self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
@@ -109,7 +116,7 @@ class Bottleneck(nn.Module):
         super().__init__()
         self.stride = stride
         self.slim_padding = slim_padding
-        conv = lambda i, o, k, s: nn.Conv2d(i, o, k, stride=s, bias=False, dtype=dtype)
+        conv = lambda i, o, k, s: Conv2d(i, o, k, stride=s, bias=False, compute_dtype=dtype)
         self.conv1 = conv(in_depth, depth_bottleneck, 1, 1)
         self.bn1 = make_norm(depth_bottleneck, bn_trainable, bn)
         self.conv2 = conv(depth_bottleneck, depth_bottleneck, 3, stride)
@@ -178,7 +185,7 @@ class ResNetProposalFeatures(nn.Module):
         sizes = BLOCK_SIZES[depth]
         self.dtype = dtype
         self.slim_stride_order = so = slim_stride_order
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dtype)
         self.bn1 = make_norm(64, bn_trainable, bn)
         strides = (2, 2, 1) if so else (1, 2, 2)
         self.block1 = ResNetStage(sizes[0], 64, 256, strides[0], dtype, bn_trainable, so, bn)

@@ -9,11 +9,14 @@ the map is path to path:
   * conv `kernel` HWIO -> `weight` OIHW
   * dense `kernel` [in, out] -> `weight` [out, in]
   * `bias` -> `bias`
-  * batch-norm `scale`/`bias` (params) and `mean`/`var` (batch_stats)
-    -> the FrozenBatchNorm buffers of the same names
+  * batch-norm `scale`/`bias` (params) -> the FrozenBatchNorm parameters
+    of the same names, and `mean`/`var` (batch_stats) -> its buffers
+  * LayerNorm `scale`/`bias` (the aux heads) -> the same names
 
-The MTL auxiliary heads are training-only and are skipped. Any other
-leaf raises, so a variable tree the port cannot serve never loads
+The MTL auxiliary heads (`fg_head`, `mo_head`, `cl_head`) exist only in
+a training model: they are mapped with `training_heads=True` and skipped
+otherwise, so an MTL checkpoint also loads into a serving model. Any
+other leaf raises, so a variable tree the port cannot hold never loads
 half-mapped.
 """
 
@@ -24,9 +27,9 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-# top-level flax modules the inference port holds
+# top-level flax modules of every model (serving and training)
 INFERENCE_MODULES = ("backbone", "classifier_backbone", "rpn", "box_predictor")
-# top-level flax modules used only by training (the MTL auxiliary heads)
+# top-level flax modules of a training model only (the MTL auxiliary heads)
 TRAINING_ONLY_MODULES = ("fg_head", "mo_head", "cl_head")
 
 
@@ -38,8 +41,10 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield prefix + (key,), value
 
 
-def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Map flax variables to the port's state_dict (float32 CPU tensors)."""
+def flax_to_state_dict(variables: Mapping, training_heads: bool = False
+                       ) -> Dict[str, torch.Tensor]:
+    """Map flax variables to the port's state_dict (float32 CPU tensors);
+    the aux heads' leaves only with training_heads."""
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         if collection not in ("params", "batch_stats"):
@@ -47,9 +52,9 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         for path, leaf in _leaves(tree):
             top, name = path[0], path[-1]
             where = "/".join((collection,) + path)
-            if top in TRAINING_ONLY_MODULES:
+            if top in TRAINING_ONLY_MODULES and not training_heads:
                 continue
-            if top not in INFERENCE_MODULES:
+            if top not in INFERENCE_MODULES + TRAINING_ONLY_MODULES:
                 raise ValueError(f"no counterpart in the port for {where}")
             arr = np.asarray(leaf, dtype=np.float32)
             module = ".".join(path[:-1])

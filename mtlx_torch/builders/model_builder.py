@@ -1,6 +1,7 @@
 """model_builder — pipeline proto -> detector (port of
 mtlx/builders/model_builder.py), Faster R-CNN with the
-mask_rcnn_box_predictor only."""
+mask_rcnn_box_predictor only. At is_training=True the MTL heads are on
+as the proto asks; the hard example miner raises."""
 
 from __future__ import annotations
 
@@ -96,8 +97,11 @@ def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
     predictor_kind = sp.WhichOneof("box_predictor_oneof")
     if predictor_kind == "rfcn_box_predictor":
         raise NotImplementedError("R-FCN is not ported: ROADMAP.md queue 1, R-FCN")
-    # hard_example_miner shapes only the training loss; its config comes
-    # with the training slice and stays None here
+    if is_training and fr.HasField("hard_example_miner"):
+        raise NotImplementedError(
+            "the hard example miner is not ported: ROADMAP.md queue 1, slice 2 "
+            "(hard_example_mining_mask)"
+        )
     use_dropout, keep_prob, fc_init = False, 1.0, None
     predict_masks, mask_depth = False, 256
     if predictor_kind == "mask_rcnn_box_predictor":
@@ -181,8 +185,4 @@ def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
 def build(model_proto, is_training: bool, max_gt_boxes: int = 100,
           dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None) -> FasterRCNN:
     """Dispatch on the model oneof, mirroring the reference's build()."""
-    if is_training:
-        raise NotImplementedError(
-            "training models come with the training slice: ROADMAP.md queue 1, slice 2"
-        )
     return FasterRCNN(build_config(model_proto, is_training, max_gt_boxes, dtype), device)

@@ -1,15 +1,32 @@
-"""Faster R-CNN, inference half (port of mtlx/detector/faster_rcnn.py).
+"""Faster R-CNN with the MTL-SSL auxiliary tasks (port of
+mtlx/detector/faster_rcnn.py): serving (`predict`, `postprocess`) and
+training (`predict_train`, `loss`).
 
 Coordinate convention: absolute pixels on the compute canvas inside
 predict; `postprocess` re-expresses detections normalized to each image's
 true (pre-padding) extent, as in `mtlx`. The compute canvas is the input
-extent (the 128-bucketed true-image region when served through the
-exporter), and the anchor grid derives from it.
+extent (the 128-bucketed true-image region), and the anchor grid derives
+from it.
 
 On the card the RPN NMS and the postprocess NMS are one launch each of
 the greedy NMS kernel, and the ROI crop is one launch of the crop kernel
-(mtlx_torch/kernels). Training (`training=True`) comes with the next
-slice of the port.
+(mtlx_torch/kernels). A training step adds three launches of the IoU
+kernel (proposal sampling, and the RPN and second-stage target
+assignments) and one of the crop's backward kernel.
+
+Serving runs under `torch.inference_mode()`; training keeps mtlx's
+stop-gradients: the RPN outputs enter the proposal selection detached,
+so NMS is never differentiated, and proposals, ground-truth windows,
+labels and targets are constants.
+
+Randomness: mtlx draws `jax.random.uniform` inside the step. The port
+takes the draws as a dict of tensors (`mtlx_torch.train.train_step
+.make_draws` makes them; a test can inject JAX's):
+  * "proposal_pos", "proposal_neg": [B, first_stage_max_proposals], the
+    second-stage proposal sampler
+  * "anchor_pos", "anchor_neg": [B, A], the RPN minibatch sampler
+  * "window_scale", "window_offset": [B, G, 2], only with
+    mtl.window_sampling
 """
 
 from __future__ import annotations
@@ -23,11 +40,15 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from mtlx_torch.anchors.grid import GridAnchorGenerator
+from mtlx_torch.assign import matcher as matcher_lib
+from mtlx_torch.assign import samplers, target_assigner
 from mtlx_torch.backbones import resnet
 from mtlx_torch.coders import box_coders
 from mtlx_torch.device import DeviceLike, resolve_device
 from mtlx_torch.geometry import box_ops
-from mtlx_torch.heads import box_predictors
+from mtlx_torch.heads import aux_heads, box_predictors
+from mtlx_torch.labels import recycle
+from mtlx_torch.losses import losses as loss_lib
 from mtlx_torch.ops import nms as nms_lib
 from mtlx_torch.ops import roi as roi_lib
 
@@ -46,6 +67,10 @@ class MTLConfig:
     closeness_sigma: float = 0.5
     window_sampling: bool = False
     refine: bool = False  # paper's feature-refinement path
+
+    @property
+    def any(self) -> bool:
+        return self.multiobject or self.closeness or self.foreground
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +187,21 @@ def flagship_config(dtype=torch.bfloat16) -> FasterRCNNConfig:
     )
 
 
+def flagship_train_config(dtype=torch.bfloat16) -> FasterRCNNConfig:
+    """The FasterRCNNConfig that configs/faster_rcnn_resnet50_mtl_voc0712.config
+    builds to at is_training=True: the serving config plus the three MTL
+    tasks (multi-object window 0.3, closeness 0.3, foreground mask 0.5).
+    Needs no protobuf; a test holds it equal to the parsed file."""
+    return dataclasses.replace(
+        flagship_config(dtype),
+        mtl=MTLConfig(
+            multiobject=True, closeness=True, foreground=True,
+            multiobject_weight=_f32(0.3), closeness_weight=_f32(0.3),
+            foreground_weight=0.5, window_enlarge_factor=2.0, closeness_sigma=0.5,
+        ),
+    )
+
+
 _F32_TINY = torch.finfo(torch.float32).tiny
 
 
@@ -181,7 +221,8 @@ def softmax(logits: Tensor) -> Tensor:
 
 class FasterRCNNModules(nn.Module):
     """All parameters of the detector, named as mtlx's flax modules:
-    backbone, classifier_backbone, rpn, box_predictor."""
+    backbone, classifier_backbone, rpn, box_predictor, and the MTL heads
+    fg_head, mo_head, cl_head when their tasks are on."""
 
     def __init__(self, cfg: FasterRCNNConfig):
         super().__init__()
@@ -196,8 +237,8 @@ class FasterRCNNModules(nn.Module):
             )
         if cfg.mtl.refine and (cfg.mtl.multiobject or cfg.mtl.closeness):
             raise NotImplementedError(
-                "the MTL refine path needs the aux heads and mean_pooled_crop: "
-                "ROADMAP.md queue 1"
+                "the MTL refine path (aux hidden features fused into the box "
+                "predictor) is not ported: ROADMAP.md queue 1, the MTL refine path"
             )
         bn = (resnet.BNSpec(*cfg.batch_norm_params)
               if cfg.batch_norm_params is not None else resnet.BNSpec())
@@ -216,6 +257,14 @@ class FasterRCNNModules(nn.Module):
         self.box_predictor = box_predictors.MaskRCNNBoxPredictor(
             2048, cfg.num_classes, cfg.dtype
         )
+        # the aux heads read the stride-16 map (1024 channels) and windows
+        # mean-pooled from it
+        if cfg.mtl.foreground:
+            self.fg_head = aux_heads.ForegroundHead(1024, dtype=cfg.dtype)
+        if cfg.mtl.multiobject:
+            self.mo_head = aux_heads.MultiObjectHead(1024, cfg.num_classes, dtype=cfg.dtype)
+        if cfg.mtl.closeness:
+            self.cl_head = aux_heads.ClosenessHead(1024, cfg.num_classes, dtype=cfg.dtype)
 
     def classify_rois(self, roi_crops: Tensor):
         """[N, h, w, 1024] ROI crops -> block4 -> mean pool -> (class
@@ -262,6 +311,12 @@ class FasterRCNN:
         )
         self._anchor_cache: Dict[Tuple[int, int], Tensor] = {}
         self.box_coder = box_coders.make_faster_rcnn_coder()
+        self._proposal_assigner = target_assigner.create_target_assigner(
+            "FasterRCNN", "proposal"
+        )
+        self._detection_assigner = target_assigner.create_target_assigner(
+            "FasterRCNN", "detection"
+        )
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Random weights from `generator` (a CPU generator), drawn as
@@ -297,14 +352,18 @@ class FasterRCNN:
 
     def anchors_for(self, canvas_hw: Tuple[int, int]) -> Tensor:
         """Anchor grid for a compute canvas of (h, w) pixels, clipped to
-        it; cached per canvas on the model's device."""
+        it; cached per canvas on the model's device. Made outside
+        inference mode (and without autograd), so serving and training
+        share the cache: an inference tensor could not be saved for a
+        backward pass."""
         key = (int(canvas_hw[0]), int(canvas_hw[1]))
         hit = self._anchor_cache.get(key)
         if hit is None:
-            s = self.cfg.feature_stride
-            raw = self._anchor_gen.generate((-(-key[0] // s), -(-key[1] // s)))
-            window = torch.tensor([0.0, 0.0, float(key[0]), float(key[1])])
-            hit = box_ops.clip_to_window(raw, window).to(self.device)
+            with torch.inference_mode(False), torch.no_grad():
+                s = self.cfg.feature_stride
+                raw = self._anchor_gen.generate((-(-key[0] // s), -(-key[1] // s)))
+                window = torch.tensor([0.0, 0.0, float(key[0]), float(key[1])])
+                hit = box_ops.clip_to_window(raw, window).to(self.device)
             self._anchor_cache[key] = hit
         return hit
 
@@ -318,12 +377,14 @@ class FasterRCNN:
     @torch.inference_mode()
     def predict(self, images: Tensor, true_shapes: Tensor,
                 training: bool = False) -> Dict[str, Tensor]:
-        """Run both stages. images: [B, H, W, 3] preprocessed on the compute
-        canvas; true_shapes: [B, 2] (true h, w) of each image pre-padding."""
+        """Serve both stages. images: [B, H, W, 3] preprocessed on the
+        compute canvas; true_shapes: [B, 2] (true h, w) of each image
+        pre-padding. Training goes through `predict_train` (inference
+        mode here would keep any gradient from flowing)."""
         if training:
             raise NotImplementedError(
-                "training predict (proposal sampling, losses) comes with the "
-                "training slice: ROADMAP.md queue 1, slice 2"
+                "predict is the serving entry; training predicts with "
+                "predict_train(images, true_shapes, groundtruth, draws)"
             )
         c = self.cfg
         canvas_hw = (int(images.shape[1]), int(images.shape[2]))
@@ -349,9 +410,51 @@ class FasterRCNN:
         pred["refined_box_encodings"] = box_refine
         return pred
 
-    @torch.inference_mode()
-    def _predict_second_stage(self, feats: Tensor, proposals: Tensor,
-                              canvas_hw: Optional[Tuple[int, int]] = None):
+    def predict_train(self, images: Tensor, true_shapes: Tensor,
+                      groundtruth: Dict[str, Tensor],
+                      draws: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The training forward (mtlx predict(training=True)): both stages
+        on second_stage_batch_size proposals sampled against the ground
+        truth, and the MTL aux heads. groundtruth: boxes [B, G, 4] canvas
+        px, classes [B, G] (0-based), mask [B, G] bool; draws: see the
+        module docstring."""
+        c = self.cfg
+        if c.second_stage_dropout:
+            raise NotImplementedError(
+                "second-stage dropout in training is not ported: ROADMAP.md "
+                "queue 1, the box predictor's dropout"
+            )
+        canvas_hw = (int(images.shape[1]), int(images.shape[2]))
+        anchors = self.anchors_for(canvas_hw)
+        feats = self.modules.backbone(images)
+        obj_logits, box_enc = self.modules.rpn(feats)
+        with torch.no_grad():  # proposals are a constant of the second stage
+            proposals, _, proposal_mask = self._proposals(
+                obj_logits.detach(), box_enc.detach(), true_shapes, anchors
+            )
+            proposals, proposal_mask = self._sample_proposals(
+                proposals, proposal_mask, groundtruth,
+                (draws["proposal_pos"], draws["proposal_neg"]),
+            )
+        pred: Dict[str, Tensor] = {
+            "rpn_features": feats,
+            "rpn_objectness_logits": obj_logits,
+            "rpn_box_encodings": box_enc,
+            "anchors": anchors,
+            "proposal_boxes": proposals,
+            "proposal_mask": proposal_mask,
+        }
+        if c.number_of_stages == 1:
+            return pred
+        cls_logits, box_refine = self._second_stage(feats, proposals, canvas_hw)
+        pred["class_predictions"] = cls_logits
+        pred["refined_box_encodings"] = box_refine
+        if c.mtl.any:
+            self._predict_aux(pred, feats, groundtruth, canvas_hw, draws)
+        return pred
+
+    def _second_stage(self, feats: Tensor, proposals: Tensor,
+                      canvas_hw: Optional[Tuple[int, int]] = None):
         """ROI crop -> maxpool -> block4 -> FC heads. Returns
         (class_predictions [B, P, K+1], refined_box_encodings [B, P, K, 4])."""
         c = self.cfg
@@ -370,8 +473,40 @@ class FasterRCNN:
         return cls_logits.reshape(b, p, -1), box_refine.reshape(b, p, -1, 4)
 
     @torch.inference_mode()
-    def _postprocess_rpn(self, obj_logits: Tensor, box_enc: Tensor,
-                         true_shapes: Tensor, anchors: Optional[Tensor] = None):
+    def _predict_second_stage(self, feats: Tensor, proposals: Tensor,
+                              canvas_hw: Optional[Tuple[int, int]] = None):
+        """The serving second stage (`_second_stage` in inference mode)."""
+        return self._second_stage(feats, proposals, canvas_hw)
+
+    def _predict_aux(self, pred: Dict[str, Tensor], feats: Tensor,
+                     gt: Dict[str, Tensor], canvas_hw: Tuple[int, int],
+                     draws: Dict[str, Tensor]) -> None:
+        """The aux heads on ground-truth-derived windows (annotation
+        recycling), mean-pooled from the stride-16 map."""
+        c = self.cfg
+        ch, cw = canvas_hw
+        canvas = torch.tensor([ch, cw, ch, cw], dtype=torch.float32, device=feats.device)
+        if c.mtl.foreground:
+            pred["foreground_logits"] = self.modules.fg_head(feats)
+
+        def pool(boxes_norm):
+            return roi_lib.mean_pooled_crop(feats, boxes_norm, (7, 7)).float()  # [B, G, C]
+
+        if c.mtl.multiobject:
+            if c.mtl.window_sampling:
+                windows = recycle.sampled_windows(
+                    gt["boxes"], c.mtl.window_enlarge_factor,
+                    (draws["window_scale"], draws["window_offset"]),
+                )
+            else:
+                windows = recycle.enlarged_windows(gt["boxes"], c.mtl.window_enlarge_factor)
+            pred["multiobject_windows"] = windows
+            pred["multiobject_logits"], _ = self.modules.mo_head(pool(windows / canvas))
+        if c.mtl.closeness:
+            pred["closeness_logits"], _ = self.modules.cl_head(pool(gt["boxes"] / canvas))
+
+    def _proposals(self, obj_logits: Tensor, box_enc: Tensor,
+                   true_shapes: Tensor, anchors: Optional[Tensor] = None):
         """Decode anchors -> clip to the true image -> top-K -> NMS, all
         images in one NMS launch."""
         c = self.cfg
@@ -404,6 +539,143 @@ class FasterRCNN:
         proposals = torch.gather(top_boxes, 1, idx[..., None].expand(*idx.shape, 4))
         scores_out = torch.where(keep, torch.gather(top_scores, 1, idx), 0.0)
         return proposals, scores_out, keep
+
+    @torch.inference_mode()
+    def _postprocess_rpn(self, obj_logits: Tensor, box_enc: Tensor,
+                         true_shapes: Tensor, anchors: Optional[Tensor] = None):
+        """The serving RPN postprocess (`_proposals` in inference mode)."""
+        return self._proposals(obj_logits, box_enc, true_shapes, anchors)
+
+    def _sample_proposals(self, proposals: Tensor, proposal_mask: Tensor,
+                          gt: Dict[str, Tensor], uniforms: Tuple[Tensor, Tensor]):
+        """Balanced-sample second_stage_batch_size proposals per image and
+        compact them to the front (stable: the sampled in their order)."""
+        c = self.cfg
+        res = self._detection_assigner.assign(proposals, gt["boxes"], gt_mask=gt["mask"])
+        positive = (res.match >= 0) & proposal_mask
+        indicator = proposal_mask & (res.match != matcher_lib.IGNORED)
+        sampled = samplers.balanced_subsample(
+            indicator, positive, c.second_stage_batch_size,
+            c.second_stage_balance_fraction, uniforms,
+        )
+        order = torch.argsort((~sampled).to(torch.uint8), dim=-1, stable=True)
+        idx = order[:, : c.second_stage_batch_size]
+        return matcher_lib.take_rows(proposals, idx), torch.gather(sampled, 1, idx)
+
+    # ---- losses ----
+
+    def loss(self, pred: Dict[str, Tensor], gt: Dict[str, Tensor],
+             draws: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The joint loss: `Loss/*` terms and their sum `total_loss`."""
+        c = self.cfg
+        if c.hard_example_miner is not None:
+            raise NotImplementedError(
+                "the hard example miner is not ported: ROADMAP.md queue 1, "
+                "slice 2 (hard_example_mining_mask)"
+            )
+        out: Dict[str, Tensor] = {}
+        out.update(self._first_stage_loss(pred, gt, (draws["anchor_pos"], draws["anchor_neg"])))
+        if c.number_of_stages > 1:
+            out.update(self._second_stage_loss(pred, gt))
+            if c.mtl.any:
+                out.update(self._aux_loss(pred, gt))
+        out["total_loss"] = sum(v for k, v in out.items() if k.startswith("Loss/"))
+        return out
+
+    def _first_stage_loss(self, pred, gt, uniforms):
+        c = self.cfg
+        res = self._proposal_assigner.assign(pred["anchors"], gt["boxes"], gt_mask=gt["mask"])
+        indicator = res.cls_weights > 0  # drops ignored anchors
+        positive = res.match >= 0
+        sampled = samplers.balanced_subsample(
+            indicator, positive, c.first_stage_minibatch_size,
+            c.first_stage_positive_balance_fraction, uniforms,
+        )
+        weights = sampled.float()
+        normalizer = torch.clamp_min(weights.sum(-1), 1.0)  # [B]
+        t = res.cls_targets[..., 0]
+        onehot = torch.stack([1.0 - t, t], dim=-1)
+        obj_loss = loss_lib.weighted_softmax_classification_loss(
+            pred["rpn_objectness_logits"], onehot, weights
+        )
+        loc_loss = loss_lib.weighted_smooth_l1_loss(
+            pred["rpn_box_encodings"], res.reg_targets, res.reg_weights * sampled
+        )
+        return {
+            "Loss/RPNLoss/objectness_loss": (obj_loss.sum(-1) / normalizer).mean()
+            * c.first_stage_objectness_loss_weight,
+            "Loss/RPNLoss/localization_loss": (loc_loss.sum(-1) / normalizer).mean()
+            * c.first_stage_localization_loss_weight,
+        }
+
+    def _second_stage_loss(self, pred, gt):
+        c = self.cfg
+        k = c.num_classes
+        onehot = recycle.one_hot(gt["classes"] + 1, k + 1)  # column 0 = background
+        background = recycle.one_hot(torch.zeros((), dtype=torch.int64, device=onehot.device),
+                                     k + 1)
+        res = self._detection_assigner.assign(
+            pred["proposal_boxes"], gt["boxes"], gt_labels=onehot, gt_mask=gt["mask"],
+            unmatched_cls_target=background,
+        )
+        w = pred["proposal_mask"].float()
+        cls_loss = loss_lib.weighted_softmax_classification_loss(
+            pred["class_predictions"], res.cls_targets, res.cls_weights * w
+        )
+        # per-class box refinement: the target class's row
+        box_refine = pred["refined_box_encodings"]  # [B, P, num_box, 4]
+        num_box = box_refine.shape[2]
+        if num_box == 1:
+            row = torch.zeros(res.match.shape, dtype=torch.int64, device=w.device)
+        else:
+            row = torch.clamp(torch.argmax(res.cls_targets[..., 1:], dim=-1), 0, num_box - 1)
+        enc = torch.take_along_dim(box_refine, row[..., None, None].expand(*row.shape, 1, 4),
+                                   dim=2)[..., 0, :]
+        loc_loss = loss_lib.weighted_smooth_l1_loss(enc, res.reg_targets, res.reg_weights * w)
+        normalizer = torch.clamp_min(w.sum(-1), 1.0)
+        return {
+            "Loss/BoxClassifierLoss/classification_loss": (cls_loss.sum(-1) / normalizer).mean()
+            * c.second_stage_classification_loss_weight,
+            "Loss/BoxClassifierLoss/localization_loss": (loc_loss.sum(-1) / normalizer).mean()
+            * c.second_stage_localization_loss_weight,
+        }
+
+    def _aux_loss(self, pred, gt):
+        c = self.cfg
+        out = {}
+        s = c.feature_stride
+        feats = pred["rpn_features"]
+        canvas_h, canvas_w = feats.shape[1] * s, feats.shape[2] * s
+        mask = gt["mask"]
+        if c.mtl.foreground and "foreground_logits" in pred:
+            logits = pred["foreground_logits"]  # [B, Hf, Wf]
+            norm = torch.tensor([canvas_h, canvas_w, canvas_h, canvas_w],
+                                dtype=torch.float32, device=logits.device)
+            target = recycle.foreground_mask(gt["boxes"] / norm, mask, tuple(logits.shape[1:]))
+            ce = loss_lib.sigmoid_cross_entropy(logits, target)
+            out["Loss/MTL/foreground_loss"] = ce.mean() * c.mtl.foreground_weight
+
+        def soft_ce(logits, labels, weight):
+            valid = mask & (labels.sum(-1) > 0)
+            ce = loss_lib.softmax_cross_entropy(logits, labels)
+            denom = torch.clamp_min(valid.float().sum(), 1.0)
+            return (ce * valid).sum() / denom * weight
+
+        if c.mtl.multiobject and "multiobject_logits" in pred:
+            labels = recycle.multiobject_labels(
+                pred["multiobject_windows"], gt["boxes"], gt["classes"], mask, c.num_classes
+            )
+            out["Loss/MTL/multiobject_loss"] = soft_ce(
+                pred["multiobject_logits"], labels, c.mtl.multiobject_weight
+            )
+        if c.mtl.closeness and "closeness_logits" in pred:
+            labels = recycle.closeness_labels(
+                gt["boxes"], gt["classes"], mask, c.num_classes, c.mtl.closeness_sigma
+            )
+            out["Loss/MTL/closeness_loss"] = soft_ce(
+                pred["closeness_logits"], labels, c.mtl.closeness_weight
+            )
+        return out
 
     # ---- postprocess ----
 

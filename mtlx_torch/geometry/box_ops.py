@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from mtlx_torch.kernels import iou_cuda
+
 # divisor guard for IoU ratios; must match mtlx's 1e-30 (a larger floor
 # gives tiny-but-real unions an arbitrary partial IoU)
 EPSILON = 1e-30
@@ -52,12 +54,31 @@ def intersection(boxes1: Tensor, boxes2: Tensor) -> Tensor:
 
 
 def iou(boxes1: Tensor, boxes2: Tensor) -> Tensor:
-    """Pairwise IoU. [..., N, 4] x [..., M, 4] -> [..., N, M].
+    """Pairwise IoU. [..., N, 4] x [..., M, 4] -> [..., N, M] (leading
+    dims broadcast). Pairs whose union is not positive (zero-area padding
+    rows) get 0.
 
-    Pairs whose union is not positive (zero-area padding rows) get 0."""
+    CPU tensors take the plain version; on CUDA tensors the leading dims
+    fold into the problems of one launch of the IoU kernel (a side whose
+    leading dims are all 1 is shared by every problem)."""
+    if boxes1.device.type == "cpu":
+        return iou_cuda.iou_matrix_plain(boxes1, boxes2)
+    lead = torch.broadcast_shapes(boxes1.shape[:-2], boxes2.shape[:-2])
+
+    def fold(b: Tensor) -> Tensor:
+        if b.shape[:-2].numel() == 1:
+            return b.reshape(1, *b.shape[-2:]).float().contiguous()
+        return b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:]).float().contiguous()
+
+    out = iou_cuda.iou_matrix(fold(boxes1), fold(boxes2))
+    return out.reshape(*lead, boxes1.shape[-2], boxes2.shape[-2])
+
+
+def ioa(boxes1: Tensor, boxes2: Tensor) -> Tensor:
+    """Pairwise intersection over the area of boxes2. [..., N, M]."""
     inter = intersection(boxes1, boxes2)
-    union = area(boxes1)[..., :, None] + area(boxes2)[..., None, :] - inter
-    return torch.where(union > 0, inter / torch.clamp_min(union, EPSILON), 0.0)
+    a2 = area(boxes2)[..., None, :]
+    return torch.where(a2 > 0, inter / torch.clamp_min(a2, EPSILON), 0.0)
 
 
 def clip_to_window(boxes: Tensor, window: Tensor) -> Tensor:

@@ -1,7 +1,8 @@
 """Faster R-CNN box predictor heads (port of mtlx/heads/box_predictors.py).
 
-Both heads compute in the module dtype (bfloat16 on the card) and emit
-float32 outputs, so the softmax and the decode run in float32.
+Both heads hold float32 parameters, compute in the module dtype (bfloat16
+on the card) and emit float32 outputs, so the softmax and the decode run
+in float32.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from mtlx_torch.backbones.resnet import same_pad
+from mtlx_torch.layers import Conv2d, Linear
 
 
 class RPNHead(nn.Module):
@@ -29,10 +31,10 @@ class RPNHead(nn.Module):
         self.atrous_rate = atrous_rate
         self.dtype = dtype
         a = num_anchors_per_location
-        self.conv = nn.Conv2d(in_channels, depth, kernel_size,
-                              dilation=atrous_rate, dtype=dtype)
-        self.objectness = nn.Conv2d(depth, 2 * a, 1, dtype=dtype)
-        self.box_encodings = nn.Conv2d(depth, 4 * a, 1, dtype=dtype)
+        self.conv = Conv2d(in_channels, depth, kernel_size, dilation=atrous_rate,
+                           compute_dtype=dtype)
+        self.objectness = Conv2d(depth, 2 * a, 1, compute_dtype=dtype)
+        self.box_encodings = Conv2d(depth, 4 * a, 1, compute_dtype=dtype)
 
     def forward(self, features: Tensor):
         b = features.shape[0]
@@ -56,8 +58,8 @@ class MaskRCNNBoxPredictor(nn.Module):
         super().__init__()
         self.num_classes = num_classes
         self.dtype = dtype
-        self.class_logits = nn.Linear(in_features, num_classes + 1, dtype=dtype)
-        self.box_refinement = nn.Linear(in_features, num_classes * 4, dtype=dtype)
+        self.class_logits = Linear(in_features, num_classes + 1, compute_dtype=dtype)
+        self.box_refinement = Linear(in_features, num_classes * 4, compute_dtype=dtype)
 
     def forward(self, pooled: Tensor):
         x = pooled.to(self.dtype)

@@ -32,6 +32,10 @@ SIGNATURES = {
     },
     "roi_crop": {
         "mtlx_roi_crop_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "mtlx_roi_crop_bwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "iou": {
+        "mtlx_iou_f32": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     },
 }
 SOURCES = tuple(SIGNATURES)

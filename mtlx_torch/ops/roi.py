@@ -4,8 +4,13 @@ mtlx/ops/roi.py).
 Normalized box corners map to pixel centres of the source
 (`y1 * (H - 1) .. y2 * (H - 1)`), the bilinear sample grid includes both
 corners, and out-of-range samples read 0. On the card every crop is one
-launch of the gather-bilinear kernel (mtlx_torch/kernels/roi_cuda.py);
-on the CPU its plain version runs.
+launch of the gather-bilinear kernel (mtlx_torch/kernels/roi_cuda.py),
+and its d(features) one launch of the backward kernel; on the CPU their
+plain versions run.
+
+`mean_pooled_crop` (the aux heads' pooling) stays two plain contractions
+with the per-box mean interpolation weights, as in mtlx, and autograd
+differentiates it.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import Tensor
 
 from mtlx_torch.kernels import roi_cuda
@@ -53,3 +59,35 @@ def batch_crop_and_resize(
     """[B, H, W, C] x [B, N, 4] -> [B, N, ch, cw, C] (per-image boxes),
     one kernel launch for the whole batch."""
     return roi_cuda.crop_and_resize(images, boxes, crop_size, **kw)
+
+
+def _interp_matrix(c0: Tensor, c1: Tensor, size: int, limit: int) -> Tensor:
+    """Per-box 1-D bilinear interpolation matrix [..., N, size, limit]:
+    row i holds the two taps of output coordinate i (TF crop_and_resize
+    convention, zeros when the sample falls outside)."""
+    coords = _sample_coords(c0, c1, size, limit)  # [..., N, size]
+    lo = torch.floor(coords)
+    frac = coords - lo
+    lo_i = torch.clamp(lo.to(torch.int64), 0, limit - 1)
+    hi_i = torch.clamp(lo_i + 1, 0, limit - 1)
+    in_range = ((coords >= 0.0) & (coords <= limit - 1)).to(coords.dtype)
+    w_lo = F.one_hot(lo_i, limit).to(coords.dtype) * ((1.0 - frac) * in_range)[..., None]
+    w_hi = F.one_hot(hi_i, limit).to(coords.dtype) * (frac * in_range)[..., None]
+    return w_lo + w_hi
+
+
+def mean_pooled_crop(image: Tensor, boxes: Tensor, crop_size: Tuple[int, int] = (7, 7)) -> Tensor:
+    """`crop_and_resize(image, boxes, crop_size).mean((-3, -2))` without
+    the crop: average-pooling a bilinear resample is a linear functional
+    of the source, so it is two contractions with the per-box mean
+    interpolation weights, in the image's type (mtlx.ops.roi
+    .mean_pooled_crop). image [..., H, W, C], boxes [..., N, 4] ->
+    [..., N, C]."""
+    h, w = image.shape[-3], image.shape[-2]
+    ch, cw = crop_size
+    dt = image.dtype
+    b = boxes.float()
+    ry = _interp_matrix(b[..., 0], b[..., 2], ch, h).mean(dim=-2).to(dt)  # [..., N, H]
+    rx = _interp_matrix(b[..., 1], b[..., 3], cw, w).mean(dim=-2).to(dt)  # [..., N, W]
+    tmp = torch.einsum("...nh,...hwc->...nwc", ry, image)
+    return torch.einsum("...nw,...nwc->...nc", rx, tmp)

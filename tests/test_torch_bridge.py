@@ -97,3 +97,56 @@ def test_flagship_config_matches_both_builders():
         else:
             assert got == want, name
     assert port.num_classes == 20 and port.rpn_depth == 512
+
+
+def test_flagship_train_config_matches_both_builders():
+    from mtlx_torch.detector.faster_rcnn import flagship_train_config
+
+    port_parsed = tbuilder.build_config(
+        tconfig.get_configs_from_pipeline_file(FLAGSHIP)["model"], is_training=True
+    )
+    assert flagship_train_config() == port_parsed
+    ref = jbuilder.build(jconfig.get_configs_from_pipeline_file(FLAGSHIP)["model"],
+                         is_training=True).cfg
+    port = flagship_train_config()
+    for field in dataclasses.fields(ref):
+        want, got = getattr(ref, field.name), getattr(port, field.name)
+        if field.name == "mtl":
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert got.multiobject and got.closeness and got.foreground
+        elif field.name not in ("dtype", "rpn_conv_initializer", "second_stage_fc_initializer"):
+            assert got == want, field.name  # the initializers are checked above
+    assert dataclasses.replace(port, mtl=flagship_config().mtl) == flagship_config()
+
+
+def test_bridge_maps_every_training_leaf_at_depth_50(flagship_shapes):
+    from mtlx_torch.detector.faster_rcnn import flagship_train_config
+
+    state = flax_to_state_dict(_zeros_like(flagship_shapes), training_heads=True)
+    modules = FasterRCNNModules(flagship_train_config())
+    port = modules.state_dict()
+    assert sorted(state) == sorted(port)
+    for key, t in port.items():
+        assert tuple(state[key].shape) == tuple(t.shape), key
+    # every flax param is a trained parameter of the port, every batch
+    # statistic a buffer
+    params = dict(modules.named_parameters())
+    n_params = len(jax.tree_util.tree_leaves(flagship_shapes["params"]))
+    assert len(params) == n_params
+    assert all(k.endswith((".mean", ".var")) for k in set(port) - set(params))
+    assert all(p.dtype == torch.float32 for p in params.values())
+
+
+def test_optimizer_builder_matches_mtlx():
+    from mtlx.builders import optimizer_builder as jopt
+    from mtlx_torch.builders import optimizer_builder as topt
+
+    tc = tconfig.get_configs_from_pipeline_file(FLAGSHIP)["train_config"]
+    jc = jconfig.get_configs_from_pipeline_file(FLAGSHIP)["train_config"]
+    tx, lr, ema = topt.build(tc.optimizer, tc)
+    _, jlr, jema = jopt.build(jc.optimizer, jc)
+    assert ema is None and jema is None
+    assert tx.momentum == pytest.approx(0.9) and tx.clip == 10.0
+    assert not tx.bias_grad_multiplier and not tx.freeze
+    for count in (0, 59999, 60000, 79999, 80000, 89999):
+        assert np.float32(jlr(count)) == lr(count), count
