@@ -12,20 +12,31 @@ Phases (any failure exits non-zero):
      parallel), timed
   3. each kernel against its plain version on the card: greedy NMS at
      1 x 6000 -> 300 (IoU 0.7), 40 x 300 -> 100 (IoU 0.6) and 16 x 6000
-     -> 300 (training), selections equal exactly; the ROI crop at
+     -> 300 (training), selections equal exactly, and on an unsorted
+     input, an all-dead problem, a problem with fewer live rows than
+     max_out, N = 1917 and N = 301, in both forms of the kernels (the
+     single launch and the banded pipeline) where N allows; the device
+     time of the stages (rank, order, mask, scan), the time at 1 x 6000
+     and 16 x 6000 on an input whose picks come from every band of rows
+     (299 clusters), and the time of either form at small N; the ROI crop
+     at
      40x64x1024 with 300 boxes -> 14x14 (and 16 images x 64 boxes),
      float32 within 1e-5 and bfloat16 within one bfloat16 ulp of the
      float32 result; the IoU matrix at 16 x 100 x 30720 (padded, zero-area,
      identical and touching boxes), bit-equal; the crop backward at
      16 x 64 boxes x 14x14x1024 -> 16x40x64x1024 in float32 (within 1e-4
-     of each pixel's sum of term magnitudes: the atomics add in no fixed
-     order) and bfloat16 (within one bfloat16 ulp of the float32 result
-     plus that), and at crop size 1; each timed with CUDA events beside
-     its plain version and, where one PyTorch call computes the same
-     function, that call
+     of each pixel's sum of term magnitudes: the gather adds a pixel's
+     terms in another order than the plain version) and bfloat16 (within
+     one bfloat16 ulp of the float32 result plus that), at crop size 1,
+     with boxes on integer pixel coordinates and on the whole canvas
+     (more boxes than one batch of the kernel's sample tables), and twice
+     on the same input with bit-equal results; each timed with CUDA
+     events beside its plain version and, where one PyTorch call computes
+     the same function, that call
   4. serve: the full-width flagship R50 (bfloat16, seeded random weights)
      answers 600x800, 800x600 and 600x1000 requests one at a time and a
-     batch of two, through both kernels (their launch counts must rise)
+     batch of two, through both kernels (their launch counts must rise);
+     how far into the priority order the RPN's NMS had to walk
   5. the same request in float32 on the card and on the CPU (TF32 off),
      stage by stage, with the tolerances printed beside the differences
   6. train: the full-width flagship MTL R50 (flagship_train_config,
@@ -127,20 +138,112 @@ def nms_case(gen, p: int, n: int):
     return boxes.cuda(), scores.cuda(), valid.cuda()
 
 
+def nms_every_band_case(gen, p: int, n: int, clusters: int = 299):
+    """Rows that are near copies of 299 disjoint boxes, in random order
+    with continuous scores: one pick a cluster, each found early in the
+    order, and then, one pick short of max_out = 300, the scan walks every
+    band of rows to the last one and the whole mask is computed."""
+    at = torch.arange(clusters)
+    corner = torch.stack([at // 23, at % 23], -1).float() * 40.0
+    proto = torch.cat([corner, corner + 20.0], -1)
+    which = torch.randint(0, clusters, (p, n), generator=gen)
+    boxes = proto[which] + torch.randn(p, n, 4, generator=gen) * 0.1
+    scores = 0.05 + 0.9 * torch.rand(p, n, generator=gen)  # all past the threshold 0
+    return boxes.cuda(), scores.cuda(), torch.ones(p, n, dtype=torch.bool).cuda()
+
+
+def nms_rows_walked(scores, valid, score_threshold, idx, keep):
+    """Per problem, how many rows of the priority order the scan visits:
+    up to the last pick where every output slot is filled, else every live
+    row."""
+    n = scores.shape[1]
+    live = valid & (scores > score_threshold) & (scores > -5e9)
+    last = idx[:, -1:].long()
+    s_last = scores.gather(1, last)
+    col = torch.arange(n, device=scores.device)[None]
+    ahead = live & ((scores > s_last) | ((scores == s_last) & (col <= last)))
+    return torch.where(keep[:, -1], ahead.sum(1), live.sum(1))
+
+
+def nms_band_of(rows: int) -> int:
+    """The band of csrc/nms.cu that holds ordered row `rows` (counted from
+    1): the first band is 16 chunks of 64 rows, each next one doubles."""
+    band, chunks, end = 1, 16, 16 * 64
+    while rows > end:
+        band, chunks = band + 1, chunks * 2
+        end += chunks * 64
+    return band
+
+
+def record_nms_calls(fn):
+    """Run fn() with every call of the NMS wrapper recorded: returns
+    [(P, N, max_out, rows walked per problem), ...]. For a reading outside
+    the runs whose launches are counted."""
+    from mtlx_torch.kernels import nms_cuda
+
+    real = nms_cuda.non_max_suppression
+    calls = []
+
+    def recorder(boxes, scores, valid, max_out, iou_threshold=0.5,
+                 score_threshold=float("-inf")):
+        idx, keep = real(boxes, scores, valid, max_out, iou_threshold, score_threshold)
+        rows = nms_rows_walked(scores, valid, score_threshold, idx, keep)
+        calls.append((*scores.shape, max_out, rows.tolist()))
+        return idx, keep
+
+    recorder.launches = 0  # the wrapper counts on the module's name
+    nms_cuda.non_max_suppression = recorder
+    try:
+        fn()
+    finally:
+        nms_cuda.non_max_suppression = real
+    return calls
+
+
+def log_nms_calls(tag: str, calls):
+    out = []
+    for p, n, max_out, rows in calls:
+        log(f"[{tag}] NMS {p}x{n}->{max_out}: the scan walked {min(rows)}-{max(rows)} ordered "
+            f"rows a problem, into band {nms_band_of(max(max(rows), 1))} of {nms_band_of(n)}")
+        out.append(dict(shape=f"{p}x{n}->{max_out}", rows_walked_max=max(rows),
+                        band=nms_band_of(max(max(rows), 1)), bands=nms_band_of(n)))
+    return out
+
+
+def time_nms(boxes, scores, valid, k, thr, name):
+    """(ms per call from a tight host loop, plain ms, device ms per stage,
+    their sum or None where the profiler recorded no NMS kernel)."""
+    from mtlx_torch.kernels import nms_cuda
+
+    call = lambda: nms_cuda.non_max_suppression(boxes, scores, valid, k, thr, 0.0)
+    ms = cuda_ms(call, 200)
+    plain_ms = cuda_ms(
+        lambda: nms_cuda.non_max_suppression_plain(boxes, scores, valid, k, thr, 0.0), 3
+    )
+    stage_ms = nms_stage_times(call, name)
+    device_ms = sum(v for s_, v in stage_ms.items() if not s_.endswith("_launches")) or None
+    return ms, plain_ms, stage_ms, device_ms
+
+
 def check_nms(gen, results):
     from mtlx_torch.kernels import nms_cuda
 
-    rows = []
-    # the served RPN, the served postprocess, the training step's RPN
-    for p, n, k, thr in ((1, 6000, 300, 0.7), (40, 300, 100, 0.6), (16, 6000, 300, 0.7)):
-        boxes, scores, valid = nms_case(gen, p, n)
+    def equal_to_plain(boxes, scores, valid, k, thr, name):
         idx, keep = nms_cuda.non_max_suppression(boxes, scores, valid, k, thr, 0.0)
         ref_idx, ref_keep = nms_cuda.non_max_suppression_plain(boxes, scores, valid, k, thr, 0.0)
         torch.cuda.synchronize()
         if not (torch.equal(idx, ref_idx) and torch.equal(keep, ref_keep)):
             bad = int((idx != ref_idx).sum() + (keep != ref_keep).sum())
-            raise AssertionError(f"NMS kernel differs from its plain version at "
-                                 f"{p}x{n}->{k}: {bad} slots")
+            raise AssertionError(f"NMS kernels differ from their plain version at "
+                                 f"{name}: {bad} slots")
+        return idx, keep
+
+    rows = []
+    # the served RPN, the served postprocess, the training step's RPN
+    for p, n, k, thr in ((1, 6000, 300, 0.7), (40, 300, 100, 0.6), (16, 6000, 300, 0.7)):
+        shape = f"{p}x{n}->{k}"
+        boxes, scores, valid = nms_case(gen, p, n)
+        idx, keep = equal_to_plain(boxes, scores, valid, k, thr, shape)
         picks = keep.sum(1)
         # work this run needs: every pick made plus the empty pick that ends
         # a problem's loop early, each one pass over the N boxes
@@ -149,16 +252,150 @@ def check_nms(gen, results):
             nbytes=p * n * (16 + 4 + 1) + p * k * (4 + 1),
             ops=steps * n * NMS_OPS_PER_BOX_STEP,
         )
-        ms = cuda_ms(lambda: nms_cuda.non_max_suppression(boxes, scores, valid, k, thr, 0.0), 50)
-        plain_ms = cuda_ms(
-            lambda: nms_cuda.non_max_suppression_plain(boxes, scores, valid, k, thr, 0.0), 3
-        )
-        log(f"[nms] {p}x{n}->{k} iou {thr}: selections equal (exact), "
-            f"{int(picks.sum())} picks; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {t_bound:.5f} ms ({by}), library null")
-        rows.append(dict(shape=f"{p}x{n}->{k}", ms=ms, plain_ms=plain_ms,
-                         bound_ms=t_bound, bound_by=by, max_abs_err=0.0))
+        walked = int(nms_rows_walked(scores, valid, 0.0, idx, keep).max())
+        # ms is what a caller in a tight loop sees: at one problem the host's
+        # time to make the call's launches, longer than the kernels' device_ms
+        ms, plain_ms, stage_ms, device_ms = time_nms(boxes, scores, valid, k, thr, shape)
+        log(f"[nms] {shape} iou {thr}: selections equal (exact), {int(picks.sum())} picks "
+            f"from the first {walked} ordered rows (band {nms_band_of(walked)} of "
+            f"{nms_band_of(n)}); {ms:.4f} ms a call from a tight host loop, plain "
+            f"{plain_ms:.3f} ms, bound {t_bound:.5f} ms ({by}), library null")
+        rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                         max_abs_err=0.0, device_ms=device_ms, stage_ms=stage_ms,
+                         rows_walked_max=walked))
+    # the most a main-path shape can cost: picks from every band of rows
+    for p, n, k, thr in ((1, 6000, 300, 0.7), (16, 6000, 300, 0.7)):
+        shape = f"{p}x{n}->{k} every band"
+        boxes, scores, valid = nms_every_band_case(gen, p, n)
+        idx, keep = equal_to_plain(boxes, scores, valid, k, thr, shape)
+        walked = int(nms_rows_walked(scores, valid, 0.0, idx, keep).min())
+        if walked != n or int(keep.sum(1).max()) >= k:
+            raise AssertionError(f"the {shape} case does not walk every row: {walked} rows, "
+                                 f"{int(keep.sum())} picks")
+        ms, plain_ms, stage_ms, device_ms = time_nms(boxes, scores, valid, k, thr, shape)
+        log(f"[nms] {shape}: selections equal (exact), {int(keep.sum())} picks, all {n} rows "
+            f"walked; {ms:.4f} ms a call from a tight host loop, plain {plain_ms:.3f} ms")
+        rows[0 if p == 1 else 2]["every_band"] = dict(ms=ms, plain_ms=plain_ms,
+                                                      device_ms=device_ms, stage_ms=stage_ms)
     results["nms"] = rows
+    rows[1]["ms_by_form"] = time_nms_forms(gen)
+    check_nms_cases(gen)
+
+
+def time_nms_forms(gen, rounds: int = 3):
+    """Why the wrapper picks the form by N: at the served postprocess's
+    shapes and up to the forms' boundary, milliseconds per call from a
+    tight host loop (what a caller sees) of the single launch and of the
+    banded pipeline, in alternating rounds."""
+    from mtlx_torch.kernels import nms_cuda
+
+    forms = (("single launch", nms_cuda._FORM_SINGLE_LAUNCH), ("banded", nms_cuda._FORM_BANDED))
+    out = {}
+    for p, n in ((40, 300), (20, 300), (40, 512), (2, 512)):
+        boxes, scores, valid = nms_case(gen, p, n)
+        ms = {name: [] for name, _ in forms}
+        for _ in range(rounds):
+            for name, form in forms:
+                ms[name].append(cuda_ms(
+                    lambda: nms_cuda._dispatch(boxes, scores, valid, 100, 0.6, 0.0, form), 200))
+        out[f"{p}x{n}->100"] = ms
+        log(f"[nms] {p}x{n}->100 by form, ms a call from a tight host loop, {rounds} rounds: "
+            + "; ".join(f"{name} " + " ".join(f"{v:.4f}" for v in vals)
+                        for name, vals in ms.items()))
+    return out
+
+
+def nms_stage_times(fn, shape: str, reps: int = 100):
+    """Mean device milliseconds per call of each NMS kernel: rank, order,
+    mask and scan of the banded pipeline, or the single launch
+    (torch.profiler, by kernel name). The profiler can lose
+    the records of a short window, so an empty result is reported and not
+    a failure: the stage times are a reading, not a check."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    stages = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.count == 0:
+            continue
+        for stage in ("rank", "order", "mask", "scan", "nms_small"):
+            if f"{stage}_kernel" in e.key:
+                # the mean launch times the launches a call makes, so an event
+                # the profiler dropped does not shorten the stage
+                launches = max(1, round(e.count / reps))
+                stages[stage] = (stages.get(stage, 0.0)
+                                 + e.self_device_time_total / 1e3 / e.count * launches)
+                stages[f"{stage}_launches"] = stages.get(f"{stage}_launches", 0) + launches
+    log(f"[nms] {shape} stages (profiler, device ms per call): "
+        + (", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in stages.items()) or "not measured (no kernel record)"))
+    return stages
+
+
+def check_nms_cases(gen):
+    """Inputs that stress the order, the mask's ragged edge and the scan's
+    end, in every form of the kernels that takes the N, each exactly equal
+    to the plain version."""
+    from mtlx_torch.kernels import nms_cuda
+
+    def case(name, boxes, scores, valid, k, thr, score_thr):
+        n = scores.shape[1]
+        ref = nms_cuda.non_max_suppression_plain(boxes, scores, valid, k, thr, score_thr)
+        forms = [("by N", nms_cuda._FORM_BY_N), ("banded", nms_cuda._FORM_BANDED)]
+        if n <= nms_cuda.SMALL_MAX_BOXES:
+            forms.append(("single launch", nms_cuda._FORM_SINGLE_LAUNCH))
+        for form_name, form in forms:
+            got = nms_cuda._dispatch(boxes, scores, valid, k, thr, score_thr, form)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                bad = int((got[0] != ref[0]).sum() + (got[1] != ref[1]).sum())
+                raise AssertionError(f"NMS kernels ({form_name}) differ from their plain "
+                                     f"version on {name}: {bad} slots")
+        log(f"[nms] {name}: {tuple(scores.shape)} -> {k}, {int(ref[1].sum())} picks, equal "
+            f"(exact) in forms {[f for f, _ in forms]}")
+
+    # N not a multiple of 64 (SSD's 1917), N on both sides of the forms'
+    # boundary and of the first band's end
+    small = nms_cuda.SMALL_MAX_BOXES
+    for p, n, k in ((3, 1917, 200), (5, 301, 100), (2, small, 100), (2, small + 1, 100),
+                    (2, 1024, 100), (2, 1025, 100)):
+        boxes, scores, valid = nms_case(gen, p, n)
+        case(f"N={n}", boxes, scores, valid, k, 0.6, 0.0)
+    # unsorted: continuous scores in random order, -0.0 and +0.0 among them,
+    # no threshold, so every valid row is live
+    boxes, scores, valid = nms_case(gen, 2, 6000)
+    scores = torch.rand(2, 6000, generator=gen).cuda() - 0.5
+    scores[:, 5] = -0.0
+    scores[:, 9] = 0.0
+    case("unsorted, signed scores", boxes, scores, valid, 300, 0.7, float("-inf"))
+    # all dead: one problem invalid, one below the score threshold
+    boxes, scores, valid = nms_case(gen, 2, 6000)
+    valid[0] = False
+    scores[1] = 0.0
+    case("all dead", boxes, scores, valid, 300, 0.7, 0.0)
+    boxes, scores, valid = nms_case(gen, 2, 300)
+    valid[:] = False
+    case("all dead, small", boxes, scores, valid, 100, 0.6, 0.0)
+    # fewer live rows than max_out: the scan ends on the first dead row
+    boxes, scores, valid = nms_case(gen, 2, 6000)
+    valid = valid & (torch.rand(2, 6000, generator=gen).cuda() < 0.02)
+    case("fewer live rows than max_out", boxes, scores, valid, 300, 0.7, 0.0)
+    # nothing suppressed and max_out = N: the scan walks every band to the end
+    boxes, scores, valid = nms_case(gen, 1, 2048)
+    case("max_out = N, IoU 0.99", boxes, scores, torch.ones_like(valid), 2048, 0.99,
+         float("-inf"))
+    # one tight cluster: the first pick suppresses nearly every row, and the
+    # scan still walks every band
+    _, scores, valid = nms_case(gen, 1, 4000)
+    boxes = (torch.tensor([100.0, 100.0, 160.0, 180.0])
+             + torch.randn(1, 4000, 4, generator=gen)).cuda()
+    case("one cluster", boxes, scores, valid, 300, 0.3, 0.0)
 
 
 def check_roi(gen, results):
@@ -300,6 +537,36 @@ def check_roi_backward(gen, results):
     if not bool((err1 <= _bwd_tolerance(roi_cuda, d1, bx, (7, 9))).all()):
         raise AssertionError(f"crop backward (crop size 1) off by {float(err1.max())}")
 
+    # boxes whose samples fall on integer pixel coordinates (fraction 0:
+    # the hi tap has weight 0) and boxes on the whole canvas (the last
+    # sample's hi tap is clamped), 200 a image: two batches of the
+    # kernel's sample tables; float32 and bfloat16
+    hi_, wi_, ci_, ni_, cs_ = 40, 64, 64, 200, 14
+    y0 = torch.randint(0, hi_ - cs_ + 1, (2, ni_), generator=gen).float()
+    x0 = torch.randint(0, wi_ - cs_ + 1, (2, ni_), generator=gen).float()
+    bxi = torch.stack([y0 / (hi_ - 1), x0 / (wi_ - 1), (y0 + cs_ - 1) / (hi_ - 1),
+                       (x0 + cs_ - 1) / (wi_ - 1)], -1)
+    bxi[:, ::7] = torch.tensor([0.0, 0.0, 1.0, 1.0])
+    bxi = bxi.cuda()
+    di = torch.randn(2, ni_, cs_, cs_, ci_, generator=gen).cuda()
+    toli = _bwd_tolerance(roi_cuda, di, bxi, (hi_, wi_))
+    erri = (roi_cuda.crop_and_resize_backward(di, bxi, (hi_, wi_))
+            - roi_cuda.crop_and_resize_backward_plain(di, bxi, (hi_, wi_))).abs()
+    ratio_i = float((erri / toli.clamp_min(1e-30)).max())
+    if not bool((erri <= toli).all()):
+        raise AssertionError(f"crop backward (integer coordinates, whole canvas) exceeds its "
+                             f"tolerance ({ratio_i:.3g}x)")
+    di16 = di.bfloat16()
+    refi = roi_cuda.crop_and_resize_backward_plain(di16.float(), bxi, (hi_, wi_))
+    ulpi = torch.exp2(torch.floor(torch.log2(refi.abs().clamp_min(1e-30))) - 7)
+    erri16 = (roi_cuda.crop_and_resize_backward(di16, bxi, (hi_, wi_)).float() - refi).abs()
+    ratio_i16 = float((erri16 / (ulpi + toli)).max())
+    if ratio_i16 > 1.0:
+        raise AssertionError(f"crop backward bf16 (integer coordinates, whole canvas) exceeds "
+                             f"one ulp of the f32 result (+ tol): {ratio_i16:.3g}x")
+    log(f"[roi-bwd] integer coordinates and whole-canvas boxes, 2 x {ni_} boxes -> "
+        f"{hi_}x{wi_}x{ci_}: f32 at {ratio_i:.3g} of its tolerance, bf16 at {ratio_i16:.3g}")
+
     # the main path: the second stage of the flagship at batch 16
     b, h, w, c, n, cs = 16, 40, 64, 1024, 64, 14
     corners = torch.rand(b, n, 4, generator=gen) * 1.4 - 0.2  # some past [0, 1]
@@ -325,7 +592,18 @@ def check_roi_backward(gen, results):
     if ratio16 > 1.0:
         raise AssertionError(f"crop backward bf16 exceeds one ulp of the f32 result (+ tol): "
                              f"{ratio16:.3g}x")
+    # a pixel's terms are added in a fixed order: two runs, the same bits
+    for name, d, first in (("float32", dout, got), ("bfloat16", d16, got16)):
+        if not torch.equal(roi_cuda.crop_and_resize_backward(d, boxes, (h, w)), first):
+            raise AssertionError(f"crop backward {name} differs between two runs on one input")
     torch.cuda.synchronize()
+    # what the gather reads: a sample's dout run once for every pixel it
+    # feeds with a non-zero weight (up to 2 x 2), mostly from L2
+    (_, _, y_frac, y_in), (_, _, x_frac, x_in) = roi_cuda._sample_points(boxes, (cs, cs), h, w)
+    taps_y = y_in * (1 + (y_frac != 0))  # [B, N, cs]
+    taps_x = x_in * (1 + (x_frac != 0))
+    tap_reads = int((taps_y[..., :, None] * taps_x[..., None, :]).sum())
+    read_mb = tap_reads * c * 2 / 1e6
 
     # yardstick: the d(input) of F.grid_sample (align_corners=True) on the
     # same points, its grad_input only
@@ -354,12 +632,15 @@ def check_roi_backward(gen, results):
         f"its tolerance (1 ulp of f32 + the f32 tolerance; {worst_ulps:.3f} ulp where the "
         f"sum does not cancel), crop size 1 ok; bf16 "
         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, grid_sampler_2d_backward "
-        f"{library_ms:.4f} ms, bound {t_bound:.4f} ms ({by}); f32 kernel {ms32:.4f} ms")
+        f"{library_ms:.4f} ms, bound {t_bound:.4f} ms ({by}); f32 kernel {ms32:.4f} ms; two "
+        f"runs bit-equal (f32 and bf16); the bf16 gather reads {read_mb:.1f} MB of dout "
+        f"({tap_reads} sample-pixel pairs x {c} channels) for {b * n * cs * cs * c * 2 / 1e6:.1f} "
+        f"MB of dout and writes {b * h * w * c * 2 / 1e6:.1f} MB once, no scratch")
     results["roi_crop_backward"] = dict(
         shape=f"{b}x{n}x{cs}x{cs}x{c}->{b}x{h}x{w}x{c} bf16", ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=t_bound, bound_by=by,
         max_abs_err=float((got16.float() - ref32).abs().max()),
-        f32_max_abs_err=float(err32.max()))
+        f32_max_abs_err=float(err32.max()), f32_ms=ms32, dout_read_mb=read_mb)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -510,9 +791,14 @@ def phase_serve(seed: int, results):
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    with torch.inference_mode():
-        x = torch.from_numpy(images[0]).cuda()[None].float()
-        pred = model.predict(model.preprocess(x), torch.tensor([[600, 800]], device="cuda"))
+    def predict_one():
+        with torch.inference_mode():
+            x = torch.from_numpy(images[0]).cuda()[None].float()
+            return model.predict(model.preprocess(x), torch.tensor([[600, 800]], device="cuda"))
+
+    pred = {}
+    results["serve_nms_calls"] = log_nms_calls(
+        "serve", record_nms_calls(lambda: pred.update(predict_one())))
     kept = int(pred["proposal_mask"].sum())
     log(f"[serve] RPN kept {kept} proposals on a 600x800 image")
     if kept < 1:
@@ -691,7 +977,11 @@ def phase_train(seed: int, results):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     before = {n: p.detach().clone() for n, p in params.items()}
 
-    state, metrics = step_fn(state, batches[0], generator=gen)  # warm-up
+    def warm_up():
+        nonlocal state
+        state, _ = step_fn(state, batches[0], generator=gen)
+
+    results["train_nms_calls"] = log_nms_calls("train", record_nms_calls(warm_up))
     torch.cuda.synchronize()
     reset_kernel_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -791,7 +1081,7 @@ def phase_train_card_vs_cpu(seed: int):
     upd_l2, upd_l2_at = worst(u_g, u_c, l2)
     par_peak, par_peak_at = worst(p_g, p_c, peak)
     # float32 sums taken in another order (cuDNN's algorithms, the crop
-    # backward's atomics) err relative to the magnitudes of their terms, so
+    # backward's per-pixel gather) err relative to the magnitudes of their terms, so
     # a gradient element that cancels can differ by more than its own size
     # suggests; the L2 difference of a tensor is what the update sees
     checks = [("losses and grad_norm, max rel diff", loss_rel, 1e-4),
@@ -859,7 +1149,10 @@ def main(argv=None) -> int:
              launches=results["launches"]["nms"], max_abs_err=nms_rpn["max_abs_err"],
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"], bound_ms=nms_rpn["bound_ms"],
              bound_by=nms_rpn["bound_by"], library_ms=None, shape=nms_rpn["shape"],
-             other_shapes=results["nms"][1:], train_launches=train_launches["nms"]),
+             device_ms=nms_rpn["device_ms"], stage_ms=nms_rpn["stage_ms"],
+             rows_walked_max=nms_rpn["rows_walked_max"], every_band=nms_rpn["every_band"],
+             other_shapes=results["nms"][1:], train_launches=train_launches["nms"],
+             main_path_calls=results["serve_nms_calls"] + results["train_nms_calls"]),
         dict(name="roi_crop", route="cuda", source="mtlx_torch/kernels/csrc/roi_crop.cu",
              replaces="mtlx/kernels/roi_pallas.py:93",
              launches=results["launches"]["roi_crop"], max_abs_err=roi["max_abs_err"],
@@ -876,7 +1169,9 @@ def main(argv=None) -> int:
              replaces="mtlx/kernels/roi_pallas.py:111",
              launches=train_launches["roi_crop_backward"], max_abs_err=bwd["max_abs_err"],
              ms=bwd["ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"],
-             bound_by=bwd["bound_by"], library_ms=bwd["library_ms"], shape=bwd["shape"]),
+             bound_by=bwd["bound_by"], library_ms=bwd["library_ms"], shape=bwd["shape"],
+             f32_ms=bwd["f32_ms"],
+             dout_read_mb=bwd["dout_read_mb"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

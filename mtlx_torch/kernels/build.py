@@ -28,11 +28,12 @@ _F = ctypes.c_float
 # the C interface of each source: function -> (argtypes, restype)
 SIGNATURES = {
     "nms": {
-        "mtlx_nms_f32": ([_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P], _I),
+        "mtlx_nms_scratch_bytes": ([_I, _I, _I], ctypes.c_longlong),
+        "mtlx_nms_f32": ([_P, _P, _P, _I, _I, _I, _F, _F, _P, _I, _P, _P, _P], _I),
     },
     "roi_crop": {
         "mtlx_roi_crop_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "mtlx_roi_crop_bwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "mtlx_roi_crop_bwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     },
     "iou": {
         "mtlx_iou_f32": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),

@@ -1,5 +1,5 @@
 // The ROI crop (TF crop_and_resize contract), gather-bilinear: forward
-// (kernel B) and the d(image) backward (kernel D).
+// (kernel B) and the d(image) backward (kernel D), a gather too.
 //
 // Forward. Replaces the TPU kernel mtlx/kernels/roi_pallas.py _crop_fwd
 // (kernel body _fwd_kernel), reached through crop_and_resize_fused.
@@ -28,29 +28,40 @@
 // _crop_bwd_image (kernel body _bwd_kernel), the d(image) half of the
 // custom VJP _crop_core; the boxes get no gradient, as there.
 //
-// What bounds it on Hopper: bytes, and behind them the atomics. The
-// gradient dout [B, N, ch, cw, C] is read once (411 MB in bf16 at 16 x 64
-// boxes x 14 x 14 x 1024 on the training path) and d(image) [B, H, W, C]
-// written once (84 MB in bf16). Every dout element adds into 4 taps, so
-// the scatter issues 4 adds per element read, into a map that stays in
-// the 50 MB L2 per image.
+// What bounds it on Hopper: bytes. The gradient dout [B, N, ch, cw, C] is
+// read (411 MB in bf16 at 16 x 64 boxes x 14 x 14 x 1024 on the training
+// path) and d(image) [B, H, W, C] written once (84 MB in bf16). A scatter
+// (one thread per sample point, four atomic adds per element read) pays
+// for those bytes four times over in L2 atomics, needs a zeroed float32
+// scratch map and a second pass to round it, and sums in no fixed order.
 //
-// What the design does about it: the TPU kernel carried d(image) in VMEM
-// across a sequential grid over the boxes; Hopper's blocks run in no
-// order, so each thread owns one (box, y, x) sample point and a run of
-// channels (the forward's decomposition), reads its dout run as one
-// 16-byte vector, and adds the four weighted taps into a float32 scratch
-// map with 16-byte vector atomics (float4 atomicAdd, sm_90), so one atomic
-// instruction carries 4 channels. A second pass rounds the scratch to
-// bfloat16 once; an f32 d(image) is the scratch itself.
+// What the design does about it: a gather. The TPU kernel carried d(image)
+// in VMEM across a sequential grid over the boxes; here every pixel of
+// d(image) is owned by one warp, which finds the samples that touch it.
+// The sample coordinates of a box are separable, so a block first puts,
+// for each box of its image and each of the ch + cw sample positions, the
+// lo tap and the fraction (from sample_axis itself: the forward's bits)
+// and each box's row and column extent into shared memory. A warp then
+// takes one pixel: its lanes test 32 boxes' extents at once (one ballot),
+// and for a box that reaches the pixel they test the ch rows and the cw
+// columns of samples at once (two ballots), so the matching (i, j) come
+// out in ascending order with no search. For each match the warp reads
+// dout[b, n, i, j, :] in 16-byte vectors (each lane four runs of 8 bf16 or
+// 4 f32 channels, 512 contiguous bytes a warp and load) and adds
+// g * (wy * wx) into float32 registers. The pixel is written once, rounded
+// once to the gradient's type. No atomics, no memset, no scratch map, no
+// second pass; blocks of one image are neighbours in the grid so its dout
+// (25.7 MB) is re-read from L2 (a sample feeds up to 2 x 2 pixels).
 //
 // Numerics: the same sample coordinates, in-range rule and clamped hi
 // tap as the forward (a clamped tap has weight 0 and is skipped); each
 // tap's weight is (1 - fy or fy) * (1 - fx or fx) and its term g * weight,
-// in f32. The atomics add the terms of one pixel in an order that changes
-// from run to run, so the f32 sum is not deterministic: a pixel's result
-// may differ from the plain version's ordered sum by a few ulp of the sum
-// of its terms' magnitudes (chip_smoke.py holds it to 1e-4 of that sum).
+// in f32. A pixel's terms are added box by box in index order, and within
+// a box by sample row, then sample column, so two runs give the same
+// bits. The plain version adds the same terms in another order
+// (index_add_ tap by tap), so the two agree to float32 rounding of the
+// sum (chip_smoke.py holds it to 1e-4 of the sum of the terms'
+// magnitudes).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -69,7 +80,7 @@ struct Vec<float> {
       const float4 v = *reinterpret_cast<const float4*>(p);
       out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
     } else {
-      for (int j = 0; j < width; ++j) out[j] = p[j];
+      for (int j = 0; j < kN; ++j) out[j] = j < width ? p[j] : 0.0f;
     }
   }
   __device__ static void store(float* p, const float* v, int width, bool vec) {
@@ -90,7 +101,7 @@ struct Vec<__nv_bfloat16> {
       const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
       for (int j = 0; j < kN; ++j) out[j] = __bfloat162float(h[j]);
     } else {
-      for (int j = 0; j < width; ++j) out[j] = __bfloat162float(p[j]);
+      for (int j = 0; j < kN; ++j) out[j] = j < width ? __bfloat162float(p[j]) : 0.0f;
     }
   }
   __device__ static void store(__nv_bfloat16* p, const float* v, int width, bool vec) {
@@ -198,89 +209,179 @@ int launch(const void* image, const void* boxes, void* out, int b, int h,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Adds g[0..width) * wgt into dst (float32), 16-byte atomics when vec.
-template <int kV>
-__device__ __forceinline__ void scatter_add(float* dst, const float* g, float wgt,
-                                            int width, bool vec) {
-  if (wgt == 0.0f) return;
-  if (vec) {
-#pragma unroll
-    for (int j = 0; j < kV; j += 4) {
-      atomicAdd(reinterpret_cast<float4*>(dst + j),
-                make_float4(g[j] * wgt, g[j + 1] * wgt, g[j + 2] * wgt, g[j + 3] * wgt));
-    }
-    return;
-  }
-  for (int j = 0; j < width; ++j) atomicAdd(dst + j, g[j] * wgt);
+// One sample position of a box on one axis: the lo tap (-1 when the
+// sample is out of range) and the fraction towards the hi tap.
+struct Tap {
+  int lo;
+  float frac;
+};
+
+constexpr int kBwdWarps = 8;    // warps of a block, one pixel each per round
+constexpr int kBwdRounds = 4;   // pixels a warp takes, one after another
+constexpr int kBwdRuns = 4;     // 16-byte runs of channels per lane
+constexpr int kBwdTableBytes = 40 * 1024;  // sample tables of one batch of boxes
+
+// The weight with which a sample position feeds pixel coordinate p of its
+// axis: 1 - frac on its lo tap, frac on its hi tap (lo + 1; a hi tap
+// clamped onto lo has frac 0), 0 when it has no tap there.
+__device__ __forceinline__ float tap_weight(const Tap t, int p) {
+  if (t.lo < 0) return 0.0f;
+  if (t.lo == p) return 1.0f - t.frac;
+  return t.lo + 1 == p ? t.frac : 0.0f;
 }
 
 template <typename T>
-__global__ void roi_crop_bwd_kernel(const T* __restrict__ dout,      // [B, N, ch, cw, C]
-                                    const float* __restrict__ boxes,  // [B, N, 4]
-                                    float* __restrict__ dimg,         // [B, H, W, C] f32
-                                    int64_t total, int num_boxes, int h,
-                                    int w, int c, int ch, int cw,
-                                    int chunks) {
+__global__ void __launch_bounds__(kBwdWarps * 32)
+roi_crop_bwd_kernel(const T* __restrict__ dout,       // [B, N, ch, cw, C]
+                    const float* __restrict__ boxes,  // [B, N, 4]
+                    T* __restrict__ dimg,             // [B, H, W, C]
+                    int num_boxes, int h, int w, int c, int ch, int cw,
+                    int box_batch, int pixel_blocks, int slabs) {
   constexpr int kV = Vec<T>::kN;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int chunk = static_cast<int>(t % chunks);
-  int64_t rest = t / chunks;
-  const int x = static_cast<int>(rest % cw);
-  rest /= cw;
-  const int y = static_cast<int>(rest % ch);
-  const int64_t bn = rest / ch;  // b * num_boxes + n
-  const int b = static_cast<int>(bn / num_boxes);
+  extern __shared__ __align__(8) unsigned char smem_raw[];
+  Tap* ytab = reinterpret_cast<Tap*>(smem_raw);   // [box_batch][ch]
+  Tap* xtab = ytab + box_batch * ch;               // [box_batch][cw]
+  int* extent = reinterpret_cast<int*>(xtab + box_batch * cw);  // [box_batch][4]
 
-  const float* box = boxes + bn * 4;
-  const Axis ay = sample_axis(box[0], box[2], ch, y, h);
-  const Axis ax = sample_axis(box[1], box[3], cw, x, w);
-  if (!(ay.in_range && ax.in_range)) return;  // the forward read 0 here
+  // neighbouring blocks share an image (and a slab of channels)
+  const int pixel_block = blockIdx.x % pixel_blocks;
+  const int slab = (blockIdx.x / pixel_blocks) % slabs;
+  const int b = blockIdx.x / (pixel_blocks * slabs);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const bool vec = (c % kV) == 0;  // every row start is 16-byte aligned
+  int c0[kBwdRuns], width[kBwdRuns];
+#pragma unroll
+  for (int k = 0; k < kBwdRuns; ++k) {
+    c0[k] = ((slab * kBwdRuns + k) * 32 + lane) * kV;
+    width[k] = c - c0[k] < kV ? c - c0[k] : kV;  // <= 0: no such run
+  }
+  const float* img_boxes = boxes + static_cast<int64_t>(b) * num_boxes * 4;
+  const bool one_batch = num_boxes <= box_batch;
 
-  const int c0 = chunk * kV;
-  const int width = c - c0 < kV ? c - c0 : kV;
-  const bool vec = (c % kV) == 0;
-  float g[kV];
-  Vec<T>::load(dout + (((bn * ch + y) * cw + x) * static_cast<int64_t>(c)) + c0, g,
-               width, vec);
-  const float wy_lo = 1.0f - ay.frac, wy_hi = ay.frac;
-  const float wx_lo = 1.0f - ax.frac, wx_hi = ax.frac;
-  float* img = dimg + static_cast<int64_t>(b) * h * w * c + c0;
-  const int64_t row_lo = static_cast<int64_t>(ay.lo) * w;
-  const int64_t row_hi = static_cast<int64_t>(ay.hi) * w;
-  scatter_add<kV>(img + (row_lo + ax.lo) * c, g, wy_lo * wx_lo, width, vec);
-  scatter_add<kV>(img + (row_lo + ax.hi) * c, g, wy_lo * wx_hi, width, vec);
-  scatter_add<kV>(img + (row_hi + ax.lo) * c, g, wy_hi * wx_lo, width, vec);
-  scatter_add<kV>(img + (row_hi + ax.hi) * c, g, wy_hi * wx_hi, width, vec);
-}
+  for (int round = 0; round < kBwdRounds; ++round) {
+    const int pixel = (pixel_block * kBwdRounds + round) * kBwdWarps + warp;
+    const bool has_pixel = pixel < h * w;
+    const int py = pixel / w;
+    const int px = pixel - py * w;
+    float acc[kBwdRuns][kV];
+#pragma unroll
+    for (int k = 0; k < kBwdRuns; ++k)
+#pragma unroll
+      for (int j = 0; j < kV; ++j) acc[k][j] = 0.0f;
 
-// Rounds n float32 values to bfloat16, four per thread.
-__global__ void f32_to_bf16_kernel(const float* __restrict__ in,
-                                   __nv_bfloat16* __restrict__ out, int64_t n) {
-  const int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (i + 4 <= n) {
-    const float4 v = *reinterpret_cast<const float4*>(in + i);
-    out[i] = __float2bfloat16_rn(v.x);
-    out[i + 1] = __float2bfloat16_rn(v.y);
-    out[i + 2] = __float2bfloat16_rn(v.z);
-    out[i + 3] = __float2bfloat16_rn(v.w);
-  } else {
-    for (int64_t j = i; j < n; ++j) out[j] = __float2bfloat16_rn(in[j]);
+    for (int batch0 = 0; batch0 < num_boxes; batch0 += box_batch) {
+      const int nb = min(box_batch, num_boxes - batch0);
+      if (round == 0 || !one_batch) {
+        __syncthreads();  // the last batch's readers are done
+        for (int e = tid; e < nb * (ch + cw); e += blockDim.x) {
+          const int n = e / (ch + cw);
+          const int k = e - n * (ch + cw);
+          const float* box = img_boxes + static_cast<int64_t>(batch0 + n) * 4;
+          const Axis a = k < ch ? sample_axis(box[0], box[2], ch, k, h)
+                                : sample_axis(box[1], box[3], cw, k - ch, w);
+          Tap t;
+          t.lo = a.in_range ? a.lo : -1;
+          t.frac = a.frac;
+          if (k < ch) ytab[n * ch + k] = t; else xtab[n * cw + (k - ch)] = t;
+        }
+        __syncthreads();
+        for (int n = tid; n < nb; n += blockDim.x) {
+          int y0 = h, y1 = -1, x0 = w, x1 = -1;
+          for (int i = 0; i < ch; ++i) {
+            const int lo = ytab[n * ch + i].lo;
+            if (lo >= 0) { y0 = min(y0, lo); y1 = max(y1, lo + 1); }
+          }
+          for (int j = 0; j < cw; ++j) {
+            const int lo = xtab[n * cw + j].lo;
+            if (lo >= 0) { x0 = min(x0, lo); x1 = max(x1, lo + 1); }
+          }
+          extent[4 * n] = y0; extent[4 * n + 1] = y1;
+          extent[4 * n + 2] = x0; extent[4 * n + 3] = x1;
+        }
+        __syncthreads();
+      }
+      if (!has_pixel) continue;  // the whole warp
+      for (int n0 = 0; n0 < nb; n0 += 32) {
+        const int cand = n0 + lane;
+        const bool reach = cand < nb && py >= extent[4 * cand] && py <= extent[4 * cand + 1] &&
+                           px >= extent[4 * cand + 2] && px <= extent[4 * cand + 3];
+        unsigned int box_bits = __ballot_sync(0xffffffffu, reach);
+        while (box_bits) {
+          const int n = n0 + __ffs(box_bits) - 1;
+          box_bits &= box_bits - 1;
+          const Tap* yt = ytab + n * ch;
+          const Tap* xt = xtab + n * cw;
+          // the first 32 sample columns, once per box
+          const float wx_first = lane < cw ? tap_weight(xt[lane], px) : 0.0f;
+          const unsigned int x_first = __ballot_sync(0xffffffffu, wx_first != 0.0f);
+          if (cw <= 32 && !x_first) continue;
+          const T* crop = dout + (static_cast<int64_t>(b) * num_boxes + batch0 + n) * ch * cw * c;
+          for (int i0 = 0; i0 < ch; i0 += 32) {
+            const float wy = i0 + lane < ch ? tap_weight(yt[i0 + lane], py) : 0.0f;
+            unsigned int y_bits = __ballot_sync(0xffffffffu, wy != 0.0f);
+            while (y_bits) {
+              const int li = __ffs(y_bits) - 1;
+              y_bits &= y_bits - 1;
+              const float wy_i = __shfl_sync(0xffffffffu, wy, li);
+              const T* row = crop + static_cast<int64_t>(i0 + li) * cw * c;
+              for (int j0 = 0; j0 < cw; j0 += 32) {
+                float wx = wx_first;
+                unsigned int x_bits = x_first;
+                if (j0 > 0) {
+                  wx = j0 + lane < cw ? tap_weight(xt[j0 + lane], px) : 0.0f;
+                  x_bits = __ballot_sync(0xffffffffu, wx != 0.0f);
+                }
+                while (x_bits) {
+                  const int lj = __ffs(x_bits) - 1;
+                  x_bits &= x_bits - 1;
+                  const float wgt = wy_i * __shfl_sync(0xffffffffu, wx, lj);
+                  if (wgt == 0.0f) continue;
+                  const T* src = row + static_cast<int64_t>(j0 + lj) * c;
+                  float g[kBwdRuns][kV];
+#pragma unroll
+                  for (int k = 0; k < kBwdRuns; ++k)
+                    if (width[k] > 0) Vec<T>::load(src + c0[k], g[k], width[k], vec);
+#pragma unroll
+                  for (int k = 0; k < kBwdRuns; ++k)
+                    if (width[k] > 0) {
+#pragma unroll
+                      for (int j = 0; j < kV; ++j) acc[k][j] += g[k][j] * wgt;
+                    }
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    if (has_pixel) {
+      T* dst = dimg + (static_cast<int64_t>(b) * h * w + pixel) * c;
+#pragma unroll
+      for (int k = 0; k < kBwdRuns; ++k)
+        if (width[k] > 0) Vec<T>::store(dst + c0[k], acc[k], width[k], vec);
+    }
   }
 }
 
 template <typename T>
-int launch_bwd(const void* dout, const void* boxes, float* dimg, int b, int h,
+int launch_bwd(const void* dout, const void* boxes, void* dimg, int b, int h,
                int w, int c, int n, int ch, int cw, cudaStream_t stream) {
   constexpr int kV = Vec<T>::kN;
   const int chunks = (c + kV - 1) / kV;
-  const int64_t total = static_cast<int64_t>(b) * n * ch * cw * chunks;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  roi_crop_bwd_kernel<T><<<static_cast<unsigned int>(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(dout), static_cast<const float*>(boxes), dimg, total, n,
-      h, w, c, ch, cw, chunks);
+  const int slabs = (chunks + 32 * kBwdRuns - 1) / (32 * kBwdRuns);
+  const int pixel_blocks = (h * w + kBwdWarps * kBwdRounds - 1) / (kBwdWarps * kBwdRounds);
+  const int64_t blocks = static_cast<int64_t>(b) * slabs * pixel_blocks;
+  if (blocks == 0) return 0;
+  const size_t per_box = static_cast<size_t>(ch + cw) * sizeof(Tap) + 4 * sizeof(int);
+  int box_batch = static_cast<int>(kBwdTableBytes / per_box);
+  if (box_batch < 1 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (box_batch > n) box_batch = n < 1 ? 1 : n;
+  roi_crop_bwd_kernel<T><<<static_cast<unsigned int>(blocks), kBwdWarps * 32,
+                           box_batch * per_box, stream>>>(
+      static_cast<const T*>(dout), static_cast<const float*>(boxes), static_cast<T*>(dimg),
+      n, h, w, c, ch, cw, box_batch, pixel_blocks, slabs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,29 +399,17 @@ extern "C" int mtlx_roi_crop_fwd(const void* image, const void* boxes,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (of dout and of d(image)). scratch is
-// a float32 [B, H, W, C] buffer (for float32, the output itself); it is
-// zeroed here. The base pointers must be 16-byte aligned (the wrapper
-// checks). Returns the first CUDA error (0 on success).
-extern "C" int mtlx_roi_crop_bwd(const void* dout, const void* boxes, void* scratch,
-                                 void* out, int b, int h, int w, int c, int n,
-                                 int ch, int cw, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (of dout and of d(image)). Every
+// element of out is written, so it needs no zeroing. The base pointers
+// must be 16-byte aligned (the wrapper checks). Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int mtlx_roi_crop_bwd(const void* dout, const void* boxes, void* out,
+                                 int b, int h, int w, int c, int n, int ch,
+                                 int cw, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t elems = static_cast<int64_t>(b) * h * w * c;
-  if (elems == 0) return 0;
-  float* acc = static_cast<float*>(scratch);
-  cudaError_t e = cudaMemsetAsync(acc, 0, elems * sizeof(float), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int err = dtype == 0
-      ? launch_bwd<float>(dout, boxes, acc, b, h, w, c, n, ch, cw, s)
-      : launch_bwd<__nv_bfloat16>(dout, boxes, acc, b, h, w, c, n, ch, cw, s);
-  if (err != 0 || dtype == 0) return err;
-  const int threads = 256;
-  const int64_t blocks = ((elems + 3) / 4 + threads - 1) / threads;
-  f32_to_bf16_kernel<<<static_cast<unsigned int>(blocks), threads, 0, s>>>(
-      acc, static_cast<__nv_bfloat16*>(out), elems);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return launch_bwd<float>(dout, boxes, out, b, h, w, c, n, ch, cw, s);
+  if (dtype == 1) return launch_bwd<__nv_bfloat16>(dout, boxes, out, b, h, w, c, n, ch, cw, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* mtlx_cuda_error_string(int err) {

@@ -1,18 +1,30 @@
-"""Greedy non-max suppression: the CUDA kernel `csrc/nms.cu` and its plain
-PyTorch version (port of mtlx/kernels/nms_pallas.py).
+"""Greedy non-max suppression: the CUDA kernels of `csrc/nms.cu` and their
+plain PyTorch version (port of mtlx/kernels/nms_pallas.py).
 
 `non_max_suppression` solves P independent single-class problems in one
-launch: `[P, N, 4]` float32 boxes, `[P, N]` float32 scores and `[P, N]`
-bool validity -> `[P, max_out]` int32 indices and `[P, max_out]` bool
-keep. Priority is score descending, then the lower index; a box is
-suppressed when its IoU with the pick is greater than `iou_threshold`;
-invalid rows and rows whose score is not greater than `score_threshold`
-never get picked; empty slots hold index 0 and keep False.
+call: `[P, N, 4]` float32 boxes, `[P, N]` float32 scores and `[P, N]`
+bool validity, in any order -> `[P, max_out]` int32 indices and
+`[P, max_out]` bool keep. Priority is score descending, then the lower
+index; a box is suppressed when its IoU with the pick is greater than
+`iou_threshold`; invalid rows and rows whose score is not greater than
+`score_threshold` never get picked and suppress nothing; empty slots hold
+index 0 and keep False.
+
+On the card the greedy loop is not repeated step by step (that is a chain
+of max_out dependent reductions on one SM). The rows are put in priority
+order (a rank by counting over a packed 64-bit key), the suppression
+decisions of every ordered pair are computed in parallel as a bit mask,
+64 columns a word, and one block per problem scans the ordered rows 64 at
+a time against a `removed` bit vector. Up to `SMALL_MAX_BOXES` rows one
+block does all three in shared memory in a single launch; above, the
+three stages are kernels over the whole grid, mask and scan alternating
+over bands of rows so that what the scan never reads is never computed
+(see the header of `csrc/nms.cu`).
 
 CPU tensors take `non_max_suppression_plain`; CUDA tensors launch the
-kernel or raise. The two agree exactly: the kernel evaluates IoU in the
-plain version's operation order and is compiled without fused
-multiply-add.
+kernels or raise. The two agree exactly: the kernels order by the same
+key, evaluate IoU in the plain version's operation order and are compiled
+without fused multiply-add.
 """
 
 from __future__ import annotations
@@ -25,11 +37,15 @@ from torch import Tensor
 from mtlx_torch.kernels import build
 
 _NEG = -1e10  # mtlx.ops.nms._NEG: the score of a dead row
-# the largest N one problem can hold: the shared memory a block may use
-# on Hopper (227 KB) minus the kernel's static reduction scratch (16 warp
-# keys + the winner, 8 bytes each), at 24 bytes a box (4 coordinate
-# planes, the area and the live score, float32)
-MAX_BOXES = (232448 - 17 * 8) // 24
+# the largest N of one problem: the scan keeps `removed` in 128 words of
+# 64 bits (kMaxBoxes in csrc/nms.cu)
+MAX_BOXES = 8192
+# up to here one block per problem works in shared memory in one launch
+# (kSmallMaxBoxes): the same device time as the pipeline and three
+# launches less of host time; at 1024 rows the pipeline is faster
+SMALL_MAX_BOXES = 512
+# the forms of the C interface
+_FORM_BY_N, _FORM_SINGLE_LAUNCH, _FORM_BANDED = 0, 1, 2
 
 
 def non_max_suppression_plain(
@@ -75,16 +91,11 @@ def non_max_suppression_plain(
     return idx, keep
 
 
-def non_max_suppression(
-    boxes: Tensor,
-    scores: Tensor,
-    valid: Tensor,
-    max_out: int,
-    iou_threshold: float = 0.5,
-    score_threshold: float = float("-inf"),
-):
-    """Greedy NMS over P problems: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. See the module docstring."""
+def _dispatch(boxes, scores, valid, max_out, iou_threshold, score_threshold, form):
+    """`non_max_suppression` with the form of the kernels given: by N (what
+    every caller gets), the single launch, or the banded pipeline (which
+    also takes a small N; the smoke run holds both forms to the plain
+    version)."""
     if scores.dim() != 2 or boxes.shape != (*scores.shape, 4) or valid.shape != scores.shape:
         raise ValueError(
             f"want boxes [P, N, 4], scores [P, N], valid [P, N]; got "
@@ -111,26 +122,44 @@ def non_max_suppression(
         )
     p, n = scores.shape
     if n > MAX_BOXES:
-        raise ValueError(
-            f"N={n} boxes do not fit one block's shared memory (at most {MAX_BOXES})"
-        )
+        raise ValueError(f"N={n} boxes are more than the NMS kernels take ({MAX_BOXES})")
     idx = torch.empty((p, max_out), dtype=torch.int32, device=boxes.device)
     keep = torch.empty((p, max_out), dtype=torch.bool, device=boxes.device)
     if p == 0 or max_out == 0:
         return idx, keep
     if n == 0:
         return idx.zero_(), keep.zero_()
+    nbytes = lib.mtlx_nms_scratch_bytes(p, n, form)
+    if nbytes < 0:
+        raise ValueError(f"the NMS kernels (form {form}) do not take P={p}, N={n}")
+    # the banded pipeline's partial ranks, ordered boxes and indices, mask
+    # and scan state (nothing for the single launch); needs no zeroing
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = lib.mtlx_nms_f32(
             boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), p, n,
             max_out, ctypes.c_float(iou_threshold),
-            ctypes.c_float(score_threshold), idx.data_ptr(), keep.data_ptr(),
-            stream,
+            ctypes.c_float(score_threshold), scratch.data_ptr(), form,
+            idx.data_ptr(), keep.data_ptr(), stream,
         )
     build.check(lib, err, "nms")
     non_max_suppression.launches += 1
     return idx, keep
+
+
+def non_max_suppression(
+    boxes: Tensor,
+    scores: Tensor,
+    valid: Tensor,
+    max_out: int,
+    iou_threshold: float = 0.5,
+    score_threshold: float = float("-inf"),
+):
+    """Greedy NMS over P problems: the CUDA kernels for CUDA tensors, the
+    plain version for CPU tensors. See the module docstring."""
+    return _dispatch(boxes, scores, valid, max_out, iou_threshold, score_threshold,
+                     _FORM_BY_N)
 
 
 non_max_suppression.launches = 0

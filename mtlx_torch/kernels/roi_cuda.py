@@ -18,9 +18,12 @@ cotangent for them, and every caller passes constant boxes).
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. In float32 the forward kernel and its plain version agree bit for
 bit (the kernel repeats the plain version's operation order and is
-compiled without fused multiply-add). The backward kernel adds with
-atomics, so its float32 sums agree with the plain version's ordered sums
-only to rounding.
+compiled without fused multiply-add). The backward kernel is a gather:
+one warp owns each pixel of d(features) and adds the terms of the samples
+that touch it in a fixed order (box, sample row, sample column) in
+float32 registers, with no atomics and no scratch map, so two runs give
+the same bits. The plain version adds the same terms tap by tap
+(`index_add_`), so the two agree to float32 rounding of each sum.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ from torch import Tensor
 from mtlx_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernel keeps one box's ch + cw sample positions (8 bytes
+# each) in a 40 KB table in shared memory
+_MAX_CROP_EXTENT = 5000
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -165,15 +171,16 @@ def crop_and_resize_backward(dout: Tensor, boxes: Tensor, image_hw: Tuple[int, i
     _check_cuda("dout", dout, boxes)
     b, n, ch, cw, c = dout.shape
     h, w = int(image_hw[0]), int(image_hw[1])
+    if ch + cw > _MAX_CROP_EXTENT:
+        raise ValueError(f"crop {ch} x {cw} is past the backward kernel's sample tables "
+                         f"(ch + cw <= {_MAX_CROP_EXTENT})")
     out = torch.empty((b, h, w, c), dtype=dout.dtype, device=dout.device)
     if out.numel() == 0:
         return out
-    scratch = out if dout.dtype == torch.float32 else torch.empty(
-        (b, h, w, c), dtype=torch.float32, device=dout.device)
     with torch.cuda.device(dout.device):
         stream = torch.cuda.current_stream(dout.device).cuda_stream
         err = lib.mtlx_roi_crop_bwd(
-            dout.data_ptr(), boxes.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), boxes.data_ptr(), out.data_ptr(),
             b, h, w, c, n, ch, cw, _DTYPE_CODES[dout.dtype], stream,
         )
     build.check(lib, err, "roi_crop backward")

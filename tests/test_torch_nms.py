@@ -1,6 +1,8 @@
 """The port's greedy NMS against mtlx: the Pallas kernel in interpret mode,
 the jnp greedy reference, and the multiclass / batched postprocess NMS.
-Selections (indices, keep, classes, counts) must be exactly equal."""
+Selections (indices, keep, classes, counts) must be exactly equal. The
+second half renders the CUDA kernels' algorithm (rank by key, 64-bit
+suppression mask, chunked scan) in numpy and holds it to the same."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -163,3 +165,165 @@ def test_cuda_tensor_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         nms_cuda.non_max_suppression(*cuda, 4, 0.5)
     assert nms_cuda.non_max_suppression.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The algorithm of the CUDA kernels (csrc/nms.cu), rendered in numpy: priority
+# rank from the packed 64-bit key, the 64-bit suppression mask of the ordered
+# boxes, and the scan over chunks of 64 rows. The kernels themselves run only
+# on a CUDA device; this holds their algorithm to the plain version and,
+# through it, to mtlx.
+
+_NEG = np.float32(-1e10)
+
+
+def _packed_keys(scores, valid, score_thr):
+    """Order-preserving score bits, then the complement of the index."""
+    live = valid & (scores > score_thr) & (scores > _NEG / 2)
+    s = np.where(live, scores, _NEG).astype(np.float32)
+    s = np.where(s == 0, np.float32(0.0), s)  # -0.0 and +0.0 compare equal
+    u = s.view(np.uint32).astype(np.uint64)
+    bits = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    index = np.arange(len(scores), dtype=np.uint64)
+    return (bits << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - index), live
+
+
+def _decide(inter, u, thr):
+    """`inter / u > thr` as the kernels decide it: without the division
+    outside a guard band of 2^-20 around thr * u, by the division inside."""
+    thr = np.float32(thr)
+    if np.float32(1 / 1024) <= thr <= np.float32(1):
+        lo = np.float32(float(thr) * (1 - 2.0 ** -20))
+        hi = np.float32(float(thr) * (1 + 2.0 ** -20))
+    else:
+        lo, hi = np.float32(-np.inf), np.float32(np.inf)
+    with np.errstate(over="ignore", invalid="ignore"):
+        sure_over = inter > hi * u
+        sure_not = inter < lo * u
+        return np.where(sure_over, True, np.where(sure_not, False, inter / u > thr))
+
+
+def _suppression_mask(boxes, thr):
+    """[n, ceil(n / 64)] uint64: bit b of word w of row i is set when
+    iou(i, 64 w + b) > thr and 64 w + b > i (float32, the plain version's
+    operation order)."""
+    n = len(boxes)
+    ymin, xmin, ymax, xmax = (boxes[:, k].astype(np.float32) for k in range(4))
+    area = (ymax - ymin) * (xmax - xmin)
+    ih = np.maximum(np.float32(0), np.minimum(ymax[:, None], ymax[None]) -
+                    np.maximum(ymin[:, None], ymin[None]))
+    iw = np.maximum(np.float32(0), np.minimum(xmax[:, None], xmax[None]) -
+                    np.maximum(xmin[:, None], xmin[None]))
+    inter = ih * iw
+    union = area[:, None] + area[None] - inter
+    over = np.where(union > 0, _decide(inter, np.maximum(union, np.float32(1e-30)), thr),
+                    np.float32(0) > np.float32(thr))
+    over &= np.arange(n)[None] > np.arange(n)[:, None]
+    words = -(-n // 64)
+    padded = np.zeros((n, words * 64), bool)
+    padded[:, :n] = over
+    weights = np.uint64(1) << np.arange(64, dtype=np.uint64)
+    return (padded.reshape(n, words, 64) * weights).sum(-1, dtype=np.uint64)
+
+
+def _rank_mask_scan(boxes, scores, valid, max_out, thr, score_thr):
+    n = len(scores)
+    keys, live = _packed_keys(scores, valid, score_thr)
+    rank = (keys[None, :] > keys[:, None]).sum(1)  # rank[i] = #{j: key[j] > key[i]}
+    assert sorted(rank) == list(range(n))  # the keys are unique
+    order = np.empty(n, np.int64)
+    order[rank] = np.arange(n)
+    mask = _suppression_mask(boxes[order], thr)
+    words = mask.shape[1]
+    removed = [0] * words
+    idx = np.zeros(max_out, np.int32)
+    keep = np.zeros(max_out, bool)
+    count = 0
+    for c in range(words):
+        rem, kept = removed[c], []
+        for b in range(min(64, n - 64 * c)):
+            row = 64 * c + b
+            if not live[order[row]] or count == max_out:
+                return idx, keep  # a dead row (they come last) or a full output
+            if (rem >> b) & 1:
+                continue
+            idx[count], keep[count] = order[row], True
+            count += 1
+            kept.append(row)
+            rem |= int(mask[row, c])  # the chunk's diagonal word, serially
+        for w in range(c + 1, words):  # then the kept rows' words, all at once
+            for row in kept:
+                removed[w] |= int(mask[row, w])
+    return idx, keep
+
+
+def _kernel_algorithm_case(kind, n):
+    boxes, scores, valid = _problem(n + len(kind), n, ties=kind != "unsorted")
+    max_out, thr, score_thr = max(1, min(n, 100)), 0.5, 0.0
+    if kind == "unsorted":  # continuous signed scores in random order, both zeros
+        score_thr = float("-inf")
+        scores = (scores - 0.5).astype(np.float32)
+        scores[::7] = -0.0
+        scores[3::7] = 0.0
+    elif kind == "all-dead":
+        valid = np.zeros(n, bool)
+    elif kind == "few-live":  # fewer live rows than max_out
+        valid &= np.arange(n) % 5 == 0
+        max_out = n
+    elif kind == "coarse-threshold":  # heavy suppression, a threshold past the guard band's range
+        thr = 0.0005
+    return boxes, scores, valid, max_out, thr, score_thr
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 301, 1917])
+@pytest.mark.parametrize("kind", ["ties", "unsorted", "all-dead", "few-live", "coarse-threshold"])
+def test_rank_mask_scan_equals_the_plain_version(kind, n):
+    boxes, scores, valid, max_out, thr, score_thr = _kernel_algorithm_case(kind, n)
+    got_idx, got_keep = _rank_mask_scan(boxes, scores, valid, max_out, thr, score_thr)
+    ref_idx, ref_keep = nms_cuda.non_max_suppression_plain(
+        torch.from_numpy(boxes)[None], torch.from_numpy(scores)[None],
+        torch.from_numpy(valid)[None], max_out, thr, score_thr)
+    np.testing.assert_array_equal(got_keep, ref_keep[0].numpy())
+    np.testing.assert_array_equal(got_idx, ref_idx[0].numpy())
+    assert got_keep.any() == (valid & (scores > score_thr)).any()
+
+
+@pytest.mark.parametrize("n", [65, 301])
+@pytest.mark.parametrize("kind", ["ties", "unsorted", "few-live"])
+def test_rank_mask_scan_equals_mtlx(kind, n):
+    boxes, scores, valid, max_out, thr, score_thr = _kernel_algorithm_case(kind, n)
+    got_idx, got_keep = _rank_mask_scan(boxes, scores, valid, max_out, thr, score_thr)
+    jargs = (jnp.asarray(boxes), jnp.asarray(scores), max_out)
+    jkw = dict(iou_threshold=thr, score_threshold=score_thr, valid_mask=jnp.asarray(valid))
+    pal_idx, pal_keep = nms_pallas.non_max_suppression_pallas(*jargs, interpret=True, **jkw)
+    ref_idx, ref_keep = jnms.non_max_suppression_padded(*jargs, batched=False, **jkw)
+    for idx, keep in ((pal_idx, pal_keep), (ref_idx, ref_keep)):
+        np.testing.assert_array_equal(got_keep, np.asarray(keep))
+        np.testing.assert_array_equal(got_idx, np.asarray(idx))
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.5, 0.6, 0.7, 1 / 1024, 1.0, 0.0005, 1.5])
+def test_guard_band_decides_as_the_division(thr):
+    """Around thr * u, ulp by ulp, and at the ends of the float range, the
+    banded decision equals `inter / u > thr`."""
+    rs = np.random.RandomState(int(thr * 1e4))
+    u = np.concatenate([
+        np.exp(rs.uniform(np.log(1e-30), np.log(1e30), 20000)),
+        [1e-30, 1.2e-38 / thr * 1.0001 if thr < 1 else 1e-30, 3.0e38, 1.0, 6000.0 * 1000.0],
+    ]).astype(np.float32)
+    u = np.maximum(u, np.float32(1e-30))
+    with np.errstate(over="ignore"):
+        centre = np.float32(thr) * u
+    cases = [centre]
+    for _ in range(40):  # walk 40 ulp to each side of thr * u
+        cases.append(np.nextafter(cases[-1], np.float32(np.inf)))
+    down = centre
+    for _ in range(40):
+        down = np.nextafter(down, np.float32(0))
+        cases.append(down)
+    cases.append(u * np.float32(rs.uniform(0, 1)))
+    for inter in cases:
+        inter = inter.astype(np.float32)
+        with np.errstate(over="ignore", invalid="ignore"):
+            want = inter / u > np.float32(thr)
+        np.testing.assert_array_equal(_decide(inter, u, thr), want)

@@ -3,7 +3,8 @@ the CPU) against mtlx: `jax.vjp` of mtlx.ops.roi.crop_and_resize_mxu and
 the Pallas backward kernel `_bwd_kernel` in interpret mode (float32,
 atol 1e-5: the interpolation matrices sum the taps in another order);
 gradcheck of the autograd Function in float64; `mean_pooled_crop` and its
-gradient against mtlx."""
+gradient against mtlx; the backward kernel's algorithm (a per-pixel gather
+in a fixed order) rendered in numpy against both."""
 
 import jax
 import jax.numpy as jnp
@@ -121,6 +122,90 @@ def test_mean_pooled_crop_and_its_gradient_match_mtlx(crop):
     got_b = troi.mean_pooled_crop(torch.from_numpy(np.stack([img, img])),
                                   torch.from_numpy(np.stack([boxes, boxes])), crop)
     np.testing.assert_allclose(got_b[1].numpy(), np.asarray(want), rtol=1e-5, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The algorithm of the backward kernel (csrc/roi_crop.cu), rendered in numpy:
+# a gather. Every pixel of d(features) adds the terms of the samples that
+# touch it, box by box, sample row by sample row, sample column by sample
+# column, in float32; no pixel is written by two owners. The kernel itself
+# runs only on a CUDA device.
+
+
+def _tap_weight(lo, frac, in_range, p):
+    """The weight with which one sample position feeds pixel coordinate p:
+    1 - frac on its lo tap, frac on lo + 1, nothing elsewhere."""
+    if not in_range:
+        return np.float32(0)
+    if lo == p:
+        return np.float32(1) - frac
+    return frac if lo + 1 == p else np.float32(0)
+
+
+def _gather_backward(dout, boxes, h, w):
+    n, ch, cw, c = dout.shape
+    (y_lo, _, y_frac, y_in), (x_lo, _, x_frac, x_in) = (
+        tuple(t[0].numpy() for t in axis)
+        for axis in roi_cuda._sample_points(torch.from_numpy(boxes)[None], (ch, cw), h, w))
+    out = np.zeros((h, w, c), np.float32)
+    for py in range(h):
+        for px in range(w):
+            acc = np.zeros(c, np.float32)
+            for k in range(n):
+                wys = [(i, _tap_weight(y_lo[k, i], y_frac[k, i], y_in[k, i], py))
+                       for i in range(ch)]
+                wxs = [(j, _tap_weight(x_lo[k, j], x_frac[k, j], x_in[k, j], px))
+                       for j in range(cw)]
+                for i, wy in wys:
+                    if wy == 0:
+                        continue
+                    for j, wx in wxs:
+                        if wx != 0:
+                            acc += dout[k, i, j] * (wy * wx)
+            out[py, px] = acc
+    return out
+
+
+def _gather_case(kind, h, w, n, crop):
+    """Boxes that put samples where the gather could go wrong."""
+    img, boxes, dout = _inputs(len(kind) + n, h, w, 3, n, *crop)
+    ch, cw = crop
+    if kind == "integer":  # sample coordinates on pixel centres: fraction 0
+        y0 = np.arange(n) % max(h - ch + 1, 1)
+        x0 = np.arange(n) % max(w - cw + 1, 1)
+        boxes = np.stack([y0 / (h - 1), x0 / (w - 1), (y0 + ch - 1) / (h - 1),
+                          (x0 + cw - 1) / (w - 1)], 1).astype(np.float32)
+    elif kind == "full-canvas":  # the last samples sit on limit - 1: clamped hi taps
+        boxes[:] = [0.0, 0.0, 1.0, 1.0]
+    elif kind == "degenerate":  # all of an axis's samples on one coordinate
+        boxes[:, 2] = boxes[:, 0]
+        boxes[::2, 3] = boxes[::2, 1]
+    elif kind == "out-of-range":  # wholly or partly off the map
+        boxes[:, :2] -= 0.7
+        boxes[::2, 2:] += 0.9
+    elif kind == "inverted":  # descending sample coordinates
+        boxes = boxes[:, [2, 3, 0, 1]].copy()
+    return img, boxes, dout
+
+
+@pytest.mark.parametrize("crop", [(4, 3), (1, 1)])
+@pytest.mark.parametrize("kind", ["mixed", "integer", "full-canvas", "degenerate",
+                                  "out-of-range", "inverted"])
+def test_gather_form_equals_the_plain_backward_and_mtlx(kind, crop):
+    h, w, n = 7, 6, 6
+    img, boxes, dout = _gather_case(kind, h, w, n, crop)
+    got = _gather_backward(dout, boxes, h, w)
+    plain = roi_cuda.crop_and_resize_backward_plain(
+        torch.from_numpy(dout)[None], torch.from_numpy(boxes)[None], (h, w))[0].numpy()
+    # the same float32 terms in another order: a few ulp of the sum of
+    # their magnitudes
+    magnitude = roi_cuda.crop_and_resize_backward_plain(
+        torch.from_numpy(np.abs(dout))[None], torch.from_numpy(boxes)[None], (h, w))[0].numpy()
+    assert (np.abs(got - plain) <= 1e-6 * magnitude).all()
+    np.testing.assert_array_equal(got == 0, magnitude == 0)  # the same pixels are touched
+    np.testing.assert_allclose(got, _vjp_mxu(img, boxes, dout), rtol=0, atol=ATOL)
+    if kind in ("mixed", "integer", "full-canvas"):
+        assert np.abs(got).max() > 0
 
 
 class _CudaLooking(torch.Tensor):
