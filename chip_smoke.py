@@ -19,11 +19,16 @@ Phases (any failure exits non-zero):
      time of the stages (rank, order, mask, scan), the time at 1 x 6000
      and 16 x 6000 on an input whose picks come from every band of rows
      (299 clusters), and the time of either form at small N; the ROI crop
-     at
-     40x64x1024 with 300 boxes -> 14x14 (and 16 images x 64 boxes),
+     at 40x64x1024 with 300 boxes -> 14x14 (and 16 images x 64 boxes),
      float32 within 1e-5 and bfloat16 within one bfloat16 ulp of the
-     float32 result; the IoU matrix at 16 x 100 x 30720 (padded, zero-area,
-     identical and touching boxes), bit-equal; the crop backward at
+     float32 result, and both bit-equal to the plain version, also on
+     edge-case boxes (shorter than a source row, wider than the map,
+     edges on 0 and 1, inverted) at both shapes and at crops 1x1, 4x3,
+     7x7 and 14x14 with 13 and 1020 channels; its taps read an output; the
+     IoU matrix at 16 x 100 x 30720 (padded, zero-area, identical,
+     touching, inverted boxes and a -0 coordinate), bit-equal, also on
+     only padding rows, M = 30717, 301 and 1, and a shared first side;
+     the crop backward at
      16 x 64 boxes x 14x14x1024 -> 16x40x64x1024 in float32 (within 1e-4
      of each pixel's sum of term magnitudes: the gather adds a pixel's
      terms in another order than the plain version) and bfloat16 (within
@@ -32,11 +37,13 @@ Phases (any failure exits non-zero):
      (more boxes than one batch of the kernel's sample tables), and twice
      on the same input with bit-equal results; each timed with CUDA
      events beside its plain version and, where one PyTorch call computes
-     the same function, that call
+     the same function, that call (the crop and the IoU also beside a fill
+     of their output, the IoU also by the profiler's device time)
   4. serve: the full-width flagship R50 (bfloat16, seeded random weights)
      answers 600x800, 800x600 and 600x1000 requests one at a time and a
      batch of two, through both kernels (their launch counts must rise);
-     how far into the priority order the RPN's NMS had to walk
+     how far into the priority order the RPN's NMS had to walk; the crop
+     timed again on the features and boxes one request cropped
   5. the same request in float32 on the card and on the CPU (TF32 off),
      stage by stage, with the tolerances printed beside the differences
   6. train: the full-width flagship MTL R50 (flagship_train_config,
@@ -46,7 +53,8 @@ Phases (any failure exits non-zero):
      1-20 boxes each) through the flip, both stages, the three MTL losses,
      the clip and momentum; all four kernels must launch, every loss and
      gradient be finite, every head get a gradient and the parameters
-     move; one step is profiled
+     move; one step is profiled; the crop and the three IoU launches timed
+     again on the inputs the warm-up step gave them
   7. one train step of a resnet10 model (float32, 128x128, TF32 off) on
      the card and on the CPU with the same draws and the CPU's RPN
      proposals: losses (1e-4 relative), every parameter's gradient (L2 of
@@ -210,6 +218,56 @@ def log_nms_calls(tag: str, calls):
     return out
 
 
+def record_calls(fn, module, name: str):
+    """Run fn() with every call of module.<name> recorded: [(args,
+    kwargs)], tensors detached and copied. For a reading outside the runs
+    whose launches are counted."""
+    real = getattr(module, name)
+    calls = []
+
+    def recorder(*args, **kwargs):
+        calls.append((tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args),
+                      kwargs))
+        return real(*args, **kwargs)
+
+    recorder.launches = 0  # the wrapper counts on the module's name
+    setattr(module, name, recorder)
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
+def profiled_kernels(fn, reps: int = 100):
+    """[(kernel name, device ms a call, launches a call)] over reps calls
+    of fn after a warm-up (torch.profiler). The mean launch times the
+    launches a call makes, so an event the profiler dropped does not
+    shorten the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            launches = max(1, round(e.count / reps))
+            out.append((e.key, e.self_device_time_total / 1e3 / e.count * launches, launches))
+    return out
+
+
+def kernel_ms(fn, key: str):
+    """Device milliseconds a call of fn in the kernels whose name holds
+    `key`, or None where the profiler recorded none: a reading, not a
+    check."""
+    return sum(ms for name, ms, _ in profiled_kernels(fn) if key in name) or None
+
+
 def time_nms(boxes, scores, valid, k, thr, name):
     """(ms per call from a tight host loop, plain ms, device ms per stage,
     their sum or None where the profiler recorded no NMS kernel)."""
@@ -311,26 +369,11 @@ def nms_stage_times(fn, shape: str, reps: int = 100):
     (torch.profiler, by kernel name). The profiler can lose
     the records of a short window, so an empty result is reported and not
     a failure: the stage times are a reading, not a check."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     stages = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.count == 0:
-            continue
+    for name, ms, launches in profiled_kernels(fn, reps):
         for stage in ("rank", "order", "mask", "scan", "nms_small"):
-            if f"{stage}_kernel" in e.key:
-                # the mean launch times the launches a call makes, so an event
-                # the profiler dropped does not shorten the stage
-                launches = max(1, round(e.count / reps))
-                stages[stage] = (stages.get(stage, 0.0)
-                                 + e.self_device_time_total / 1e3 / e.count * launches)
+            if f"{stage}_kernel" in name:
+                stages[stage] = stages.get(stage, 0.0) + ms
                 stages[f"{stage}_launches"] = stages.get(f"{stage}_launches", 0) + launches
     log(f"[nms] {shape} stages (profiler, device ms per call): "
         + (", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
@@ -398,20 +441,101 @@ def check_nms_cases(gen):
     case("one cluster", boxes, scores, valid, 300, 0.3, 0.0)
 
 
+def crop_tap_reads(boxes, crop_size, h: int, w: int):
+    """(taps the row-reusing walk reads, taps the four-tap form reads,
+    sample points) of a crop, a tap being one pixel's channels: the walk
+    reads the two taps of each distinct source row of a box once per
+    in-range sample column, the four-tap form four taps per in-range
+    sample point."""
+    from mtlx_torch.kernels import roi_cuda
+
+    (y_lo, y_hi, _, y_in), (_, _, _, x_in) = roi_cuda._sample_points(boxes, crop_size, h, w)
+    used = torch.zeros(*boxes.shape[:2], h + 1, device=boxes.device)
+    for rows in (y_lo, y_hi):  # out-of-range samples go to the spare row h
+        used.scatter_(2, torch.where(y_in, rows, h), 1.0)
+    distinct_rows = used[..., :h].sum(-1)
+    cols_in, rows_in = x_in.sum(-1), y_in.sum(-1)
+    walk = int((2 * distinct_rows * cols_in).sum())
+    four = int((4 * rows_in * cols_in).sum())
+    return walk, four, boxes.shape[0] * boxes.shape[1] * crop_size[0] * crop_size[1]
+
+
+def sample_grid(boxes, cs: int, h: int, w: int, dtype):
+    """The crop's cs x cs sample points of each box as an F.grid_sample
+    grid (align_corners=True): [B, N * cs, cs, 2]."""
+    from mtlx_torch.ops.roi import _sample_coords
+
+    b, n = boxes.shape[:2]
+    ys = _sample_coords(boxes[..., 0], boxes[..., 2], cs, h)  # [B, N, cs]
+    xs = _sample_coords(boxes[..., 1], boxes[..., 3], cs, w)
+    return torch.stack([
+        (xs[..., None, :] / (w - 1) * 2 - 1).expand(b, n, cs, cs),
+        (ys[..., :, None] / (h - 1) * 2 - 1).expand(b, n, cs, cs),
+    ], -1).reshape(b, n * cs, cs, 2).to(dtype)
+
+
+def grid_sample_ms(features, boxes, cs: int) -> float:
+    """The yardstick: F.grid_sample on the crop's sample points, NCHW
+    view of the same features."""
+    grid = sample_grid(boxes, cs, features.shape[1], features.shape[2], features.dtype)
+    img_nchw = features.permute(0, 3, 1, 2)
+    return cuda_ms(lambda: F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                         align_corners=True), 50)
+
+
+def time_crop(features, boxes, cs: int, tag: str, plain_reps: int = 10):
+    """The crop kernel on these inputs: bit-equal to its plain version,
+    timed beside its bound, its plain version, F.grid_sample, a fill of
+    its output (the card's time to write those bytes alone) and its tap
+    reads."""
+    from mtlx_torch.kernels import roi_cuda
+
+    b, h, w, c = features.shape
+    n = boxes.shape[1]
+    out = roi_cuda.crop_and_resize(features, boxes, (cs, cs))
+    if not torch.equal(out, roi_cuda.crop_and_resize_plain(features, boxes, (cs, cs))):
+        raise AssertionError(f"ROI kernel differs from its plain version at {tag}")
+    ms = cuda_ms(lambda: roi_cuda.crop_and_resize(features, boxes, (cs, cs)), 50)
+    plain_ms = cuda_ms(lambda: roi_cuda.crop_and_resize_plain(features, boxes, (cs, cs)),
+                       plain_reps)
+    library_ms = grid_sample_ms(features, boxes, cs)
+    fill_ms = cuda_ms(lambda: out.zero_(), 50)
+    elt = features.element_size()
+    t_bound, by = bound_ms(
+        nbytes=b * h * w * c * elt + b * n * 16 + b * n * cs * cs * c * elt,
+        ops=b * n * cs * cs * c * ROI_OPS_PER_ELEMENT,
+    )
+    walk, four, outputs = crop_tap_reads(boxes, (cs, cs), h, w)
+    shape = f"{b}x{h}x{w}x{c}x{n}->{cs}x{cs} {str(features.dtype)[6:]}"
+    log(f"[roi] {tag} {shape}: equal to the plain version; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound {t_bound:.4f} ms ({by}), "
+        f"a fill of the output {fill_ms:.4f} ms; taps read {walk / outputs:.3f} an output "
+        f"({walk * c * elt / 1e6:.1f} MB; four-tap form {four / outputs:.3f}, "
+        f"{four * c * elt / 1e6:.1f} MB)")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
+                bound_by=by, max_abs_err=0.0, fill_ms=fill_ms,
+                taps_per_output=walk / outputs, four_tap_taps_per_output=four / outputs)
+
+
+def random_boxes(gen, b: int, n: int):
+    """Normalized boxes with corners uniform in [-0.2, 1.2]: some past the map."""
+    corners = torch.rand(b, n, 4, generator=gen) * 1.4 - 0.2
+    return torch.cat([torch.minimum(corners[..., :2], corners[..., 2:]),
+                      torch.maximum(corners[..., :2], corners[..., 2:])], -1)
+
+
 def check_roi(gen, results):
     from mtlx_torch.kernels import roi_cuda
 
     b, h, w, c, n, cs = 1, 40, 64, 1024, 300, 14
     feats = torch.randn(b, h, w, c, generator=gen).cuda()
-    corners = torch.rand(b, n, 4, generator=gen) * 1.4 - 0.2  # some past [0, 1]
-    boxes = torch.cat([torch.minimum(corners[..., :2], corners[..., 2:]),
-                       torch.maximum(corners[..., :2], corners[..., 2:])], -1).cuda()
-    # float32: the kernel against the plain version, atol 1e-5
+    boxes = random_boxes(gen, b, n).cuda()
+    # float32: the kernel against the plain version, atol 1e-5, and equal
     got = roi_cuda.crop_and_resize(feats, boxes, (cs, cs))
     ref = roi_cuda.crop_and_resize_plain(feats, boxes, (cs, cs))
     err32 = float((got - ref).abs().max())
-    if err32 > 1e-5:
-        raise AssertionError(f"ROI kernel float32 max abs err {err32} > 1e-5")
+    if err32 > 1e-5 or not torch.equal(got, ref):
+        raise AssertionError(f"ROI kernel float32 max abs err {err32} (tolerance 1e-5, and equal)")
     # bfloat16 (the main path's type): within one bf16 ulp of the float32
     # crop of the same bf16 features
     fb = feats.bfloat16()
@@ -424,58 +548,111 @@ def check_roi(gen, results):
         raise AssertionError(f"ROI kernel bf16 off by {worst_ulps} ulp of the f32 crop")
     err16 = float((got16.float() - ref16.float()).abs().max())
     torch.cuda.synchronize()
-
-    # yardstick: F.grid_sample (align_corners=True) on the same points
-    from mtlx_torch.ops.roi import _sample_coords
-
-    ys = _sample_coords(boxes[..., 0], boxes[..., 2], cs, h)  # [1, N, cs]
-    xs = _sample_coords(boxes[..., 1], boxes[..., 3], cs, w)
-    grid = torch.stack([
-        (xs[..., None, :] / (w - 1) * 2 - 1).expand(b, n, cs, cs),
-        (ys[..., :, None] / (h - 1) * 2 - 1).expand(b, n, cs, cs),
-    ], -1).reshape(b, n * cs, cs, 2).bfloat16()
-    img_nchw = fb.permute(0, 3, 1, 2)
-
-    ms = cuda_ms(lambda: roi_cuda.crop_and_resize(fb, boxes, (cs, cs)), 50)
-    plain_ms = cuda_ms(lambda: roi_cuda.crop_and_resize_plain(fb, boxes, (cs, cs)), 10)
-    library_ms = cuda_ms(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
-                                               padding_mode="zeros", align_corners=True), 50)
-    ms32 = cuda_ms(lambda: roi_cuda.crop_and_resize(feats, boxes, (cs, cs)), 50)
-    elt = 2
-    t_bound, by = bound_ms(
-        nbytes=b * h * w * c * elt + b * n * 16 + b * n * cs * cs * c * elt,
-        ops=b * n * cs * cs * c * ROI_OPS_PER_ELEMENT,
-    )
     log(f"[roi] {b}x{h}x{w}x{c}, {n} boxes -> {cs}x{cs}: f32 max abs err {err32:.3g} "
         f"(tol 1e-5), bf16 worst {worst_ulps:.3f} ulp of f32 (tol 1 ulp), bf16 vs "
-        f"plain {err16:.3g}; bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"grid_sample {library_ms:.4f} ms, bound {t_bound:.4f} ms ({by}); "
-        f"f32 kernel {ms32:.4f} ms")
-    results["roi_crop"] = dict(shape=f"{b}x{h}x{w}x{c}x{n}->{cs}x{cs} bf16", ms=ms,
-                               plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
-                               bound_by=by, max_abs_err=err16, f32_max_abs_err=err32)
+        f"plain {err16:.3g}")
+    results["roi_crop"] = time_crop(fb, boxes, cs, "serving, random boxes")
+    results["roi_crop"].update(max_abs_err=err16, f32_max_abs_err=err32,
+                               f32_ms=cuda_ms(lambda: roi_cuda.crop_and_resize(feats, boxes,
+                                                                                 (cs, cs)), 50))
+    log(f"[roi] f32 kernel {results['roi_crop']['f32_ms']:.4f} ms")
 
     # the training step's second stage: 16 images, 64 sampled boxes each
     bt, nt = 16, 64
     ft = torch.randn(bt, h, w, c, generator=gen).cuda().bfloat16()
-    ct = torch.rand(bt, nt, 4, generator=gen) * 1.4 - 0.2
-    bxt = torch.cat([torch.minimum(ct[..., :2], ct[..., 2:]),
-                     torch.maximum(ct[..., :2], ct[..., 2:])], -1).cuda()
-    if not torch.equal(roi_cuda.crop_and_resize(ft, bxt, (cs, cs)),
-                       roi_cuda.crop_and_resize_plain(ft, bxt, (cs, cs))):
-        raise AssertionError("ROI kernel bf16 differs from its plain version at the training shape")
-    ms_t = cuda_ms(lambda: roi_cuda.crop_and_resize(ft, bxt, (cs, cs)), 50)
-    plain_t = cuda_ms(lambda: roi_cuda.crop_and_resize_plain(ft, bxt, (cs, cs)), 5)
-    bound_t, by_t = bound_ms(
-        nbytes=bt * h * w * c * elt + bt * nt * 16 + bt * nt * cs * cs * c * elt,
-        ops=bt * nt * cs * cs * c * ROI_OPS_PER_ELEMENT,
-    )
-    log(f"[roi] {bt}x{h}x{w}x{c}, {nt} boxes each -> {cs}x{cs} (training): bf16 equal to the "
-        f"plain version; kernel {ms_t:.4f} ms, plain {plain_t:.4f} ms, bound {bound_t:.4f} ms "
-        f"({by_t})")
-    results["roi_crop"]["other_shapes"] = [dict(
-        shape=f"{bt}x{h}x{w}x{c}x{nt}->{cs}x{cs} bf16", ms=ms_t, plain_ms=plain_t,
-        bound_ms=bound_t, bound_by=by_t, max_abs_err=0.0)]
+    bxt = random_boxes(gen, bt, nt).cuda()
+    results["roi_crop"]["other_shapes"] = [
+        time_crop(ft, bxt, cs, "training, random boxes", plain_reps=5)]
+
+
+def crop_edge_boxes(gen, b: int, n: int, h: int):
+    """Boxes where the row-reusing crop could go wrong, a fifth of each
+    kind: random, shorter than one source row (every sample row shares
+    its source rows), wider than the map (samples out of range), edges
+    exactly on 0.0 and 1.0 (samples on the first and last pixel, clamped
+    hi taps), and inverted (descending sample coordinates)."""
+    boxes = random_boxes(gen, b, n)
+    y0 = torch.rand(b, n, generator=gen) * 0.9
+    short = boxes.clone()
+    short[..., 0], short[..., 2] = y0, y0 + torch.rand(b, n, generator=gen) * 0.9 / (h - 1)
+    wide = torch.cat([-0.1 - 0.5 * torch.rand(b, n, 2, generator=gen),
+                      1.1 + 0.5 * torch.rand(b, n, 2, generator=gen)], -1)
+    edges = torch.tensor([0.0, 0.0, 1.0, 1.0]).repeat(b, n, 1)
+    edges[:, 1::2, 2] = 0.5
+    edges[:, 2::3, 1] = 0.5
+    inverted = boxes[..., [2, 3, 0, 1]]
+    kind = (torch.arange(n) % 5)[None, :, None]
+    for k, other in enumerate((short, wide, edges, inverted), start=1):
+        boxes = torch.where(kind == k, other, boxes)
+    return boxes.contiguous()
+
+
+def check_roi_cases(seed: int):
+    """The crop on boxes and shapes where its walk could go wrong, bit-equal
+    to the plain version in float32 and bfloat16: the main path's shapes
+    with edge-case boxes, and crops 1x1, 4x3, 7x7 and 14x14 with channels
+    that are not a multiple of 8."""
+    from mtlx_torch.kernels import roi_cuda
+
+    gen = torch.Generator().manual_seed(seed + 1)
+    cases = [(1, 40, 64, 1024, 300, (14, 14)), (16, 40, 64, 1024, 64, (14, 14))]
+    cases += [(2, 9, 11, c, 40, crop) for c in (13, 1020)
+              for crop in ((1, 1), (4, 3), (7, 7), (14, 14))]
+    for b, h, w, c, n, crop in cases:
+        feats = torch.randn(b, h, w, c, generator=gen).cuda()
+        boxes = crop_edge_boxes(gen, b, n, h).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            f = feats.to(dtype)
+            if not torch.equal(roi_cuda.crop_and_resize(f, boxes, crop),
+                               roi_cuda.crop_and_resize_plain(f, boxes, crop)):
+                raise AssertionError(f"ROI kernel differs from its plain version on edge-case "
+                                     f"boxes, {b}x{h}x{w}x{c} x {n} -> {crop} {dtype}")
+    torch.cuda.synchronize()
+    log(f"[roi] edge-case boxes (shorter than a source row, wider than the map, edges on 0 and 1, "
+        f"inverted) at {len(cases)} shapes (1x40x64x1024 x 300 and 16x40x64x1024 x 64 -> 14x14; "
+        f"C = 13 and 1020 -> 1x1, 4x3, 7x7, 14x14), float32 and bfloat16: equal to the plain "
+        f"version")
+
+
+def time_main_path_crops(tag: str, calls):
+    """The crop kernel timed on the features and boxes a main-path run
+    cropped (recorded by record_calls)."""
+    rows = []
+    for (features, boxes, crop_size), _ in calls:
+        rows.append(time_crop(features, boxes, int(crop_size[0]), f"{tag}, main-path boxes",
+                              plain_reps=5))
+    return rows
+
+
+def time_iou(b1, b2, tag: str):
+    """The IoU kernel on these inputs: bit-equal to its plain version,
+    timed from a tight host loop and by the profiler's device time, beside
+    its bound, its plain version and a fill of its output."""
+    from mtlx_torch.kernels import iou_cuda
+
+    p, g, m = max(b1.shape[0], b2.shape[0]), b1.shape[1], b2.shape[1]
+    got = iou_cuda.iou_matrix(b1, b2)
+    ref = iou_cuda.iou_matrix_plain(b1, b2)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"IoU kernel differs from its plain version in "
+                             f"{int((got != ref).sum())} entries at {tag}")
+    call = lambda: iou_cuda.iou_matrix(b1, b2)
+    ms = cuda_ms(call, 50)
+    dev_ms = kernel_ms(call, "iou_kernel")
+    plain_ms = cuda_ms(lambda: iou_cuda.iou_matrix_plain(b1, b2), 10)
+    fill_ms = cuda_ms(lambda: got.zero_(), 50)
+    # each output: 2 min, 2 max, 2 sub, 2 clamp, 1 mul (inter), area1 (3),
+    # union (2), compare, max, div
+    t_bound, by = bound_ms(nbytes=b1.numel() * 4 + b2.numel() * 4 + p * g * m * 4,
+                           ops=p * g * m * 16)
+    shape = f"{p}x{g}x{m}"
+    log(f"[iou] {tag} {shape}: bit-equal to the plain version ({int((ref > 0).sum())} positive "
+        f"pairs of {ref.numel()}); kernel {ms:.4f} ms a call from a tight host loop, device "
+        f"{dev_ms if dev_ms is None else round(dev_ms, 5)} ms, plain {plain_ms:.4f} ms, bound "
+        f"{t_bound:.5f} ms ({by}), a fill of the output {fill_ms:.4f} ms, library null")
+    return dict(shape=shape, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=t_bound,
+                bound_by=by, max_abs_err=0.0, fill_ms=fill_ms)
 
 
 def check_iou(gen, results):
@@ -498,23 +675,34 @@ def check_iou(gen, results):
     gt[:, 4] = anchors[1000]  # identical to an anchor
     gt[:, 5] = torch.cat([anchors[2000, 2:3], anchors[2000, 1:2], anchors[2000, 2:3] + 50,
                           anchors[2000, 3:4]])  # touches an anchor's bottom edge
+    gt[:, 6] = torch.tensor([-0.0, 10.0, -0.0, 90.0])  # zero height at y = -0
+    gt[:, 7] = gt[:, 8, [2, 3, 0, 1]]  # inverted
     gt, anchors = gt.cuda(), anchors.cuda().contiguous()
-    got = iou_cuda.iou_matrix(gt, anchors[None])
-    ref = iou_cuda.iou_matrix_plain(gt, anchors[None])
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        bad = int((got != ref).sum())
-        raise AssertionError(f"IoU kernel differs from its plain version in {bad} entries")
-    ms = cuda_ms(lambda: iou_cuda.iou_matrix(gt, anchors[None]), 50)
-    plain_ms = cuda_ms(lambda: iou_cuda.iou_matrix_plain(gt, anchors[None]), 10)
-    # each output: 2 min, 2 max, 2 sub, 2 clamp, 1 mul (inter), area1 (3),
-    # union (2), compare, max, div
-    t_bound, by = bound_ms(nbytes=b * g * 16 + a * 16 + b * g * a * 4, ops=b * g * a * 16)
-    log(f"[iou] {b}x{g}x{a}: bit-equal to the plain version ({int((got > 0).sum())} "
-        f"positive pairs); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {t_bound:.4f} ms "
-        f"({by}), library null")
-    results["iou"] = dict(shape=f"{b}x{g}x{a}", ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
-                          bound_by=by, max_abs_err=0.0)
+    results["iou"] = time_iou(gt, anchors[None], "RPN assignment, synthetic boxes")
+
+    # only padding rows; M not a multiple of 4 (the kernel's float4 rows);
+    # the shared side first; each side per problem
+    cases = [("only padding rows", torch.zeros_like(gt), anchors[None]),
+             ("M = 30717", gt, anchors[None, :-3].contiguous()),
+             ("M = 301, per-image boxes", gt[:, :37].contiguous(), gt[:, :1].repeat(1, 301, 1)
+              + torch.randn(b, 301, 4, generator=gen).cuda() * 20),
+             ("shared first side", anchors[None, :997].contiguous(), gt),
+             ("M = 1", gt, anchors[None, 5:6].contiguous())]
+    for name, b1, b2 in cases:
+        got, ref = iou_cuda.iou_matrix(b1, b2), iou_cuda.iou_matrix_plain(b1, b2)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"IoU kernel differs from its plain version on {name}: "
+                                 f"{int((got != ref).sum())} entries")
+    log(f"[iou] {', '.join(n for n, _, _ in cases)}: bit-equal to the plain version")
+
+
+def time_main_path_ious(calls):
+    """The IoU kernel timed on the boxes a training step's assignments
+    compared (recorded by record_calls), the largest launch first."""
+    calls = sorted(calls, key=lambda call: -max(call[0][0].shape[0], call[0][1].shape[0])
+                   * call[0][0].shape[1] * call[0][1].shape[1])
+    return [time_iou(b1, b2, "training step, main-path boxes") for (b1, b2), _ in calls]
 
 
 def _bwd_tolerance(roi_cuda, dout, boxes, hw):
@@ -607,14 +795,7 @@ def check_roi_backward(gen, results):
 
     # yardstick: the d(input) of F.grid_sample (align_corners=True) on the
     # same points, its grad_input only
-    from mtlx_torch.ops.roi import _sample_coords
-
-    ys = _sample_coords(boxes[..., 0], boxes[..., 2], cs, h)
-    xs = _sample_coords(boxes[..., 1], boxes[..., 3], cs, w)
-    grid = torch.stack([
-        (xs[..., None, :] / (w - 1) * 2 - 1).expand(b, n, cs, cs),
-        (ys[..., :, None] / (h - 1) * 2 - 1).expand(b, n, cs, cs),
-    ], -1).reshape(b, n * cs, cs, 2).bfloat16()
+    grid = sample_grid(boxes, cs, h, w, torch.bfloat16)
     feats_nchw = torch.zeros(b, h, w, c, dtype=torch.bfloat16, device="cuda").permute(0, 3, 1, 2)
     gout = d16.permute(0, 4, 1, 2, 3).reshape(b, c, n * cs, cs)
 
@@ -799,6 +980,8 @@ def phase_serve(seed: int, results):
     pred = {}
     results["serve_nms_calls"] = log_nms_calls(
         "serve", record_nms_calls(lambda: pred.update(predict_one())))
+    results["serve_crop_calls"] = time_main_path_crops(
+        "serving", record_calls(predict_one, roi_cuda, "crop_and_resize"))
     kept = int(pred["proposal_mask"].sum())
     log(f"[serve] RPN kept {kept} proposals on a 600x800 image")
     if kept < 1:
@@ -960,6 +1143,7 @@ def profile_train_step(step_fn, state, batch, gen):
 
 def phase_train(seed: int, results):
     from mtlx_torch.detector.faster_rcnn import FasterRCNN, flagship_train_config
+    from mtlx_torch.kernels import iou_cuda, roi_cuda
     from mtlx_torch.train import train as train_lib
     from mtlx_torch.train import train_step as ts
 
@@ -981,7 +1165,14 @@ def phase_train(seed: int, results):
         nonlocal state
         state, _ = step_fn(state, batches[0], generator=gen)
 
-    results["train_nms_calls"] = log_nms_calls("train", record_nms_calls(warm_up))
+    crop_calls, iou_calls = [], []
+
+    def warm_up_recorded():  # the crop's and the IoU's inputs too
+        iou_calls.extend(record_calls(
+            lambda: crop_calls.extend(record_calls(warm_up, roi_cuda, "crop_and_resize")),
+            iou_cuda, "iou_matrix"))
+
+    results["train_nms_calls"] = log_nms_calls("train", record_nms_calls(warm_up_recorded))
     torch.cuda.synchronize()
     reset_kernel_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1018,6 +1209,8 @@ def phase_train(seed: int, results):
     if moved == 0:
         raise AssertionError("no parameter changed")
     state = profile_train_step(step_fn, state, batches[0], gen)
+    results["train_crop_calls"] = time_main_path_crops("training", crop_calls)
+    results["train_iou_calls"] = time_main_path_ious(iou_calls)
     results["train"] = dict(step_ms=[t * 1e3 for t in times],
                             img_per_s=[16 / t for t in times], peak_bytes=peak)
     results["train_launches"] = launches
@@ -1131,6 +1324,7 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     check_nms(gen, results)
     check_roi(gen, results)
+    check_roi_cases(args.seed)
     check_iou(gen, results)
     check_roi_backward(gen, results)
     phase_serve(args.seed, results)
@@ -1158,12 +1352,18 @@ def main(argv=None) -> int:
              launches=results["launches"]["roi_crop"], max_abs_err=roi["max_abs_err"],
              ms=roi["ms"], plain_ms=roi["plain_ms"], bound_ms=roi["bound_ms"],
              bound_by=roi["bound_by"], library_ms=roi["library_ms"], shape=roi["shape"],
-             other_shapes=roi["other_shapes"], train_launches=train_launches["roi_crop"]),
+             f32_ms=roi["f32_ms"], fill_ms=roi["fill_ms"],
+             taps_per_output=roi["taps_per_output"], other_shapes=roi["other_shapes"],
+             train_launches=train_launches["roi_crop"],
+             main_path_calls=results["serve_crop_calls"] + results["train_crop_calls"]),
         dict(name="iou", route="cuda", source="mtlx_torch/kernels/csrc/iou.cu",
              replaces="mtlx/kernels/iou_pallas.py:56",
              launches=train_launches["iou"], max_abs_err=iou["max_abs_err"],
              ms=iou["ms"], plain_ms=iou["plain_ms"], bound_ms=iou["bound_ms"],
-             bound_by=iou["bound_by"], library_ms=None, shape=iou["shape"]),
+             bound_by=iou["bound_by"], library_ms=None, shape=iou["shape"],
+             device_ms=iou["device_ms"], fill_ms=iou["fill_ms"],
+             other_shapes=results["train_iou_calls"][1:],
+             main_path_calls=results["train_iou_calls"]),
         dict(name="roi_crop_backward", route="cuda",
              source="mtlx_torch/kernels/csrc/roi_crop.cu",
              replaces="mtlx/kernels/roi_pallas.py:111",

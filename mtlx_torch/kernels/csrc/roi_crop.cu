@@ -5,24 +5,48 @@
 // (kernel body _fwd_kernel), reached through crop_and_resize_fused.
 //
 // What bounds it on Hopper: bytes. Each output element is 4 taps and
-// ~8 flops; the crop [B, N, ch, cw, C] written once (120 MB in bf16 at
-// 300 boxes x 14 x 14 x 1024) dwarfs the taps read (a stride-16 map of
-// 40 x 64 x 1024 is 5 MB and stays in the 50 MB L2).
+// ~9 flops; the crop [B, N, ch, cw, C] written once (120 MB in bf16 at
+// 300 boxes x 14 x 14 x 1024, 411 MB at 16 x 64 boxes) dwarfs the map
+// read (a stride-16 map of 40 x 64 x 1024 is 5 MB and stays in the 50 MB
+// L2). A thread per output element (or per 16-byte run of them) reads
+// four taps from L2 for each one written and spends its instructions on
+// unpacking its index and on its sample coordinates, which 128 threads
+// (C / 8) of one sample point all compute alike.
 //
 // What the design does about it: the TPU kernel built dense [ch, H] and
 // [cw, W] interpolation matrices so the crop ran on the matrix unit; here
-// that would read H + W weights per output to use four. So each thread
-// owns one (box, y, x) sample point and a run of channels, computes its
-// sample coordinates and the four tap addresses once, and moves the taps
-// and the result in 16-byte vectors along C (8 bf16 or 4 f32 channels),
-// so neighbouring threads read and write neighbouring addresses.
+// that would read H + W weights per output to use four. Here a block
+// takes one box (grid x; one 32-bit division finds its image) and a slab
+// of its (sample column, 16-byte channel run) pairs. It first tables its
+// box's sample rows (sample_axis, the backward's bits) in shared memory;
+// each thread computes its own column's taps once, then walks the ch
+// sample rows in order and keeps in f32 registers the x-blended values
+// (tl + (tr - tl) * fx) of the two source rows it read last. A sample
+// row whose lo or hi source row is one of them reads it no more: a box
+// that spans fewer source rows than twice its sample rows (nearly every
+// proposal on a stride-16 map) costs at most about two 16-byte taps an
+// output, not four, and a box shorter than its sample rows under one. An out-of-range sample writes zeros and reads nothing. Taps and
+// results move as 16-byte vectors along C (8 bf16 or 4 f32 channels), so
+// neighbouring threads read and write neighbouring addresses; the results
+// with streaming stores, so the crop does not push the map out of L2.
+// Blocks of one box, and the boxes of one image, are neighbours in the
+// grid, so an image's map is in L2 while it is cropped (84 MB of training
+// maps do not fit at once).
+//
+// What bounds it now (chip_smoke.py on an H100, PERF.md): not the tap
+// bytes. On the main path's proposals it reads under half the taps an
+// output that chip_smoke.py's random boxes need, yet saves a fifth of the
+// time or less, measured against a fill of the same output. What is left
+// is each thread's chain of dependent L2 reads along its sample rows.
 //
 // Numerics: coordinates follow mtlx.ops.roi._sample_coords in its
 // operation order; the taps are interpolated in f32 in the order of
 // mtlx.ops.roi.crop_and_resize (top, bottom, then between them) and
-// rounded once to the feature type. A sample outside [0, limit - 1] on
-// either axis reads 0 (extrapolation_value 0). Compiled with --fmad=false
-// so an f32 crop is bit-identical to the plain PyTorch version.
+// rounded once to the feature type. The x-blend of a source row is the
+// same sum whichever sample row needs it, so a cached blend has the bits
+// of a fresh one. A sample outside [0, limit - 1] on either axis reads 0
+// (extrapolation_value 0). Compiled with --fmad=false, the crop is
+// bit-identical to the plain PyTorch version in f32 and in bf16.
 //
 // Backward. Replaces the TPU kernel mtlx/kernels/roi_pallas.py
 // _crop_bwd_image (kernel body _bwd_kernel), the d(image) half of the
@@ -116,6 +140,22 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// Vec<T>::store with a streaming (evict-first) 16-byte store: the crop
+// streams through L2 once, and the map its taps come from stays there.
+template <typename T>
+__device__ __forceinline__ void store_streaming(T* p, const float* v, int width, bool vec) {
+  if (!vec) {
+    Vec<T>::store(p, v, width, vec);
+  } else if constexpr (sizeof(T) == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    uint4 raw;
+    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&raw);
+    for (int j = 0; j < Vec<T>::kN; ++j) h[j] = __float2bfloat16_rn(v[j]);
+    __stcs(reinterpret_cast<uint4*>(p), raw);
+  }
+}
+
 // One axis of mtlx.ops.roi._sample_coords + crop_and_resize.sample_axis.
 struct Axis {
   int lo, hi;
@@ -145,76 +185,119 @@ __device__ __forceinline__ Axis sample_axis(float c0, float c1, int size,
   return a;
 }
 
-template <typename T>
-__global__ void roi_crop_fwd_kernel(const T* __restrict__ image,   // [B, H, W, C]
-                                    const float* __restrict__ boxes,  // [B, N, 4]
-                                    T* __restrict__ out,  // [B, N, ch, cw, C]
-                                    int64_t total, int num_boxes, int h,
-                                    int w, int c, int ch, int cw,
-                                    int chunks) {
-  constexpr int kV = Vec<T>::kN;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int chunk = static_cast<int>(t % chunks);
-  int64_t rest = t / chunks;
-  const int x = static_cast<int>(rest % cw);
-  rest /= cw;
-  const int y = static_cast<int>(rest % ch);
-  const int64_t bn = rest / ch;  // b * num_boxes + n
-  const int b = static_cast<int>(bn / num_boxes);
-
-  const float* box = boxes + bn * 4;
-  const Axis ay = sample_axis(box[0], box[2], ch, y, h);
-  const Axis ax = sample_axis(box[1], box[3], cw, x, w);
-
-  const int c0 = chunk * kV;
-  const int width = c - c0 < kV ? c - c0 : kV;
-  // 16-byte vectors only when every row start is 16-byte aligned
-  const bool vec = (c % kV) == 0;
-  T* dst = out + (((bn * ch + y) * cw + x) * static_cast<int64_t>(c)) + c0;
-  float res[kV];
-  if (!(ay.in_range && ax.in_range)) {
-    for (int j = 0; j < kV; ++j) res[j] = 0.0f;
-    Vec<T>::store(dst, res, width, vec);
-    return;
-  }
-  const T* img = image + static_cast<int64_t>(b) * h * w * c + c0;
-  const int64_t row_lo = static_cast<int64_t>(ay.lo) * w;
-  const int64_t row_hi = static_cast<int64_t>(ay.hi) * w;
-  float tl[kV], tr[kV], bl[kV], br[kV];
-  Vec<T>::load(img + (row_lo + ax.lo) * c, tl, width, vec);
-  Vec<T>::load(img + (row_lo + ax.hi) * c, tr, width, vec);
-  Vec<T>::load(img + (row_hi + ax.lo) * c, bl, width, vec);
-  Vec<T>::load(img + (row_hi + ax.hi) * c, br, width, vec);
-  for (int j = 0; j < kV; ++j) {
-    const float top = tl[j] + (tr[j] - tl[j]) * ax.frac;
-    const float bottom = bl[j] + (br[j] - bl[j]) * ax.frac;
-    res[j] = top + (bottom - top) * ay.frac;
-  }
-  Vec<T>::store(dst, res, width, vec);
-}
-
-template <typename T>
-int launch(const void* image, const void* boxes, void* out, int b, int h,
-           int w, int c, int n, int ch, int cw, cudaStream_t stream) {
-  constexpr int kV = Vec<T>::kN;
-  const int chunks = (c + kV - 1) / kV;
-  const int64_t total = static_cast<int64_t>(b) * n * ch * cw * chunks;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  roi_crop_fwd_kernel<T><<<static_cast<unsigned int>(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(image), static_cast<const float*>(boxes),
-      static_cast<T*>(out), total, n, h, w, c, ch, cw, chunks);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // One sample position of a box on one axis: the lo tap (-1 when the
 // sample is out of range) and the fraction towards the hi tap.
 struct Tap {
   int lo;
   float frac;
 };
+
+constexpr int kFwdThreads = 128;  // threads of a block
+constexpr int kFwdRowChunk = 64;  // sample rows tabled in shared memory at once
+
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads)
+roi_crop_fwd_kernel(const T* __restrict__ image,      // [B, H, W, C]
+                    const float* __restrict__ boxes,  // [B, N, 4]
+                    T* __restrict__ out,              // [B, N, ch, cw, C]
+                    int num_boxes, int h, int w, int c, int ch, int cw,
+                    int chunks, int slabs) {
+  constexpr int kV = Vec<T>::kN;
+  __shared__ Tap ytab[kFwdRowChunk];
+  // the blocks of one box are neighbours, and the boxes of one image: an
+  // image's map stays in L2 while its boxes are cropped
+  const int bn = blockIdx.x / slabs;  // b * num_boxes + n
+  const int slab = blockIdx.x - bn * slabs;
+  const int b = bn / num_boxes;
+  const float* box = boxes + static_cast<int64_t>(bn) * 4;
+  // the thread's sample column x and its run of channels
+  const int pair = slab * kFwdThreads + threadIdx.x;
+  const bool active = pair < cw * chunks;
+  const int x = active ? pair / chunks : 0;
+  const int c0 = (pair - x * chunks) * kV;
+  const int width = c - c0 < kV ? c - c0 : kV;
+  const bool vec = (c % kV) == 0;  // every row start is 16-byte aligned
+  const Axis ax = sample_axis(box[1], box[3], cw, x, w);
+  const int64_t row_stride = static_cast<int64_t>(w) * c;
+  const T* img = image + static_cast<int64_t>(b) * h * row_stride + c0;
+  const T* col_lo = img + static_cast<int64_t>(ax.lo) * c;
+  const T* col_hi = img + static_cast<int64_t>(ax.hi) * c;
+  T* dst = out + (static_cast<int64_t>(bn) * ch * cw + x) * c + c0;
+  const int64_t out_row = static_cast<int64_t>(cw) * c;
+
+  // the x-blends of the two source rows read last (-1: none)
+  int row_a = -1, row_b = -1;
+  float va[kV], vb[kV];
+  // the x-blend of source row r: from the two cached rows, else two taps
+  auto blend = [&](int r, float* v) {
+    if (r == row_a) {
+#pragma unroll
+      for (int j = 0; j < kV; ++j) v[j] = va[j];
+    } else if (r == row_b) {
+#pragma unroll
+      for (int j = 0; j < kV; ++j) v[j] = vb[j];
+    } else {
+      float tl[kV], tr[kV];
+      Vec<T>::load(col_lo + r * row_stride, tl, width, vec);
+      Vec<T>::load(col_hi + r * row_stride, tr, width, vec);
+#pragma unroll
+      for (int j = 0; j < kV; ++j) v[j] = tl[j] + (tr[j] - tl[j]) * ax.frac;
+    }
+  };
+
+  for (int r0 = 0; r0 < ch; r0 += kFwdRowChunk) {
+    const int rows = min(kFwdRowChunk, ch - r0);
+    __syncthreads();  // the last chunk's readers are done
+    if (threadIdx.x < rows) {
+      const Axis a = sample_axis(box[0], box[2], ch, r0 + threadIdx.x, h);
+      ytab[threadIdx.x] = Tap{a.in_range ? a.lo : -1, a.frac};
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int i = 0; i < rows; ++i) {
+      const Tap ty = ytab[i];
+      float res[kV];
+      if (ty.lo < 0 || !ax.in_range) {
+#pragma unroll
+        for (int j = 0; j < kV; ++j) res[j] = 0.0f;
+      } else {
+        const int hi = ty.lo + 1 > h - 1 ? h - 1 : ty.lo + 1;
+        float top[kV], bottom[kV];
+        blend(ty.lo, top);
+        if (hi == ty.lo) {
+#pragma unroll
+          for (int j = 0; j < kV; ++j) bottom[j] = top[j];
+        } else {
+          blend(hi, bottom);
+        }
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          res[j] = top[j] + (bottom[j] - top[j]) * ty.frac;
+          va[j] = top[j];
+          vb[j] = bottom[j];
+        }
+        row_a = ty.lo;
+        row_b = hi;
+      }
+      store_streaming<T>(dst + (r0 + i) * out_row, res, width, vec);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* image, const void* boxes, void* out, int b, int h,
+           int w, int c, int n, int ch, int cw, cudaStream_t stream) {
+  constexpr int kV = Vec<T>::kN;
+  if (b == 0 || n == 0 || ch == 0 || cw == 0 || c == 0) return 0;
+  const int chunks = (c + kV - 1) / kV;
+  const int64_t slabs = (static_cast<int64_t>(cw) * chunks + kFwdThreads - 1) / kFwdThreads;
+  const int64_t blocks = static_cast<int64_t>(b) * n * slabs;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  roi_crop_fwd_kernel<T><<<static_cast<unsigned int>(blocks), kFwdThreads, 0, stream>>>(
+      static_cast<const T*>(image), static_cast<const float*>(boxes),
+      static_cast<T*>(out), n, h, w, c, ch, cw, chunks, static_cast<int>(slabs));
+  return static_cast<int>(cudaGetLastError());
+}
 
 constexpr int kBwdWarps = 8;    // warps of a block, one pixel each per round
 constexpr int kBwdRounds = 4;   // pixels a warp takes, one after another

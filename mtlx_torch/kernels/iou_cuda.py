@@ -9,7 +9,9 @@ padding rows) gets 0.
 CPU tensors take `iou_matrix_plain`; CUDA tensors launch the kernel or
 raise. The two agree bit for bit: the kernel evaluates mtlx's operation
 order and is compiled without fused multiply-add, so the matcher's
-argmaxes and thresholds see the same values on both devices.
+argmaxes and thresholds see the same values on both devices. The kernel
+divides only where the intersection is not 0 and writes the intersection
+itself elsewhere, which is what the division gives there, sign included.
 """
 
 from __future__ import annotations
@@ -63,8 +65,9 @@ def iou_matrix(boxes1: Tensor, boxes2: Tensor) -> Tensor:
     if not (boxes1.is_contiguous() and boxes2.is_contiguous()):
         raise ValueError("boxes must be contiguous")
     p, n, m = max(p1, p2), boxes1.shape[1], boxes2.shape[1]
-    if p > 65535 or n > 8 * 65535:
-        raise ValueError(f"too many problems or rows for one launch: P={p}, N={n}")
+    if p > 65535 or n > 16 * 65535 or n * m >= 2**31:
+        raise ValueError(f"too many problems, rows or outputs for one launch: "
+                         f"P={p}, N={n}, M={m}")
     out = torch.empty((p, n, m), dtype=torch.float32, device=boxes1.device)
     if out.numel() == 0:
         return out

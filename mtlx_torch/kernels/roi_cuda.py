@@ -16,9 +16,11 @@ for d(features); the boxes get no gradient (mtlx returns a zero
 cotangent for them, and every caller passes constant boxes).
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
-raise. In float32 the forward kernel and its plain version agree bit for
-bit (the kernel repeats the plain version's operation order and is
-compiled without fused multiply-add). The backward kernel is a gather:
+raise. The forward kernel and its plain version agree bit for bit, in
+float32 and bfloat16 (the kernel repeats the plain version's operation
+order and is compiled without fused multiply-add; it walks a box's sample
+rows in order and reuses the x-blend of a source row that two sample
+rows share, which has the same bits as a fresh one). The backward kernel is a gather:
 one warp owns each pixel of d(features) and adds the terms of the samples
 that touch it in a fixed order (box, sample row, sample column) in
 float32 registers, with no atomics and no scratch map, so two runs give
