@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one CUDA card: build the kernels, hold
 each against its plain PyTorch version at the main path's shapes, serve
 the flagship Faster R-CNN ResNet-50 through `InferenceModel`, train the
-flagship MTL R50 for a few steps, and compare the card with the CPU on
-the same request and on the same train step.
+flagship MTL R50 for a few steps, compare the card with the CPU on the
+same request and on the same train step, and train, resume, evaluate and
+export the flagship from TFRecords through the port's CLIs.
 
     python3 chip_smoke.py [--seed N]
 
@@ -62,6 +63,20 @@ Phases (any failure exits non-zero):
      tensor's largest magnitude), every update (L2 within 1e-3) and the
      parameters after the step (within 1e-2 of each tensor's largest
      magnitude)
+  8. the CLIs: 64 TFRecords of noise images written as PNG at their
+     resizer targets (600x800, 800x600, 600x1000; 1-20 boxes of VOC's 20
+     classes each) and the flagship pipeline pointing at them; a port
+     checkpoint of the CLI's own seeded init with batch norm calibrated on
+     one batch, as the pipeline's fine_tune_checkpoint; the train CLI for 6
+     steps at batch 16 (checkpoints every 3), then again to step 8, which
+     must resume from step 6; every step must launch NMS, the crop and its
+     backward once and the IoU three times; the eval CLI once on the same
+     records (a finite mAP, NMS and the crop launched); export_inference_
+     graph, then InferenceModel.load on the card, whose detections must
+     equal those of the in-memory model restored from the same checkpoint;
+     the port's JPEG decode held to mtlx's pixels where the machine has
+     libjpeg's header or library, else (neither found) a line that says
+     it is absent
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -71,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1299,6 +1315,359 @@ def phase_train_card_vs_cpu(seed: int):
         raise AssertionError(f"card and CPU training disagree: {failed}")
 
 
+# ---------------------------------------------------------------- phase 8
+
+VOC_NAMES = ("aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat", "chair",
+             "cow", "diningtable", "dog", "horse", "motorbike", "person", "pottedplant",
+             "sheep", "sofa", "train", "tvmonitor")
+FLAGSHIP_CONFIG = "configs/faster_rcnn_resnet50_mtl_voc0712.config"
+# a 48x64 JPEG made with PIL (quality 85), and the sha256 of the pixels
+# mtlx's native codec decodes from it: onto 30x40 (DCT-scaled, half-pixel
+# centers) and onto 60x80 (TF1 resize convention)
+JPEG_B64 = (
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8LCwkMEQ8SEhEPERETFhwXExQa"
+    "FRERGCEYGh0dHx8fExciJCIeJBweHx7/2wBDAQUFBQcGBw4ICA4eFBEUHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4e"
+    "Hh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh7/wAARCAAwAEADASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAA"
+    "AAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAk"
+    "M2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKT"
+    "lJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QA"
+    "HwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdh"
+    "cRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hp"
+    "anN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk"
+    "5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEAPwD5PtbTcgznPKthMcfrj/61alpZEKEbcMEYwgyePr17/j+WrHZB"
+    "ZwiqRuyCWBGc85/l+laFnZpNw7BRkHnljj046f5zW9FXsY4PMVczoLFgR5kYzn7u4beBz2/znHatO108grgoqgn5"
+    "c/d47/j6V0eg6XDMJ3ntzIAoxyRkZPzDp+Va0Wm2Dlm+zIrALsyDznnpnnpSq55h8LUdOaba7W7ep+pZHkuNxuFh"
+    "iacoqLva7fR27Pt3OYtrGbglWXcSPu5BwO5zxxWtBZBIc5YHJVmwfxPP49PatpbKzRhiHagPylnIAPfP+e3WrtlY"
+    "hgisqcnbncQSccc/5xgV7OU5rRzBy9mmuW17pa3+b7Ht1aNbLnH2rTv28reS7mVaWGdwjAZgOAp7fh9en4e1advY"
+    "MQF3oNoH3QR+fGRxWrb6arqcB9zEFyACevY5+nA7ita0sySq7MsvDAjv6j0/Svp6LZ7ODzGyT3PH7OwZ+GJckBgw"
+    "OBjNalnZq7Z+bY4+YIemcevfpz7e9bNpZ/wyJnBxznHv1Ht/nitK3smwFJQhmAwT09/fJ/ya/PcO+iP47wWY67mR"
+    "Yw+TAZCrMxAJBBGcen09f/1Vaf8AeRlFWPYxz9/jnHQ4/DNaNzplxJGgjQNuB/jzjIx3/PHvTU0LVMosdt8wHPzL"
+    "nORnox6/4V89mmGr1MVKUINrTZPsj+n+CM+y6GRUKdbEQjNc105RTXvy3Td9tjN2NvQbFCdArclQeDnOQPX/APVX"
+    "ZWemhQw8tAcEKeR6nORmsG18Na65xDYFyQSfnUAAdAATjPX1r0ez091JBgJ2/KWUEjORnjtx2r6PhXD16DqqpFxv"
+    "y7q3fuZ8X5vhasqPsKsZ/Ffladvh3tfzMy0sQoCyBgwbA3ctg9xxx9T/AEq7BYoIXl3Dg5J6Djndj8+a2rWyCODM"
+    "cKo3NnjHr6cYqrOzThYYhmDgEj5TIR744HT/AD09riDifDZDh/a1NZy+GPd/ol1fy3OLLMVKo99OrOAs9OcjeyI2"
+    "9gASvXPA5+oH59q1LGyVZGkGUK5OME5yePp+la0GmRgZUK+Acj0PPPp2q/bafKCvljDjCtggbvoM+4/Gvn6Dv1P4"
+    "4weY67mdaWJVmEiRnGONoODwM/1rSjsX3LuXDR5ABPPU5I/LH+c1rWlkY54yo2DHA4456A//AFq0bSzBIjlQKA3O"
+    "3qevH6/nXqYd9T6zB5g0k7mVBpgcqChXaDkg9G4z7dcc/wD1zWvFZBAzqFBUbhnjHr/IVp2VgsC5KkKmfmPUYHP+"
+    "cVUud1wPLiy0IG5z0DtnAPPQcf1+nDxBxNhchwvtanvTfwxXV/ou7/Vo+yyzFSqysnojKvAJx9mgysan77N9488H"
+    "PbjpS22nsQvQ5cnd3IPBx9OfwrbgsJXYkg4ByEGMH0P14Ht/KtKHTSFE+3c6A4P5g/Wv58x2bYrNcVLFYqXNJ/cv"
+    "Jdl/W9z9Gy/HKEVGJ//Z"
+)
+JPEG_SHA256 = {
+    (30, 40, False): "312e89f5a7fa03cda49476ddd0069d4901a4ff61ad03d998a5a3dac125b4fcf3",
+    (60, 80, True): "3ce81bc1635cbc705f2851065fec695e35b361762a702b69680fac6262366cd1",
+}
+
+
+def write_records(directory: str, rs, n: int = 64) -> str:
+    """n TFRecords of uint8 noise images as PNG at their resizer targets
+    (600x800, 800x600, 600x1000 in turn), 1-20 boxes each of VOC classes."""
+    from mtlx_torch.data import imgcodec, tfrecord
+    from mtlx_torch.data.example_decoder import build_example
+
+    path = os.path.join(directory, "voc_noise.record")
+    sizes = ((600, 800), (800, 600), (600, 1000))
+    with tfrecord.TFRecordWriter(path) as w:
+        for i in range(n):
+            h, wd = sizes[i % 3]
+            image = rs.randint(0, 256, (h, wd, 3)).astype(np.uint8)
+            k = rs.randint(1, 21)
+            y0, x0 = rs.uniform(0, 0.8, k), rs.uniform(0, 0.8, k)
+            boxes = np.stack([y0, x0, np.minimum(y0 + rs.uniform(0.05, 0.5, k), 1.0),
+                              np.minimum(x0 + rs.uniform(0.05, 0.5, k), 1.0)], 1)
+            labels = rs.randint(1, 21, k)
+            w.write(build_example(imgcodec.encode_png(image), b"png", h, wd, f"noise{i}.png",
+                                  boxes, labels, [VOC_NAMES[c - 1] for c in labels],
+                                  difficult=(rs.uniform(size=k) < 0.1).astype(int)))
+    return path
+
+
+def cli_pipeline(record: str, label_map: str, fine_tune: str) -> str:
+    """The flagship pipeline text with its input paths, label map,
+    fine_tune_checkpoint and checkpoint interval replaced."""
+    with open(FLAGSHIP_CONFIG) as f:
+        text = f.read()
+    for old, new in (('"/data/voc/pascal_train_voc0712.record"', json.dumps(record)),
+                     ('"/data/voc/pascal_test_voc07.record"', json.dumps(record)),
+                     ('"/data/voc/pascal_label_map.pbtxt"', json.dumps(label_map)),
+                     ('fine_tune_checkpoint: ""', f"fine_tune_checkpoint: {json.dumps(fine_tune)}"),
+                     ("save_checkpoints_steps: 2000", "save_checkpoints_steps: 3")):
+        if old not in text:
+            raise AssertionError(f"{FLAGSHIP_CONFIG} no longer holds {old}")
+        text = text.replace(old, new)
+    return text
+
+
+def run_cli(main, argv):
+    """Run a CLI's main in this process (so the kernel counters see its
+    launches), echo its output and return it with the value main returned."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value = main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    return out, value
+
+
+def train_log_lines(out: str):
+    return [json.loads(ln[len("[train] "):]) for ln in out.splitlines()
+            if ln.startswith("[train] {")]
+
+
+def libjpeg_on_machine():
+    """(jpeglib.h found, libjpeg found), asked of the machine itself: the
+    header in the C++ compiler's include search list (or the usual
+    directories where there is no compiler), the library through
+    `ctypes.util.find_library`."""
+    import ctypes.util
+    import glob
+    import shutil
+
+    dirs = ["/usr/include", "/usr/local/include", *glob.glob("/usr/include/*-linux-gnu")]
+    for var in ("CPATH", "CPLUS_INCLUDE_PATH", "C_INCLUDE_PATH"):
+        dirs += [d for d in os.environ.get(var, "").split(os.pathsep) if d]
+    cxx = shutil.which("g++")
+    if cxx is not None:
+        proc = subprocess.run([cxx, "-E", "-x", "c++", "-", "-v"], input="",
+                              capture_output=True, text=True, timeout=60)
+        listing = proc.stderr.split("search starts here:")[-1].split("End of search list.")[0]
+        dirs += [ln.strip() for ln in listing.splitlines() if ln.startswith(" ")]
+    header = any(os.path.exists(os.path.join(d, "jpeglib.h")) for d in dirs)
+    return header, ctypes.util.find_library("jpeg") is not None
+
+
+def check_jpeg_on_card():
+    """Decode the embedded JPEG with the port's codec where the machine has
+    libjpeg and hold it to mtlx's pixels; say that it is absent only
+    where neither its header nor its library is there. Any other failure
+    to build or load the codec fails the phase."""
+    import base64
+    import hashlib
+
+    from mtlx_torch.data import imgcodec
+
+    header, library = libjpeg_on_machine()
+    if not header and not library:
+        log("jpeg: unavailable (no libjpeg on this machine)")
+        return "unavailable"
+    log(f"jpeg: jpeglib.h {'found' if header else 'missing'}, "
+        f"libjpeg {'found' if library else 'missing'}; building the codec")
+    imgcodec._codec()
+    jpg = base64.b64decode("".join(JPEG_B64))
+    for (th, tw, tf1), want in JPEG_SHA256.items():
+        got = hashlib.sha256(imgcodec.decode_jpeg(jpg, th, tw, tf1).tobytes()).hexdigest()
+        if got != want:
+            raise AssertionError(f"JPEG decode onto {th}x{tw} (tf1 {tf1}) differs from mtlx's")
+    log(f"jpeg: the port's libjpeg decode equals mtlx's at {len(JPEG_SHA256)} targets")
+    return "equal"
+
+
+def time_steps_without_loader(model, record: str, seed: int):
+    """ms a train step on the four batches of the records' first epoch
+    (the CLI's bucket shapes), loaded to the card before the clock
+    starts: alone, and while a thread reads, decodes and collates more
+    batches on the host as the CLI's prefetch thread does (but copies
+    nothing to the card). The train CLI's step minus these is what its
+    loader and the rest of its loop cost."""
+    import threading
+
+    from mtlx_torch.data.loader import DetectionDataset, batches
+    from mtlx_torch.train import train as train_lib
+    from mtlx_torch.train import train_step as ts
+
+    def dataset():
+        return DetectionDataset([record], model.cfg.canvas_size,
+                                ("keep_aspect", {"min_dimension": 600, "max_dimension": 1024}))
+
+    ds = dataset()
+    keep = ("image", "true_shape", "gt_boxes", "gt_classes", "gt_mask")
+    t0 = time.perf_counter()
+    host = list(batches(ds, 16, seed=seed, epochs=1, pack_images=True, decode_threads=2))
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    device_batches = [{k: torch.from_numpy(b[k]).cuda() for k in keep} for b in host]
+    del host
+    ds.close()
+    state = ts.create_train_state(model, ts.make_optimizer(learning_rate=0.003, momentum=0.9,
+                                                           gradient_clipping_by_norm=10.0))
+    step_fn = train_lib.make_step_fn(model, [("random_horizontal_flip", {})])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def one_pass():
+        nonlocal state
+        times = []
+        for b in device_batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b, generator=gen)
+            [float(v) for v in metrics.values()]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    one_pass()  # the bucket shapes' first steps
+    alone = one_pass()
+    stop = threading.Event()
+    host_batches = [0]
+
+    def read():
+        ds2 = dataset()
+        for _ in batches(ds2, 16, seed=seed + 1, pack_images=True, decode_threads=2):
+            host_batches[0] += 1
+            if stop.is_set():
+                break
+        ds2.close()
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    try:
+        with_reader = one_pass()
+    finally:
+        stop.set()
+        reader.join()
+    shapes = [tuple(b["image"].shape[1:3]) for b in device_batches]
+    log(f"[cli] the host loader alone: {host_ms:.2f} ms a batch of 16 (read, decode, "
+        f"collate; {len(device_batches)} batches)")
+    log(f"[cli] train step on pre-loaded batches of the records (buckets {shapes}): alone "
+        f"{', '.join(f'{t:.2f}' for t in alone)} ms; while a host thread read "
+        f"{host_batches[0]} batches: {', '.join(f'{t:.2f}' for t in with_reader)} ms")
+    return dict(shapes=shapes, alone_ms=alone, with_host_reader_ms=with_reader,
+                host_ms_per_batch=host_ms)
+
+
+def phase_cli(seed: int, results):
+    """Train, resume, evaluate and export the flagship from TFRecords
+    through the port's CLIs, in this process."""
+    import shutil
+    import tempfile
+
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.data.loader import DetectionDataset, batches
+    from mtlx_torch.eval import eval as eval_cli
+    from mtlx_torch.export.exporter import InferenceModel, export_inference_graph
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train as train_cli
+    from mtlx_torch.train import train_step as ts
+
+    work = tempfile.mkdtemp(prefix="mtlx_cli_")
+    try:
+        t0 = time.perf_counter()
+        record = write_records(work, np.random.RandomState(seed + 8))
+        label_map = os.path.join(work, "label_map.pbtxt")
+        with open(label_map, "w") as f:
+            f.writelines(f"item {{ id: {i + 1} name: '{n}' }}\n" for i, n in enumerate(VOC_NAMES))
+        fine_tune = os.path.join(work, "warm_start")
+        pipeline = os.path.join(work, "pipeline.config")
+        with open(pipeline, "w") as f:
+            f.write(cli_pipeline(record, label_map, fine_tune))
+        log(f"[cli] wrote 64 PNG records ({os.path.getsize(record) / 2**20:.1f} MiB) and "
+            f"the pipeline in {time.perf_counter() - t0:.2f} s")
+
+        # the warm start: the CLI's own init (same seed), batch norm
+        # calibrated on one batch of the records
+        configs = config_util.get_configs_from_pipeline_file(pipeline)
+        model = model_builder.build(configs["model"], is_training=True, device="cuda")
+        model.init_weights(torch.Generator().manual_seed(seed))
+        dataset = DetectionDataset([record], model.cfg.canvas_size,
+                                   model_builder.resizer_params(
+                                       model_builder.image_resizer(configs["model"])))
+        first = next(batches(dataset, 16, seed=seed, pack_images=True))
+        dataset.close()
+        calibrate_batch_norm_on(model, torch.from_numpy(first["image"]).cuda(),
+                                torch.from_numpy(first["true_shape"]).cuda())
+        manager = ckpt_lib.CheckpointManager(fine_tune)
+        manager.save(0, ts.create_train_state(model, ts.make_optimizer()))
+        manager.wait()
+        results["cli_steps_without_loader"] = time_steps_without_loader(model, record, seed)
+        del model, manager
+        torch.cuda.empty_cache()
+
+        train_dir = os.path.join(work, "train")
+        runs = {}
+        for tag, steps in (("first", 6), ("resumed", 8)):
+            reset_kernel_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out, _ = run_cli(train_cli.main, ["--pipeline_config_path", pipeline,
+                                              "--train_dir", train_dir, "--num_steps", str(steps),
+                                              "--log_every", "1", "--seed", str(seed)])
+            runs[tag] = dict(out=out, wall=time.perf_counter() - t0, counts=kernel_counts(),
+                             peak=torch.cuda.max_memory_allocated(), lines=train_log_lines(out))
+        first_run, resumed = runs["first"], runs["resumed"]
+        if "warm start: " not in first_run["out"]:
+            raise AssertionError("the first train run did not warm-start")
+        if "resumed from step 6" not in resumed["out"] or \
+                "[train] done at step 8" not in resumed["out"]:
+            raise AssertionError("the second train run did not resume from step 6 and stop at 8")
+        steps_taken = {"first": 6, "resumed": 2}
+        per_step = {"nms": 1, "roi_crop": 1, "roi_crop_backward": 1, "iou": 3}
+        for tag, run in runs.items():
+            n = steps_taken[tag]
+            got = {k: v / n for k, v in run["counts"].items()}
+            log(f"[cli] train {tag} run: {n} steps in {run['wall']:.2f} s (CLI wall, build and "
+                f"checkpoints included), launches {run['counts']} = {got} a step, peak memory "
+                f"{run['peak'] / 2**30:.2f} GiB")
+            if got != per_step:
+                raise AssertionError(f"train CLI launches a step {got}, want {per_step}")
+            for line in run["lines"]:
+                bad = [k for k, v in line.items() if not np.isfinite(v)]
+                if bad:
+                    raise AssertionError(f"non-finite train metrics at step {line['step']}: {bad}")
+        lines = first_run["lines"] + resumed["lines"]
+        for line in lines:
+            ips = line["images_per_sec"]
+            log(f"[cli] step {line['step']}: {16 / ips * 1e3:.2f} ms ({ips:.2f} img/s), "
+                f"loader wait share {line['loader_wait_share']:.4f}, total_loss "
+                f"{line['total_loss']:.5g}")
+
+        eval_dir = os.path.join(work, "eval")
+        reset_kernel_counts()
+        out, metrics = run_cli(eval_cli.main, ["--pipeline_config_path", pipeline,
+                                               "--checkpoint_dir", train_dir,
+                                               "--eval_dir", eval_dir, "--run_once"])
+        eval_counts = kernel_counts()
+        mean_ap = metrics["Precision/mAP@0.5IOU"]
+        eval_ips = metrics["eval/images_per_sec"]
+        log(f"[cli] eval at step 8: mAP@0.5 {mean_ap:.6g}, {eval_ips:.2f} img/s, launches "
+            f"{eval_counts} over 8 batches of 8")
+        if "[eval] step 8: " not in out or not np.isfinite(mean_ap):
+            raise AssertionError(f"the eval CLI gave no finite mAP (mAP {mean_ap})")
+        if eval_counts["nms"] < 8 or eval_counts["roi_crop"] < 8:
+            raise AssertionError(f"the eval CLI did not launch NMS and the crop: {eval_counts}")
+
+        export_dir = os.path.join(work, "export")
+        export_inference_graph(pipeline, train_dir, export_dir)
+        served = InferenceModel.load(export_dir)
+        configs = config_util.get_configs_from_pipeline_file(pipeline)
+        in_memory = model_builder.build(configs["model"], is_training=False, device="cuda")
+        ckpt_lib.CheckpointManager(train_dir).restore(ts.TrainState(0, in_memory, None, None),
+                                                      params_only=True)
+        in_memory = InferenceModel(in_memory, served.resizer, device="cuda")
+        request = [np.random.RandomState(seed + 9).randint(0, 256, (600, 800, 3)).astype(np.uint8)]
+        a, b = served.predict_images(request), in_memory.predict_images(request)
+        same = all(np.array_equal(a[k], b[k]) for k in a)
+        log(f"[cli] InferenceModel.load on the card served {int(a['num_detections'][0])} "
+            f"detections, equal to the in-memory model's: {same}")
+        if not same:
+            raise AssertionError("the exported model's detections differ from the in-memory model's")
+        check_outputs(a, 1)
+        results["cli"] = dict(
+            train_step_ms=[16 / ln["images_per_sec"] * 1e3 for ln in lines],
+            train_img_per_s=[ln["images_per_sec"] for ln in lines],
+            loader_wait_share=[ln["loader_wait_share"] for ln in lines],
+            train_peak_bytes=max(r["peak"] for r in runs.values()),
+            train_launches_per_step={k: v / 6 for k, v in first_run["counts"].items()},
+            eval_map=mean_ap, eval_img_per_s=eval_ips,
+            eval_launches_per_batch={k: v / 8 for k, v in eval_counts.items()},
+            jpeg=check_jpeg_on_card())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1331,6 +1700,7 @@ def main(argv=None) -> int:
     phase_card_vs_cpu(args.seed)
     phase_train(args.seed, results)
     phase_train_card_vs_cpu(args.seed)
+    phase_cli(args.seed, results)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -1373,6 +1743,10 @@ def main(argv=None) -> int:
              f32_ms=bwd["f32_ms"],
              dout_read_mb=bwd["dout_read_mb"]),
     ]
+    cli = results["cli"]
+    for k in kernels:
+        k["cli_train_launches_per_step"] = cli["train_launches_per_step"][k["name"]]
+        k["cli_eval_launches_per_batch"] = cli["eval_launches_per_batch"][k["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -186,3 +186,42 @@ def build(model_proto, is_training: bool, max_gt_boxes: int = 100,
           dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None) -> FasterRCNN:
     """Dispatch on the model oneof, mirroring the reference's build()."""
     return FasterRCNN(build_config(model_proto, is_training, max_gt_boxes, dtype), device)
+
+
+def _regularizer(hyperparams):
+    """(regularizer kind, weight) of a Hyperparams proto."""
+    reg = hyperparams.regularizer
+    kind = reg.WhichOneof("regularizer_oneof")
+    if kind == "l2_regularizer":
+        return kind, reg.l2_regularizer.weight
+    if kind == "l1_regularizer":
+        return kind, reg.l1_regularizer.weight
+    return kind, 0.0
+
+
+def regularization_scopes(model_proto):
+    """Weight regularization of a Faster R-CNN proto's Hyperparams:
+    [(top-level module prefix, kind, weight)], what
+    train_step.make_regularization_fn takes (mtlx's
+    regularization_scopes)."""
+    scopes = []
+    fr = model_proto.faster_rcnn
+    if fr.HasField("first_stage_box_predictor_conv_hyperparams"):
+        kind, w = _regularizer(fr.first_stage_box_predictor_conv_hyperparams)
+        if kind and w:
+            scopes.append(("rpn", kind, w))
+    sp = fr.second_stage_box_predictor
+    if sp.WhichOneof("box_predictor_oneof") == "mask_rcnn_box_predictor":
+        m = sp.mask_rcnn_box_predictor
+        for field, scope in (("fc_hyperparams", "box_predictor"),
+                             ("conv_hyperparams", "mask_head")):
+            if m.HasField(field):
+                kind, w = _regularizer(getattr(m, field))
+                if kind and w:
+                    scopes.append((scope, kind, w))
+    return scopes
+
+
+def image_resizer(model_proto):
+    """The image_resizer proto of the model oneof."""
+    return getattr(model_proto, model_proto.WhichOneof("model")).image_resizer

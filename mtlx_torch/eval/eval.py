@@ -1,0 +1,230 @@
+"""Evaluation CLI (port of mtlx/eval/eval.py):
+
+    python -m mtlx_torch.eval.eval --pipeline_config_path=... \\
+        --checkpoint_dir=... --eval_dir=... [--run_once]
+
+Polls checkpoint_dir for new checkpoints, runs eval_config.num_examples
+images through the detector's predict and postprocess on the device in
+batches grouped by compute bucket, feeds the numpy Pascal evaluator and
+prints `[eval] step N: {json}` with `Precision/mAP@0.5IOU`, the per-class
+APs and eval/images_per_sec; each evaluation's metrics are also appended
+to `<eval_dir>/metrics.jsonl`. `--run_once` evaluates the latest
+checkpoint and exits. It runs on the CUDA device unless `--device cpu`
+is passed. Visualizations and TensorBoard event files are not written.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+# metrics_set entries whose evaluators are not ported
+_NOT_PORTED_METRICS = (
+    "pascal_voc_instance_segmentation_metrics",
+    "weighted_pascal_voc_instance_segmentation_metrics",
+    "open_images_V2_detection_metrics",
+    "coco_detection_metrics",
+    "coco_mask_metrics",
+)
+
+
+def parse_args(argv=None):
+    from mtlx_torch.utils.bucketing import bucket_multiple_arg
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--pipeline_config_path", required=True)
+    p.add_argument("--checkpoint_dir", required=True)
+    p.add_argument("--eval_dir", required=True)
+    p.add_argument("--run_once", action="store_true")
+    p.add_argument("--eval_training_data", action="store_true",
+                   help="evaluate on train_input_reader instead of eval_input_reader")
+    p.add_argument("--master", default="", help=argparse.SUPPRESS)
+    p.add_argument("--tf1_resize", action="store_true",
+                   help="TF1 resize_images convention (see the train CLI)")
+    p.add_argument("--eval_batch_size", type=int, default=8,
+                   help="images per eval step (per-image evaluation is batch-invariant; "
+                        "tail batches are padded and the padding ignored)")
+    p.add_argument("--bucket_multiple", type=bucket_multiple_arg, default=0,
+                   help="compute bucket granularity in pixels (a multiple of 32); "
+                        "overrides the pipeline's `bucketing {}` block; default 128")
+    p.add_argument("--max_bucket_variants", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--device", default=None, help="'cuda' (the default) or 'cpu'")
+    return p.parse_args(argv)
+
+
+def build_evaluators(eval_config, categories: List[dict]):
+    """metrics_set names -> evaluators (default: the Pascal VOC one)."""
+    from mtlx_torch.eval.object_detection_evaluation import (
+        PascalDetectionEvaluator,
+        WeightedPascalDetectionEvaluator,
+    )
+
+    names = list(eval_config.metrics_set) or ["pascal_voc_detection_metrics"]
+    evaluators = []
+    for name in names:
+        if name in ("pascal_voc_detection_metrics", "pascal_voc_metrics"):
+            evaluators.append(PascalDetectionEvaluator(categories))
+        elif name in ("weighted_pascal_voc_detection_metrics", "weighted_pascal_voc_metrics"):
+            evaluators.append(WeightedPascalDetectionEvaluator(categories))
+        elif name in _NOT_PORTED_METRICS:
+            raise NotImplementedError(f"the {name} evaluator is not ported: ROADMAP.md "
+                                      "queue 1 #16")
+        else:
+            raise ValueError(f"unknown eval_config.metrics_set entry {name!r}")
+    return evaluators
+
+
+def detect(model, images: np.ndarray, true_shapes: np.ndarray,
+           bucket_multiple: int = 0) -> Dict[str, np.ndarray]:
+    """predict + postprocess of one batch of uint8 images (packed to their
+    bucket or on the canvas) on the model's device, as numpy."""
+    from mtlx_torch.train import train_step as ts
+
+    with torch.inference_mode():
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(model.device)
+        shapes = torch.from_numpy(np.asarray(true_shapes, np.int32)).to(model.device)
+        x = ts.pad_for_model(model, {"image": x}, bucket_multiple)["image"]
+        det = model.postprocess(model.predict(model.preprocess(x.float()), shapes), shapes)
+    return {k: v.cpu().numpy() for k, v in det.items()}
+
+
+def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
+                        batch_size: int = 1, bucket_multiple: int = 0) -> Dict[str, float]:
+    """One evaluation pass of the model's current weights; returns the
+    metrics dict."""
+    from mtlx_torch.data.loader import pack_batch_images, record_bucket_keys
+
+    if eval_config.eval_instance_masks:
+        raise NotImplementedError("eval_instance_masks is not ported: ROADMAP.md queue 1, "
+                                  "masks and keypoints")
+    evaluators = [] if eval_config.ignore_groundtruth else build_evaluators(eval_config,
+                                                                            categories)
+    detections_export = [] if eval_config.export_path else None
+    num = min(eval_config.num_examples or len(dataset), len(dataset))
+    # bucket-major order: a batch of mixed buckets computes on the largest
+    # one (metrics are per image, so the order does not change them)
+    order = list(range(num))
+    if batch_size > 1:
+        keys = record_bucket_keys(dataset, max_records=num, bucket_multiple=bucket_multiple)
+        order.sort(key=lambda i: (keys[i], i))
+    t0 = time.perf_counter()
+    done = 0
+    for start in range(0, num, batch_size):
+        idx = order[start : start + batch_size]
+        samples = dataset.get_batch(idx, decode_threads=2)
+        true_shapes = np.stack([s["true_shape"] for s in samples])
+        images = pack_batch_images(np.stack([s["image"] for s in samples]), true_shapes,
+                                   bucket_multiple)
+        if len(idx) < batch_size:  # pad the tail batch
+            pad = batch_size - len(idx)
+            images = np.concatenate([images, np.repeat(images[-1:], pad, 0)])
+            true_shapes = np.concatenate([true_shapes, np.repeat(true_shapes[-1:], pad, 0)])
+        det = detect(model, images, true_shapes, bucket_multiple)
+        for j, s in enumerate(samples):
+            th, tw = s["true_shape"]
+            gt_n = int(s["gt_mask"].sum())
+            # the evaluator works in absolute true-image pixels
+            gt_info = {
+                "groundtruth_boxes": s["gt_boxes"][:gt_n],
+                "groundtruth_classes": s["gt_classes"][:gt_n] + 1,
+                "groundtruth_difficult": s["gt_difficult"][:gt_n].astype(bool),
+            }
+            n_det = int(det["num_detections"][j])
+            scale = np.asarray([th, tw, th, tw], np.float32)
+            det_info = {
+                "detection_boxes": det["detection_boxes"][j][:n_det] * scale,
+                "detection_scores": det["detection_scores"][j][:n_det],
+                "detection_classes": det["detection_classes"][j][:n_det] + 1,
+            }
+            for evaluator in evaluators:
+                evaluator.add_single_ground_truth_image_info(s["source_id"], gt_info)
+                evaluator.add_single_detected_image_info(s["source_id"], det_info)
+            if detections_export is not None:
+                detections_export.append({"source_id": s["source_id"],
+                                          **{k: v.tolist() for k, v in det_info.items()}})
+            done += 1
+    if detections_export is not None:
+        with open(eval_config.export_path, "w") as f:
+            json.dump(detections_export, f)
+    metrics: Dict[str, float] = {}
+    for evaluator in evaluators:
+        metrics.update(evaluator.evaluate())
+    metrics["eval/images_per_sec"] = done / (time.perf_counter() - t0)
+    return metrics
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.data.loader import DetectionDataset
+    from mtlx_torch.device import resolve_device
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train.train_step import TrainState
+    from mtlx_torch.utils import label_map_util
+    from mtlx_torch.utils.bucketing import resolve_bucketing
+
+    device = resolve_device(args.device)
+    configs = config_util.get_configs_from_pipeline_file(args.pipeline_config_path)
+    for note in config_util.compatibility_notes(configs):
+        print(f"[eval] note: {note}", flush=True)
+    multiple = resolve_bucketing(configs["bucketing"], args.bucket_multiple,
+                                 args.max_bucket_variants)
+    eval_config = configs["eval_config"]
+    if eval_config.use_moving_averages:
+        raise NotImplementedError("use_moving_averages (EMA of the weights) is not ported: "
+                                  "ROADMAP.md queue 1 #13")
+    input_config = (configs["train_input_config"] if args.eval_training_data
+                    else configs["eval_input_config"])
+    model = model_builder.build(configs["model"], is_training=False, device=device)
+    dataset = DetectionDataset(
+        list(input_config.tf_record_input_reader.input_path),
+        canvas_size=model.cfg.canvas_size,
+        resizer=model_builder.resizer_params(model_builder.image_resizer(configs["model"])),
+        max_boxes=100,
+        load_instance_masks=input_config.load_instance_masks,
+        num_keypoints=input_config.num_keypoints,
+        tf1_resize=args.tf1_resize,
+    )
+    if input_config.label_map_path:
+        categories = list(label_map_util.create_category_index_from_labelmap(
+            input_config.label_map_path).values())
+    else:
+        categories = [{"id": i + 1, "name": f"class_{i + 1}"}
+                      for i in range(model.cfg.num_classes)]
+
+    state = TrainState(0, model, None, None)
+    manager = ckpt_lib.CheckpointManager(args.checkpoint_dir)
+    os.makedirs(args.eval_dir, exist_ok=True)
+    last_step, evals, metrics = None, 0, None
+    try:
+        while True:
+            step = manager.latest_step()
+            if step is not None and step != last_step:
+                manager.restore(state, step, params_only=True)
+                metrics = evaluate_checkpoint(model, dataset, eval_config, categories,
+                                              batch_size=args.eval_batch_size,
+                                              bucket_multiple=multiple)
+                rounded = {k: round(float(v), 4) for k, v in metrics.items()}
+                print(f"[eval] step {step}: " + json.dumps(rounded), flush=True)
+                with open(os.path.join(args.eval_dir, "metrics.jsonl"), "a") as f:
+                    f.write(json.dumps({"step": step, **rounded}) + "\n")
+                last_step = step
+                evals += 1
+            if args.run_once or (eval_config.max_evals and evals >= eval_config.max_evals):
+                break
+            time.sleep(eval_config.eval_interval_secs or 300)
+    finally:
+        dataset.close()
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,9 @@
 
 An export directory holds the pipeline config (`pipeline.config`, the
 text proto) and the detector's `state_dict` (`model.pt`).
-`InferenceModel.load` rebuilds the eval-mode detector from them. Inputs
+`export_inference_graph` writes one from a train directory's latest
+checkpoint; `InferenceModel.load` rebuilds the eval-mode detector from
+it, reading the pipeline text with the port's own reader (no protobuf). Inputs
 are images as arrays; outputs follow the reference contract:
 detection_boxes (normalized to the original image), detection_scores,
 detection_classes (1-based), num_detections, as numpy arrays.
@@ -21,23 +23,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mtlx_torch.data.imgcodec import pil_resize
 from mtlx_torch.device import DeviceLike, resolve_device
 from mtlx_torch.utils.bucketing import bucket_extent, bucket_multiple as _bucket_multiple
 
 PIPELINE_FILE = "pipeline.config"
 STATE_DICT_FILE = "model.pt"
-
-
-def _resize_to(image: np.ndarray, height: int, width: int) -> np.ndarray:
-    """PIL bilinear resize to (height, width); an image already at that
-    size is returned as it is (PIL's own resize copies it unchanged)."""
-    if image.shape[:2] == (height, width):
-        return image
-    from PIL import Image
-
-    return np.asarray(
-        Image.fromarray(image).resize((width, height), Image.BILINEAR), dtype=image.dtype
-    )
 
 
 def resize_keep_aspect(
@@ -48,11 +39,11 @@ def resize_keep_aspect(
     Returns (resized image, scale)."""
     h, w = image.shape[:2]
     scale = min(min_dimension / min(h, w), max_dimension / max(h, w))
-    return _resize_to(image, int(round(h * scale)), int(round(w * scale))), scale
+    return pil_resize(image, int(round(h * scale)), int(round(w * scale))), scale
 
 
 def resize_fixed(image: np.ndarray, height: int, width: int) -> np.ndarray:
-    return _resize_to(image, height, width)
+    return pil_resize(image, height, width)
 
 
 class InferenceModel:
@@ -83,8 +74,7 @@ class InferenceModel:
         state = torch.load(os.path.join(export_dir, STATE_DICT_FILE),
                            map_location=device, weights_only=True)
         model.modules.load_state_dict(state)
-        which = pipeline.model.WhichOneof("model")
-        resizer = model_builder.resizer_params(getattr(pipeline.model, which).image_resizer)
+        resizer = model_builder.resizer_params(model_builder.image_resizer(pipeline.model))
         return cls(model, resizer, bucket_multiple=pipeline.bucketing.bucket_multiple,
                    device=device, pipeline_text=text)
 
@@ -147,3 +137,30 @@ class InferenceModel:
             "detection_classes": out["detection_classes"] + 1,  # 1-based ids
             "num_detections": out["num_detections"],
         }
+
+
+def export_inference_graph(pipeline_config_path: str, trained_checkpoint_dir: str,
+                           output_directory: str) -> str:
+    """Bundle the pipeline text and the serving weights of a train
+    directory's latest checkpoint into `output_directory`, the bundle
+    `InferenceModel.load` reads (port of mtlx's export_inference_graph;
+    the weights are the eval-mode detector's `state_dict`, without the
+    training-only aux heads)."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.train.checkpoints import CheckpointManager
+    from mtlx_torch.train.train_step import TrainState
+
+    with open(pipeline_config_path) as f:
+        text = f.read()
+    pipeline = config_util.parse_pipeline_text(text)
+    # the export only copies weights from the checkpoint into the bundle:
+    # it computes nothing, so it needs no card and holds the detector in
+    # host memory; `InferenceModel.load` puts the bundle on the card
+    model = model_builder.build(pipeline.model, is_training=False, device="cpu")
+    if CheckpointManager(trained_checkpoint_dir).restore(
+            TrainState(0, model, None, None), params_only=True) is None:
+        raise FileNotFoundError(f"no checkpoint in {trained_checkpoint_dir}")
+    resizer = model_builder.resizer_params(model_builder.image_resizer(pipeline.model))
+    return InferenceModel(model, resizer, bucket_multiple=pipeline.bucketing.bucket_multiple,
+                          device="cpu", pipeline_text=text).save(output_directory)

@@ -1,11 +1,13 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native libraries and load them with ctypes.
 
-Each `csrc/<name>.cu` has a plain C interface and compiles, on its own,
-into `mtlx_torch/_build/lib<name>-<source hash>.so` for `sm_90a`. The
-build runs at first use, from the sources in the checkout; a library
-whose name carries the hash of its source and flags is never stale.
-`build_all` starts one nvcc per source at once, so a cold process pays
-for the slowest source only.
+Each CUDA source `kernels/csrc/<name>.cu` has a plain C interface and
+compiles, on its own, into `mtlx_torch/_build/lib<name>-<source hash>.so`
+for `sm_90a`. The host sources of the data pipeline (`data/csrc/`: the
+TFRecord crc32c and the JPEG codec) compile the same way with gcc / g++
+(`load_host_library`). Every build runs at first use, from the sources in
+the checkout; a library whose name carries the hash of its source and
+flags is never stale. `build_all` starts one nvcc per CUDA source at
+once, so a cold process pays for the slowest source only.
 """
 
 from __future__ import annotations
@@ -15,11 +17,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "kernels", "csrc")
+HOST_CSRC_DIR = os.path.join(_PKG_DIR, "data", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 _P = ctypes.c_void_p
@@ -50,7 +54,24 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+_S = ctypes.c_size_t
+_U32 = ctypes.c_uint32
+# the host sources: name -> (file, compiler, flags, C interface)
+HOST_SOURCES = {
+    "crc32c": ("crc32c.c", "gcc", ("-O3", "-shared", "-fPIC"), {
+        "mtlx_crc32c": ([_P, _S, _U32], _U32),
+    }),
+    "imgcodec": ("imgcodec.cc", "g++",
+                 ("-O3", "-shared", "-fPIC", "-std=c++17", "-ljpeg", "-lpthread"), {
+        "mtlx_jpeg_dims": ([_P, _S, _P, _P, ctypes.c_char_p, _I], _I),
+        "mtlx_jpeg_decode": ([_P, _S, _I, _I, _I, _P, _S, _P, ctypes.c_char_p, _I], _I),
+        "mtlx_jpeg_decode_batch": ([_I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                                    ctypes.c_char_p, _I], _I),
+    }),
+}
+
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 # the compiler's output (ptxas register / shared-memory report) per source
 build_logs: Dict[str, str] = {}
 
@@ -159,3 +180,52 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.mtlx_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def _host_library_path(name: str) -> Tuple[str, str]:
+    file, compiler, flags, _ = HOST_SOURCES[name]
+    src = os.path.join(HOST_CSRC_DIR, file)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join((compiler,) + flags).encode()).hexdigest()
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library `name` (a source of `data/csrc`), built
+    with gcc / g++ first if needed. A failed build raises with the
+    compiler's log; nothing falls back to another implementation."""
+    with _host_lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        file, compiler, flags, signatures = HOST_SOURCES[name]
+        src, out = _host_library_path(name)
+        if not os.path.exists(out):
+            exe = shutil.which(compiler)
+            if exe is None:
+                raise RuntimeError(f"{compiler} not found on PATH; it builds "
+                                   f"mtlx_torch/data/csrc/{file} at first use")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.tmp{os.getpid()}"
+            # the libraries follow the source: -ljpeg must come after it
+            compile_flags = [f for f in flags if not f.startswith("-l")]
+            libs = [f for f in flags if f.startswith("-l")]
+            proc = subprocess.run([exe, *compile_flags, src, "-o", tmp, *libs],
+                                  capture_output=True, text=True)
+            build_logs[name] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(f"{compiler} failed for mtlx_torch/data/csrc/{file} "
+                                   f"(rc {proc.returncode}):\n{build_logs[name]}")
+            os.replace(tmp, out)
+        try:
+            lib = ctypes.CDLL(out)
+        except OSError as e:  # a library it links against is missing here
+            raise RuntimeError(f"loading {out} (built from mtlx_torch/data/csrc/{file}) "
+                               f"failed: {e}") from None
+        for fn, (argtypes, restype) in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
+        return lib

@@ -1,15 +1,35 @@
-"""The training step as the training CLI composes it (port of the augment
-wrapper and the step wrapper of mtlx/train/train.py): bucket padding,
-device-side augmentation, then the raw train step.
+"""Training CLI (port of mtlx/train/train.py):
 
-The CLI itself (`--pipeline_config_path`, `--train_dir`), the loader and
-checkpoints are not ported yet: ROADMAP.md queue 1 #14-15.
+    python -m mtlx_torch.train.train --pipeline_config_path=... --train_dir=...
+
+The pipeline file goes through the builders to the detector, the
+optimizer and the augmentations; TFRecords go through the host loader
+(`data/loader.py`) and the pinned-memory prefetch to the device; each
+batch is padded to its bucket, augmented on the device and taken through
+one train step. Checkpoints are written every `save_checkpoints_steps`
+and at the end; a restart resumes from the latest one, and a first run
+warm-starts from `fine_tune_checkpoint`. It runs on the CUDA device
+unless `--device cpu` is passed.
+
+Every `--log_every` steps (and at step 1) it prints `[train] {json}` with
+the step, images_per_sec, learning_rate, the losses, grad_norm and
+loader_wait_share: the share of wall time since the last line that the
+loop waited for the loader. TensorBoard event files are not written.
+
+The random draws of step s come from a generator seeded by (seed, s), so
+a resumed run takes the same draws as one that never stopped.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import os
+import sys
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -40,7 +60,8 @@ def make_augmented_batch_fn(aug_options: List[Tuple[str, dict]]) -> Callable:
 
 
 def make_step_fn(model: FasterRCNN, aug_options: List[Tuple[str, dict]],
-                 regularization_fn: Optional[Callable] = None) -> Callable:
+                 regularization_fn: Optional[Callable] = None,
+                 bucket_multiple: int = 0) -> Callable:
     """Returns step_fn(state, batch, generator=None, draws=None) ->
     (state, metrics): pad the batch to its bucket, augment it, take one
     train step. Draws not given come from `generator`, in the order of
@@ -50,7 +71,7 @@ def make_step_fn(model: FasterRCNN, aug_options: List[Tuple[str, dict]],
 
     def step_fn(state, batch, generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, Tensor]] = None):
-        batch = ts.pad_for_model(model, batch)
+        batch = ts.pad_for_model(model, batch, bucket_multiple)
         draws = dict(draws or {})
         if generator is not None:
             img = batch["image"]
@@ -60,3 +81,191 @@ def make_step_fn(model: FasterRCNN, aug_options: List[Tuple[str, dict]],
         return raw_step(state, augment(batch, draws), draws=draws)
 
     return step_fn
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step `step`'s draws."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+
+
+# flags of mtlx's CLI whose machinery is not ported: set, each raises
+_NOT_PORTED_FLAGS = (
+    ("grain_workers", 0, "the grain loader"),
+    ("max_bucket_variants", 0, "bucket coalescing"),
+    ("precompile_buckets", False, "bucket precompilation"),
+    ("distributed", False, "multi-host training"),
+    ("profile_from", 0, "the profiler trace"),
+)
+# reference TF1 cluster flags: accepted, noted and ignored
+_TF1_FLAGS = (("master", ""), ("task", 0), ("num_clones", 1), ("clone_on_cpu", False),
+              ("worker_replicas", 1), ("ps_tasks", 0), ("worker_job_name", "lonely_worker"))
+
+
+def parse_args(argv=None):
+    from mtlx_torch.utils.bucketing import bucket_multiple_arg
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--pipeline_config_path", required=True)
+    p.add_argument("--train_dir", required=True)
+    p.add_argument("--num_steps", type=int, default=None,
+                   help="override train_config.num_steps")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log_every", type=int, default=20)
+    p.add_argument("--deterministic", action="store_true",
+                   help="fixed data order (no shuffling); the draws are always seeded")
+    p.add_argument("--decode_threads", type=int, default=2,
+                   help=">0 decodes each batch's JPEGs on the codec's thread pool")
+    p.add_argument("--tf1_resize", action="store_true",
+                   help="the reference's TF1 resize_images (align_corners=False) "
+                        "convention for the initial image resize")
+    p.add_argument("--pack_transfer", type=int, default=1,
+                   help="1 = ship images cropped to their bucketed true shape; "
+                        "0 = ship the full canvas")
+    p.add_argument("--aspect_grouping", type=int, default=1,
+                   help="1 = batch records sharing a compute bucket together "
+                        "(with --pack_transfer)")
+    p.add_argument("--bucket_multiple", type=bucket_multiple_arg, default=0,
+                   help="compute bucket granularity in pixels (a multiple of 32); "
+                        "overrides the pipeline's `bucketing {}` block; default 128")
+    p.add_argument("--device", default=None,
+                   help="'cuda' (the default) or 'cpu'")
+    p.add_argument("--grain_workers", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--max_bucket_variants", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--precompile_buckets", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--distributed", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--profile_from", type=int, default=0, help=argparse.SUPPRESS)
+    for flag, default in _TF1_FLAGS:
+        kw = {"action": "store_true"} if isinstance(default, bool) else {
+            "default": default, "type": type(default)}
+        p.add_argument(f"--{flag}", help=argparse.SUPPRESS, **kw)
+    args = p.parse_args(argv)
+    for flag, default, what in _NOT_PORTED_FLAGS:
+        if getattr(args, flag) != default:
+            raise NotImplementedError(f"--{flag}: {what} is not ported to mtlx_torch")
+    for flag, default in _TF1_FLAGS[:-1]:
+        if getattr(args, flag) != default:
+            print(f"[train] note: --{flag} is a TF1 cluster knob; this program has no "
+                  "clones or parameter servers (ignored)", flush=True)
+    return args
+
+
+def main(argv=None) -> None:
+    # finer interpreter-lock switching: the prefetch thread and the step
+    # loop otherwise starve each other on hosts with few cores
+    sys.setswitchinterval(0.001)
+    args = parse_args(argv)
+
+    from mtlx_torch.builders import model_builder, optimizer_builder, preprocessor_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.data.loader import DetectionDataset, batches, device_prefetch
+    from mtlx_torch.device import resolve_device
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.utils.bucketing import resolve_bucketing
+
+    device = resolve_device(args.device)
+    configs = config_util.get_configs_from_pipeline_file(args.pipeline_config_path)
+    for note in config_util.compatibility_notes(configs):
+        print(f"[train] note: {note}", flush=True)
+    multiple = resolve_bucketing(configs["bucketing"], args.bucket_multiple,
+                                 args.max_bucket_variants)
+    # the pipeline.config saved into train_dir carries the granularity, so
+    # eval and serving of this model compute at it without the flag
+    configs["bucketing"].bucket_multiple = multiple
+    train_config = configs["train_config"]
+    model = model_builder.build(configs["model"], is_training=True,
+                                max_gt_boxes=train_config.max_number_of_boxes or 100,
+                                device=device)
+    num_steps = args.num_steps or train_config.num_steps or 200000
+    batch_size = train_config.batch_size or 1
+
+    os.makedirs(args.train_dir, exist_ok=True)
+    config_util.save_pipeline_config(
+        config_util.create_pipeline_proto_from_configs(configs), args.train_dir)
+
+    tx, _, _ = optimizer_builder.build(train_config.optimizer, train_config)
+    aug_options = preprocessor_builder.build(train_config.data_augmentation_options)
+    reg_fn = ts.make_regularization_fn(model_builder.regularization_scopes(configs["model"]))
+
+    input_config = configs["train_input_config"]
+    dataset = DetectionDataset(
+        list(input_config.tf_record_input_reader.input_path),
+        canvas_size=model.cfg.canvas_size,
+        resizer=model_builder.resizer_params(model_builder.image_resizer(configs["model"])),
+        max_boxes=model.cfg.max_gt_boxes,
+        load_instance_masks=(input_config.load_instance_masks
+                             and model.cfg.predict_instance_masks),
+        num_keypoints=input_config.num_keypoints,
+        tf1_resize=args.tf1_resize,
+    )
+    print(f"[train] {len(dataset)} examples, batch {batch_size}, canvas "
+          f"{model.cfg.canvas_size}, {num_steps} steps, device {device}", flush=True)
+
+    state = ts.create_train_state(model, tx)
+    manager = ckpt_lib.CheckpointManager(
+        args.train_dir, keep_every_n_hours=train_config.keep_checkpoint_every_n_hours)
+    latest = manager.latest_step()
+    if latest is not None:  # every weight comes from the checkpoint
+        state = manager.restore(state)
+        print(f"[train] resumed from step {latest}", flush=True)
+    else:
+        model.init_weights(torch.Generator().manual_seed(args.seed))
+        if train_config.fine_tune_checkpoint:
+            restored, skipped = ckpt_lib.restore_warm_start(
+                model, train_config.fine_tune_checkpoint,
+                train_config.from_detection_checkpoint)
+            print(f"[train] warm start: {restored} restored, {skipped} skipped", flush=True)
+
+    step_fn = make_step_fn(model, aug_options, reg_fn, bucket_multiple=multiple)
+    generator = torch.Generator(device=device)
+    shuffle = input_config.shuffle and not args.deterministic
+    # input_reader.num_epochs: 0 repeats forever; otherwise the run ends
+    # when the data does, even before num_steps
+    host_iter = batches(dataset, batch_size, shuffle=shuffle, seed=args.seed,
+                        decode_threads=args.decode_threads,
+                        epochs=input_config.num_epochs or None,
+                        pack_images=bool(args.pack_transfer),
+                        aspect_grouping=bool(args.aspect_grouping),
+                        bucket_multiple=multiple)
+    stalls: list = []  # seconds the loop waited for each batch
+    save_every = train_config.save_checkpoints_steps or 1000
+    saved = latest
+    cur = state.step
+    t_log, step_log, stall_log = time.perf_counter(), cur, 0
+    data_iter = device_prefetch(host_iter, device, stalls=stalls)  # starts at its first next()
+    try:
+        while cur < num_steps:
+            batch, _ = next(data_iter, (None, None))
+            if batch is None:  # num_epochs ran out
+                break
+            batch = {k: v for k, v in batch.items()
+                     if k not in ("gt_difficult", "gt_group_of", "original_shape")}
+            generator.manual_seed(step_seed(args.seed + 1, cur))
+            state, metrics = step_fn(state, batch, generator=generator)
+            cur = state.step
+            if cur % args.log_every == 0 or cur == 1:
+                values = {k: round(float(v), 4) for k, v in metrics.items()}  # syncs
+                now = time.perf_counter()
+                wall = now - t_log
+                line = {
+                    "step": cur,
+                    "images_per_sec": round((cur - step_log) * batch_size / wall, 2),
+                    "learning_rate": float(tx.lr(cur)),
+                    **values,
+                    "loader_wait_share": round(sum(stalls[stall_log:]) / wall, 4),
+                }
+                print("[train] " + json.dumps(line), flush=True)
+                t_log, step_log, stall_log = now, cur, len(stalls)
+            if cur % save_every == 0 or cur >= num_steps:
+                manager.save(cur, state)
+                saved = cur
+    finally:
+        data_iter.close()
+        dataset.close()
+    if saved != state.step:
+        manager.save(state.step, state)
+    manager.wait()
+    print(f"[train] done at step {state.step}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -199,9 +199,9 @@ def pad_batch_to_bucket(batch: Dict[str, Tensor], canvas, multiple: int = 0) -> 
     return out
 
 
-def pad_for_model(model: FasterRCNN, batch: Dict[str, Tensor]) -> Dict:
+def pad_for_model(model: FasterRCNN, batch: Dict[str, Tensor], multiple: int = 0) -> Dict:
     """Bucket padding (Faster R-CNN computes on any bucketed canvas)."""
-    return pad_batch_to_bucket(batch, model.cfg.canvas_size)
+    return pad_batch_to_bucket(batch, model.cfg.canvas_size, multiple)
 
 
 def make_draws(model: FasterRCNN, batch_size: int, canvas_hw: Tuple[int, int],

@@ -1,6 +1,6 @@
-"""Compute bucket granularity for serving (port of mtlx/utils/bucketing.py).
+"""Compute bucket granularity (port of mtlx/utils/bucketing.py).
 
-A served batch runs on its largest true image extent rounded up to a
+A batch computes on its largest true image extent rounded up to a
 multiple of the bucket granularity (128 by default, the pipeline proto's
 `bucketing.bucket_multiple`), capped at the model canvas. The granularity
 is passed explicitly: the port keeps no process-wide setting.
@@ -25,3 +25,29 @@ def bucket_extent(extent: int, cap: int, multiple: int = DEFAULT_BUCKET_MULTIPLE
     """`extent` rounded up to the bucket granularity, capped at the
     canvas extent."""
     return min(int(cap), -(-int(extent) // multiple) * multiple)
+
+
+def bucket_multiple_arg(value: str) -> int:
+    """argparse `type=` for the CLIs' --bucket_multiple (0 = unset: the
+    pipeline's `bucketing {}` block decides)."""
+    import argparse
+
+    v = int(value)
+    if v and (v < 0 or v % 32):
+        raise argparse.ArgumentTypeError(f"must be a positive multiple of 32, got {value}")
+    return v
+
+
+def resolve_bucketing(bucketing_config=None, bucket_multiple_flag: int = 0,
+                      max_bucket_variants_flag: int = 0) -> int:
+    """The bucket granularity of one CLI run: the flag, else the
+    pipeline's `bucketing {}` block, else the default. A bound on the
+    bucket variants (max_bucket_variants > 0) is not ported and raises."""
+    cfg_mult = cfg_variants = 0
+    if bucketing_config is not None:
+        cfg_mult = int(bucketing_config.bucket_multiple)
+        cfg_variants = int(bucketing_config.max_bucket_variants)
+    if int(max_bucket_variants_flag) or cfg_variants:
+        raise NotImplementedError("max_bucket_variants (bucket coalescing) is not ported: "
+                                  "ROADMAP.md queue 1 #14")
+    return bucket_multiple(int(bucket_multiple_flag) or cfg_mult)
