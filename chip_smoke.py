@@ -2,8 +2,9 @@
 each against its plain PyTorch version at the main path's shapes, serve
 the flagship Faster R-CNN ResNet-50 through `InferenceModel`, train the
 flagship MTL R50 for a few steps, compare the card with the CPU on the
-same request and on the same train step, and train, resume, evaluate and
-export the flagship from TFRecords through the port's CLIs.
+same request and on the same train step, train, resume, evaluate and
+export the flagship from JPEG TFRecords through the port's CLIs, and
+train the 3-task MTL R50 from scratch on synthetic data until it detects.
 
     python3 chip_smoke.py [--seed N]
 
@@ -63,20 +64,39 @@ Phases (any failure exits non-zero):
      tensor's largest magnitude), every update (L2 within 1e-3) and the
      parameters after the step (within 1e-2 of each tensor's largest
      magnitude)
-  8. the CLIs: 64 TFRecords of noise images written as PNG at their
-     resizer targets (600x800, 800x600, 600x1000; 1-20 boxes of VOC's 20
-     classes each) and the flagship pipeline pointing at them; a port
-     checkpoint of the CLI's own seeded init with batch norm calibrated on
-     one batch, as the pipeline's fine_tune_checkpoint; the train CLI for 6
-     steps at batch 16 (checkpoints every 3), then again to step 8, which
-     must resume from step 6; every step must launch NMS, the crop and its
-     backward once and the IoU three times; the eval CLI once on the same
-     records (a finite mAP, NMS and the crop launched); export_inference_
-     graph, then InferenceModel.load on the card, whose detections must
-     equal those of the in-memory model restored from the same checkpoint;
-     the port's JPEG decode held to mtlx's pixels where the machine has
-     libjpeg's header or library, else (neither found) a line that says
-     it is absent
+  8. the CLIs: the port's JPEG codec built by its one rule (the kept
+     libjpeg-turbo headers, Pillow's bundled libjpeg-turbo) and the
+     embedded JPEG decoded to mtlx's pixels (sha256) at both targets, or
+     the run fails; 64 TFRecords of noise images written as JPEG (quality
+     90) at VOC's sizes, 500x375, 375x500 and 500x333 (1-20 boxes of VOC's
+     20 classes each), which the flagship's keep-aspect resizer upsamples,
+     and the flagship pipeline pointing at them; the host loader timed a
+     batch of 16 of them and of 16 PNG records at their resizer targets; a
+     port checkpoint of the CLI's own seeded init with batch norm
+     calibrated on one batch, as the pipeline's fine_tune_checkpoint; the
+     train CLI for 6 steps at batch 16 (checkpoints every 3), then again
+     to step 8, which must resume from step 6 and traces step 7 with
+     `--profile_from` (the trace must hold kernels); every step must
+     launch NMS, the crop and its backward once and the IoU three times;
+     the train CLI's event files must hold the losses and learning_rate
+     of every logged step; the eval CLI once on the same records (a finite
+     mAP, NMS and the crop launched); the export CLI, then
+     InferenceModel.load on the card, whose detections must equal those
+     of the in-memory model restored from the same checkpoint; one
+     600x800 image served as pixels, as JPEG and PNG bytes and as a
+     tf.Example: equal detections from the same decoded pixels, and the
+     JPEG's pixels within a mean absolute difference of 2.0 of the PNG's
+  9. learnability: `python -m mtlx_torch.tools.synthetic_e2e_check` in
+     this process, fixed 128x128 and `--keep_aspect`, 300 steps each at
+     batch 8 from scratch on 48 JPEG records of coloured rectangles; it
+     prints the learning rate at updates 0, 30 and 299, the losses every
+     50 steps, ms a step and the mAP@0.5, which must reach 0.5; every
+     train step must launch NMS, the crop and its backward once and the
+     IoU three times, every eval batch NMS twice and the crop once; then
+     one recorded train step of the trained model holds each kernel to
+     its plain version on the inputs this path gives it (the RPN NMS at
+     8 x 576 -> 32, the crop of 8 x 16 sampled proposals on an 8x8 map and
+     its backward, the IoU launches of the step's assignments)
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -1359,24 +1379,40 @@ JPEG_SHA256 = {
 }
 
 
-def write_records(directory: str, rs, n: int = 64) -> str:
-    """n TFRecords of uint8 noise images as PNG at their resizer targets
-    (600x800, 800x600, 600x1000 in turn), 1-20 boxes each of VOC classes."""
+# VOC's image sizes (height, width): 500x375, 375x500 and 500x333 (w x h)
+VOC_SIZES = ((375, 500), (500, 375), (333, 500))
+# what the flagship's keep-aspect resizer {600, 1024} makes of them
+VOC_TARGETS = ((600, 800), (800, 600), (600, 901))
+
+
+def encode_jpeg(image: np.ndarray, quality: int = 90) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="JPEG", quality=quality)
+    return buf.getvalue()
+
+
+def write_records(path: str, rs, n: int, fmt: str, sizes) -> str:
+    """n TFRecords of uint8 noise images of the given (height, width)
+    sizes in turn, as JPEG (quality 90) or PNG, 1-20 boxes each of VOC
+    classes."""
     from mtlx_torch.data import imgcodec, tfrecord
     from mtlx_torch.data.example_decoder import build_example
 
-    path = os.path.join(directory, "voc_noise.record")
-    sizes = ((600, 800), (800, 600), (600, 1000))
     with tfrecord.TFRecordWriter(path) as w:
         for i in range(n):
-            h, wd = sizes[i % 3]
+            h, wd = sizes[i % len(sizes)]
             image = rs.randint(0, 256, (h, wd, 3)).astype(np.uint8)
             k = rs.randint(1, 21)
             y0, x0 = rs.uniform(0, 0.8, k), rs.uniform(0, 0.8, k)
             boxes = np.stack([y0, x0, np.minimum(y0 + rs.uniform(0.05, 0.5, k), 1.0),
                               np.minimum(x0 + rs.uniform(0.05, 0.5, k), 1.0)], 1)
             labels = rs.randint(1, 21, k)
-            w.write(build_example(imgcodec.encode_png(image), b"png", h, wd, f"noise{i}.png",
+            encoded = encode_jpeg(image) if fmt == "jpeg" else imgcodec.encode_png(image)
+            w.write(build_example(encoded, fmt.encode(), h, wd, f"noise{i}.{fmt}",
                                   boxes, labels, [VOC_NAMES[c - 1] for c in labels],
                                   difficult=(rs.uniform(size=k) < 0.1).astype(int)))
     return path
@@ -1418,52 +1454,55 @@ def train_log_lines(out: str):
             if ln.startswith("[train] {")]
 
 
-def libjpeg_on_machine():
-    """(jpeglib.h found, libjpeg found), asked of the machine itself: the
-    header in the C++ compiler's include search list (or the usual
-    directories where there is no compiler), the library through
-    `ctypes.util.find_library`."""
-    import ctypes.util
-    import glob
-    import shutil
-
-    dirs = ["/usr/include", "/usr/local/include", *glob.glob("/usr/include/*-linux-gnu")]
-    for var in ("CPATH", "CPLUS_INCLUDE_PATH", "C_INCLUDE_PATH"):
-        dirs += [d for d in os.environ.get(var, "").split(os.pathsep) if d]
-    cxx = shutil.which("g++")
-    if cxx is not None:
-        proc = subprocess.run([cxx, "-E", "-x", "c++", "-", "-v"], input="",
-                              capture_output=True, text=True, timeout=60)
-        listing = proc.stderr.split("search starts here:")[-1].split("End of search list.")[0]
-        dirs += [ln.strip() for ln in listing.splitlines() if ln.startswith(" ")]
-    header = any(os.path.exists(os.path.join(d, "jpeglib.h")) for d in dirs)
-    return header, ctypes.util.find_library("jpeg") is not None
-
-
 def check_jpeg_on_card():
-    """Decode the embedded JPEG with the port's codec where the machine has
-    libjpeg and hold it to mtlx's pixels; say that it is absent only
-    where neither its header nor its library is there. Any other failure
-    to build or load the codec fails the phase."""
+    """Build the port's JPEG codec by its one rule and hold the embedded
+    JPEG's pixels to mtlx's (sha256) at both targets; any failure to
+    build, load or match fails the run. Also says what the machine holds:
+    Pillow's JPEG support and bundled library, and nvJPEG's header."""
     import base64
+    import glob
     import hashlib
 
-    from mtlx_torch.data import imgcodec
+    import PIL
+    import PIL.features
 
-    header, library = libjpeg_on_machine()
-    if not header and not library:
-        log("jpeg: unavailable (no libjpeg on this machine)")
-        return "unavailable"
-    log(f"jpeg: jpeglib.h {'found' if header else 'missing'}, "
-        f"libjpeg {'found' if library else 'missing'}; building the codec")
+    from mtlx_torch.data import imgcodec
+    from mtlx_torch.kernels import build
+
+    t0 = time.perf_counter()
     imgcodec._codec()
+    turbo = PIL.features.version_feature("libjpeg_turbo")
+    log(f"[jpeg] Pillow {PIL.__version__}: jpg {PIL.features.check('jpg')} (libjpeg "
+        f"{PIL.features.version('jpg')}, libjpeg-turbo {turbo}); "
+        f"the codec links {build.pillow_libjpeg()}, built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s; nvjpeg.h under /usr/local/cuda/include: "
+        f"{bool(glob.glob('/usr/local/cuda/include/nvjpeg.h'))}")
     jpg = base64.b64decode("".join(JPEG_B64))
     for (th, tw, tf1), want in JPEG_SHA256.items():
         got = hashlib.sha256(imgcodec.decode_jpeg(jpg, th, tw, tf1).tobytes()).hexdigest()
         if got != want:
             raise AssertionError(f"JPEG decode onto {th}x{tw} (tf1 {tf1}) differs from mtlx's")
-    log(f"jpeg: the port's libjpeg decode equals mtlx's at {len(JPEG_SHA256)} targets")
+    log(f"[jpeg] the port's decode of the embedded JPEG equals mtlx's pixels at "
+        f"{len(JPEG_SHA256)} targets (sha256)")
     return "equal"
+
+
+def loader_ms(record: str, canvas, passes: int = 2):
+    """ms a batch of 16 of the host loader over a record file (read,
+    decode, canvas, packing; decode_threads 2, as the train CLI and
+    `time_steps_without_loader`), one pass after another."""
+    from mtlx_torch.data.loader import DetectionDataset, batches
+
+    out = []
+    for _ in range(passes):
+        ds = DetectionDataset([record], canvas,
+                              ("keep_aspect", {"min_dimension": 600, "max_dimension": 1024}))
+        t0 = time.perf_counter()
+        n = sum(1 for _ in batches(ds, 16, seed=0, epochs=1, pack_images=True,
+                                   decode_threads=2))
+        out.append((time.perf_counter() - t0) * 1e3 / n)
+        ds.close()
+    return out
 
 
 def time_steps_without_loader(model, record: str, seed: int):
@@ -1538,6 +1577,266 @@ def time_steps_without_loader(model, record: str, seed: int):
                 host_ms_per_batch=host_ms)
 
 
+def request_picture(rs, h: int, w: int) -> np.ndarray:
+    """An image with smooth gradients and six flat rectangles: what JPEG
+    keeps well, so JPEG and PNG inputs of it are comparable."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    image = np.stack([yy * 200 // h + 20, xx * 200 // w + 20,
+                      (yy + xx) * 100 // (h + w) + 60], -1).astype(np.uint8)
+    for _ in range(6):
+        y0, x0 = rs.randint(0, h - 100), rs.randint(0, w - 100)
+        image[y0:y0 + rs.randint(40, 200), x0:x0 + rs.randint(40, 250)] = rs.randint(0, 256, 3)
+    return image
+
+
+def matched_share(a, b, k: int = 20) -> float:
+    """The share of a's k best detections that b has too: the same class
+    and IoU >= 0.5 with one of b's detections."""
+    from mtlx_torch.geometry import np_box_ops
+
+    na, nb = int(a["num_detections"][0]), int(b["num_detections"][0])
+    top = np.argsort(-a["detection_scores"][0][:na], kind="stable")[:k]
+    if not len(top) or not nb:
+        return float(len(top) == 0)
+    iou = np_box_ops.iou(a["detection_boxes"][0][top], b["detection_boxes"][0][:nb])
+    same = a["detection_classes"][0][top][:, None] == b["detection_classes"][0][:nb][None]
+    return float(((iou >= 0.5) & same).any(1).mean())
+
+
+def check_serving_inputs(served, image, want):
+    """Serve one 600x800 image (at its resizer target) as pixels, as PNG and
+    JPEG bytes and as a tf.Example of the JPEG: detections from the same
+    decoded pixels must be equal, and the JPEG's pixels within a mean
+    absolute difference of 2.0 of the image's."""
+    from mtlx_torch.data import imgcodec
+    from mtlx_torch.data.example_decoder import build_example
+
+    h, w = image.shape[:2]
+    png, jpg = imgcodec.encode_png(image), encode_jpeg(image)
+    example = build_example(jpg, b"jpeg", h, w, "request.jpg", np.zeros((0, 4)), [], [])
+    decoded = imgcodec.decode_jpeg(jpg, h, w)
+    via_pixels = served.predict_images([decoded])
+    timings = {}
+
+    def timed(name, fn, arg):
+        fn(arg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(arg)
+        timings[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    cases = {"png bytes": (timed("predict_encoded_images png", served.predict_encoded_images,
+                                 [png]), want),
+             "jpeg bytes": (timed("predict_encoded_images jpeg", served.predict_encoded_images,
+                                  [jpg]), via_pixels),
+             "tf.Example": (timed("predict_tf_examples", served.predict_tf_examples, [example]),
+                            via_pixels)}
+    timed("predict_images", served.predict_images, [image])
+    for name, (got, ref) in cases.items():
+        if not all(np.array_equal(got[k], ref[k]) for k in ref):
+            raise AssertionError(f"serving the {name} differs from predict_images on the same "
+                                 "decoded pixels")
+    diff = np.abs(decoded.astype(np.int32) - image.astype(np.int32))
+    share = matched_share(want, via_pixels)
+    log(f"[cli] one 600x800 image served as pixels, PNG bytes, JPEG bytes and a tf.Example: "
+        f"equal detections from the same decoded pixels; the JPEG (quality 90, {len(jpg)} "
+        f"bytes) decodes within {diff.mean():.4f} mean, {int(diff.max())} max of the PNG's "
+        f"pixels; detections {int(want['num_detections'][0])} (PNG) and "
+        f"{int(via_pixels['num_detections'][0])} (JPEG), {share:.2f} of the PNG's 20 best "
+        f"matched in the JPEG's (same class, IoU >= 0.5); ms a request "
+        + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()))
+    if not diff.mean() <= 2.0:
+        raise AssertionError(f"the JPEG decodes {diff.mean():.3f} from the image's pixels on "
+                             "average (tolerance 2.0)")
+    return dict(jpeg_mean_abs=float(diff.mean()), jpeg_max_abs=int(diff.max()),
+                matched_share=share, request_ms=timings)
+
+
+def check_train_events(train_dir: str, lines):
+    """The train CLI's event files must hold every logged step's losses,
+    grad_norm and learning_rate: the printed values (rounded to 4
+    decimals) and learning_rate exactly, as float32."""
+    import glob
+
+    from mtlx_torch.utils.summary_writer import read_events
+
+    paths = sorted(glob.glob(os.path.join(train_dir, "events.out.tfevents.*")))
+    scalars = {}
+    for path in paths:
+        for event in read_events(path):
+            for tag, value in event.get("values", []):
+                scalars[(event["step"], tag)] = value
+    for line in lines:
+        step = line["step"]
+        for key, value in line.items():
+            if key.startswith("Loss/") or key in ("total_loss", "grad_norm"):
+                got = scalars.get((step, key))
+                if got is None or abs(got - value) > 5e-5 + 1e-6 * abs(value):
+                    raise AssertionError(f"event files: {key} at step {step} is {got}, the "
+                                         f"line printed {value}")
+        if scalars.get((step, "learning_rate")) != float(np.float32(line["learning_rate"])):
+            raise AssertionError(f"event files: learning_rate at step {step} is "
+                                 f"{scalars.get((step, 'learning_rate'))}")
+    log(f"[cli] {len(paths)} event files hold the losses, grad_norm and learning_rate of all "
+        f"{len(lines)} logged steps ({len(scalars)} scalars)")
+
+
+def check_profile_trace(train_dir: str, step: int):
+    """The `--profile_from` trace must exist and hold the card's kernels."""
+    path = os.path.join(train_dir, "profile", f"trace_to_step_{step}.json")
+    with open(path) as f:
+        trace = json.load(f)
+    kernels = [e for e in trace.get("traceEvents", []) if e.get("cat") == "kernel"]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+    log(f"[cli] --profile_from trace {os.path.basename(path)}: {len(kernels)} kernels, "
+        f"{busy:.2f} ms of kernel time, {os.path.getsize(path) / 2**20:.1f} MiB")
+    if not kernels:
+        raise AssertionError(f"the profiler trace {path} holds no kernel")
+
+
+def record_kernel_inputs(fn):
+    """Run fn() with the inputs of every call of the four kernel wrappers
+    recorded (record_calls): {kernel: [(args, kwargs)]}. For a reading
+    outside the runs whose launches are counted."""
+    from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
+
+    targets = [("nms", nms_cuda, "non_max_suppression"),
+               ("roi_crop", roi_cuda, "crop_and_resize"),
+               ("roi_crop_backward", roi_cuda, "crop_and_resize_backward"),
+               ("iou", iou_cuda, "iou_matrix")]
+    calls = {}
+
+    def run(i):
+        if i == len(targets):
+            return fn()
+        name, module, attr = targets[i]
+        calls[name] = record_calls(lambda: run(i + 1), module, attr)
+
+    run(0)
+    return calls
+
+
+def check_kernels_on(calls, tag: str):
+    """Each recorded kernel call against its plain version on the same
+    inputs: NMS selections and the crop and IoU bit-equal, the crop
+    backward within its stated tolerance."""
+    from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
+
+    shapes = {}
+    for args, kw in calls["nms"]:
+        got = nms_cuda.non_max_suppression(*args, **kw)
+        ref = nms_cuda.non_max_suppression_plain(*args, **kw)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"NMS differs from its plain version at {tag}")
+        shapes.setdefault("nms", []).append(f"{'x'.join(map(str, args[1].shape))}->{args[3]}")
+    for args, _ in calls["roi_crop"]:
+        features, boxes, crop_size = args[:3]  # extrapolation 0 (the wrapper raises otherwise)
+        got = roi_cuda.crop_and_resize(features, boxes, crop_size)
+        if not torch.equal(got, roi_cuda.crop_and_resize_plain(features, boxes, crop_size)):
+            raise AssertionError(f"the crop differs from its plain version at {tag}")
+        shapes.setdefault("roi_crop", []).append(
+            f"{'x'.join(map(str, features.shape))}x{boxes.shape[1]}->{crop_size[0]}x"
+            f"{crop_size[1]} {str(features.dtype)[6:]}")
+    for (dout, boxes, hw), _ in calls["roi_crop_backward"]:
+        # phase 3's tolerance: 1e-4 of each pixel's sum of term magnitudes,
+        # and in bfloat16 one bfloat16 ulp of the float32 result on top
+        ref = roi_cuda.crop_and_resize_backward_plain(dout.float(), boxes, hw)
+        err = (roi_cuda.crop_and_resize_backward(dout, boxes, hw).float() - ref).abs()
+        tol = _bwd_tolerance(roi_cuda, dout, boxes, hw)
+        if dout.dtype == torch.bfloat16:
+            tol = tol + torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"the crop backward is off by {float(err.max())} at {tag}")
+        shapes.setdefault("roi_crop_backward", []).append(
+            f"{'x'.join(map(str, dout.shape))}->{hw[0]}x{hw[1]} {str(dout.dtype)[6:]}")
+    for (b1, b2), _ in calls["iou"]:
+        if not torch.equal(iou_cuda.iou_matrix(b1, b2), iou_cuda.iou_matrix_plain(b1, b2)):
+            raise AssertionError(f"the IoU differs from its plain version at {tag}")
+        shapes.setdefault("iou", []).append(f"{b1.shape[0]}x{b1.shape[1]}x{b2.shape[1]}")
+    torch.cuda.synchronize()
+    log(f"[learn] {tag}: every kernel call of one recorded train step equals its plain "
+        f"version: {shapes}")
+    return shapes
+
+
+def learnability_step_calls(work: str, seed: int):
+    """One train step of the tool's trained model on one batch of its
+    records, with every kernel call's inputs recorded."""
+    from mtlx_torch.builders import model_builder, optimizer_builder, preprocessor_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.data.loader import DetectionDataset, batches
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train as train_lib
+    from mtlx_torch.train import train_step as ts
+
+    configs = config_util.get_configs_from_pipeline_file(os.path.join(work, "pipeline.config"))
+    train_config = configs["train_config"]
+    model = model_builder.build(configs["model"], is_training=True,
+                                max_gt_boxes=train_config.max_number_of_boxes, device="cuda")
+    tx, _, _ = optimizer_builder.build(train_config.optimizer, train_config)
+    state = ckpt_lib.CheckpointManager(os.path.join(work, "train")).restore(
+        ts.create_train_state(model, tx))
+    dataset = DetectionDataset(
+        list(configs["train_input_config"].tf_record_input_reader.input_path),
+        model.cfg.canvas_size,
+        model_builder.resizer_params(model_builder.image_resizer(configs["model"])),
+        max_boxes=model.cfg.max_gt_boxes)
+    batch = next(batches(dataset, train_config.batch_size, seed=seed, pack_images=True))
+    dataset.close()
+    keep = ("image", "true_shape", "gt_boxes", "gt_classes", "gt_mask")
+    batch = {k: torch.from_numpy(batch[k]).cuda() for k in keep}
+    step_fn = train_lib.make_step_fn(
+        model, preprocessor_builder.build(train_config.data_augmentation_options))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return record_kernel_inputs(lambda: step_fn(state, batch, generator=gen))
+
+
+def phase_learnability(seed: int, results):
+    """The learnability tool, fixed and keep-aspect, 300 steps each on the
+    card in this process; each mAP@0.5 must reach 0.5, and each run must
+    launch every kernel as its steps and eval batches call for."""
+    import shutil
+    import tempfile
+
+    from mtlx_torch.tools import synthetic_e2e_check as tool
+
+    runs = {}
+    for tag, extra in (("fixed", []), ("keep_aspect", ["--keep_aspect"])):
+        work = tempfile.mkdtemp(prefix=f"mtlx_learn_{tag}_")
+        try:
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            out, metrics = run_cli(tool.main, ["--workdir", work, *extra])
+            wall = time.perf_counter() - t0
+            counts = kernel_counts()
+            lines = train_log_lines(out)
+            # 300 steps at batch 8, and 24 eval images in 3 batches of 8
+            want = {"nms": 300 + 2 * 3, "roi_crop": 300 + 3, "roi_crop_backward": 300,
+                    "iou": 3 * 300}
+            if counts != want:
+                raise AssertionError(f"learnability {tag}: launches {counts}, want {want}")
+            lr_line = next(ln for ln in out.splitlines()
+                           if ln.startswith("[synthetic-e2e] learning rate"))
+            ms = [8 / ln["images_per_sec"] * 1e3 for ln in lines if ln["step"] > 1]
+            losses = {ln["step"]: {k: v for k, v in ln.items()
+                                   if k.startswith("Loss/") or k == "total_loss"}
+                      for ln in lines}
+            mean_ap = metrics["Precision/mAP@0.5IOU"]
+            log(f"[learn] {tag}: mAP@0.5 {mean_ap:.4f} after 300 steps (bar 0.5), "
+                f"{lr_line.split('] ', 1)[1]}; ms a step over each 50 "
+                f"{', '.join(f'{t:.2f}' for t in ms)}; total_loss by step "
+                f"{ {s: l['total_loss'] for s, l in losses.items()} }; launches {counts}; "
+                f"{wall:.1f} s (records, both CLIs)")
+            shapes = check_kernels_on(learnability_step_calls(work, seed), tag)
+            runs[tag] = dict(map=mean_ap, ms_per_step=ms, losses=losses, launches=counts,
+                             lr=lr_line, wall_s=wall, shapes=shapes,
+                             eval_img_per_s=metrics["eval/images_per_sec"])
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    results["learnability"] = runs
+
+
 def phase_cli(seed: int, results):
     """Train, resume, evaluate and export the flagship from TFRecords
     through the port's CLIs, in this process."""
@@ -1548,15 +1847,20 @@ def phase_cli(seed: int, results):
     from mtlx_torch.config import config_util
     from mtlx_torch.data.loader import DetectionDataset, batches
     from mtlx_torch.eval import eval as eval_cli
-    from mtlx_torch.export.exporter import InferenceModel, export_inference_graph
+    from mtlx_torch.export import exporter
+    from mtlx_torch.export.exporter import InferenceModel
     from mtlx_torch.train import checkpoints as ckpt_lib
     from mtlx_torch.train import train as train_cli
     from mtlx_torch.train import train_step as ts
 
+    jpeg = check_jpeg_on_card()
     work = tempfile.mkdtemp(prefix="mtlx_cli_")
     try:
         t0 = time.perf_counter()
-        record = write_records(work, np.random.RandomState(seed + 8))
+        record = write_records(os.path.join(work, "voc_noise.record"),
+                               np.random.RandomState(seed + 8), 64, "jpeg", VOC_SIZES)
+        png_record = write_records(os.path.join(work, "voc_noise_png.record"),
+                                   np.random.RandomState(seed + 10), 16, "png", VOC_TARGETS)
         label_map = os.path.join(work, "label_map.pbtxt")
         with open(label_map, "w") as f:
             f.writelines(f"item {{ id: {i + 1} name: '{n}' }}\n" for i, n in enumerate(VOC_NAMES))
@@ -1564,8 +1868,10 @@ def phase_cli(seed: int, results):
         pipeline = os.path.join(work, "pipeline.config")
         with open(pipeline, "w") as f:
             f.write(cli_pipeline(record, label_map, fine_tune))
-        log(f"[cli] wrote 64 PNG records ({os.path.getsize(record) / 2**20:.1f} MiB) and "
-            f"the pipeline in {time.perf_counter() - t0:.2f} s")
+        log(f"[cli] wrote 64 JPEG records at VOC's sizes ({os.path.getsize(record) / 2**20:.1f} "
+            f"MiB), 16 PNG records at their resizer targets "
+            f"({os.path.getsize(png_record) / 2**20:.1f} MiB) and the pipeline in "
+            f"{time.perf_counter() - t0:.2f} s")
 
         # the warm start: the CLI's own init (same seed), batch norm
         # calibrated on one batch of the records
@@ -1583,18 +1889,22 @@ def phase_cli(seed: int, results):
         manager.save(0, ts.create_train_state(model, ts.make_optimizer()))
         manager.wait()
         results["cli_steps_without_loader"] = time_steps_without_loader(model, record, seed)
+        png_ms = loader_ms(png_record, model.cfg.canvas_size)
+        log(f"[cli] the host loader on 16 PNG records at their resizer targets, pass after "
+            f"pass: {', '.join(f'{t:.2f}' for t in png_ms)} ms a batch of 16")
         del model, manager
         torch.cuda.empty_cache()
 
         train_dir = os.path.join(work, "train")
         runs = {}
-        for tag, steps in (("first", 6), ("resumed", 8)):
+        for tag, steps, extra in (("first", 6, []),
+                                  ("resumed", 8, ["--profile_from", "6", "--profile_steps", "1"])):
             reset_kernel_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             out, _ = run_cli(train_cli.main, ["--pipeline_config_path", pipeline,
                                               "--train_dir", train_dir, "--num_steps", str(steps),
-                                              "--log_every", "1", "--seed", str(seed)])
+                                              "--log_every", "1", "--seed", str(seed), *extra])
             runs[tag] = dict(out=out, wall=time.perf_counter() - t0, counts=kernel_counts(),
                              peak=torch.cuda.max_memory_allocated(), lines=train_log_lines(out))
         first_run, resumed = runs["first"], runs["resumed"]
@@ -1623,6 +1933,8 @@ def phase_cli(seed: int, results):
             log(f"[cli] step {line['step']}: {16 / ips * 1e3:.2f} ms ({ips:.2f} img/s), "
                 f"loader wait share {line['loader_wait_share']:.4f}, total_loss "
                 f"{line['total_loss']:.5g}")
+        check_train_events(train_dir, lines)
+        check_profile_trace(train_dir, 7)
 
         eval_dir = os.path.join(work, "eval")
         reset_kernel_counts()
@@ -1640,21 +1952,36 @@ def phase_cli(seed: int, results):
             raise AssertionError(f"the eval CLI did not launch NMS and the crop: {eval_counts}")
 
         export_dir = os.path.join(work, "export")
-        export_inference_graph(pipeline, train_dir, export_dir)
+        t0 = time.perf_counter()
+        out, _ = run_cli(exporter.main, ["--pipeline_config_path", pipeline,
+                                         "--trained_checkpoint_dir", train_dir,
+                                         "--output_directory", export_dir])
+        export_s = time.perf_counter() - t0
+        with open(os.path.join(export_dir, exporter.METADATA_FILE)) as f:
+            metadata = json.load(f)
+        if metadata["step"] != 8:
+            raise AssertionError(f"the export CLI exported step {metadata['step']}, not 8")
+        t0 = time.perf_counter()
         served = InferenceModel.load(export_dir)
+        load_s = time.perf_counter() - t0
         configs = config_util.get_configs_from_pipeline_file(pipeline)
         in_memory = model_builder.build(configs["model"], is_training=False, device="cuda")
         ckpt_lib.CheckpointManager(train_dir).restore(ts.TrainState(0, in_memory, None, None),
                                                       params_only=True)
         in_memory = InferenceModel(in_memory, served.resizer, device="cuda")
-        request = [np.random.RandomState(seed + 9).randint(0, 256, (600, 800, 3)).astype(np.uint8)]
-        a, b = served.predict_images(request), in_memory.predict_images(request)
+        image = request_picture(np.random.RandomState(seed + 9), 600, 800)
+        t0 = time.perf_counter()
+        a = served.predict_images([image])
+        first_request_ms = (time.perf_counter() - t0) * 1e3
+        b = in_memory.predict_images([image])
         same = all(np.array_equal(a[k], b[k]) for k in a)
-        log(f"[cli] InferenceModel.load on the card served {int(a['num_detections'][0])} "
-            f"detections, equal to the in-memory model's: {same}")
+        log(f"[cli] export CLI {export_s:.2f} s (metadata {metadata}), InferenceModel.load on "
+            f"the card {load_s:.2f} s, its first request {first_request_ms:.2f} ms; it served "
+            f"{int(a['num_detections'][0])} detections, equal to the in-memory model's: {same}")
         if not same:
             raise AssertionError("the exported model's detections differ from the in-memory model's")
         check_outputs(a, 1)
+        serving = check_serving_inputs(served, image, a)
         results["cli"] = dict(
             train_step_ms=[16 / ln["images_per_sec"] * 1e3 for ln in lines],
             train_img_per_s=[ln["images_per_sec"] for ln in lines],
@@ -1663,7 +1990,8 @@ def phase_cli(seed: int, results):
             train_launches_per_step={k: v / 6 for k, v in first_run["counts"].items()},
             eval_map=mean_ap, eval_img_per_s=eval_ips,
             eval_launches_per_batch={k: v / 8 for k, v in eval_counts.items()},
-            jpeg=check_jpeg_on_card())
+            jpeg=jpeg, png_loader_ms=png_ms, export_s=export_s,
+            load_s=load_s, serving=serving)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1701,6 +2029,7 @@ def main(argv=None) -> int:
     phase_train(args.seed, results)
     phase_train_card_vs_cpu(args.seed)
     phase_cli(args.seed, results)
+    phase_learnability(args.seed, results)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -1747,6 +2076,9 @@ def main(argv=None) -> int:
     for k in kernels:
         k["cli_train_launches_per_step"] = cli["train_launches_per_step"][k["name"]]
         k["cli_eval_launches_per_batch"] = cli["eval_launches_per_batch"][k["name"]]
+        k["learnability_launches"] = {tag: run["launches"][k["name"]]
+                                      for tag, run in results["learnability"].items()}
+        k["learnability_shapes"] = results["learnability"]["fixed"]["shapes"][k["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

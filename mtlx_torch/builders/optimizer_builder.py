@@ -1,15 +1,20 @@
 """optimizer_builder + learning schedules (port of
-mtlx/builders/optimizer_builder.py, the momentum optimizer with a
-constant or manual-step learning rate).
+mtlx/builders/optimizer_builder.py: the momentum optimizer with a
+constant, exponential-decay, manual-step or warm-up + cosine learning
+rate, each the optax schedule mtlx builds).
 
-The exponential and cosine schedules, the RMSProp and Adam optimizers
-and moving averages of the weights are not ported yet: ROADMAP.md
-queue 1 #13.
+The RMSProp and Adam optimizers and moving averages of the weights are
+not ported yet: ROADMAP.md queue 1 item 12.
 """
 
 from __future__ import annotations
 
-from mtlx_torch.train.train_step import PiecewiseConstantSchedule, make_optimizer
+from mtlx_torch.train.train_step import (
+    ExponentialDecaySchedule,
+    PiecewiseConstantSchedule,
+    WarmupCosineDecaySchedule,
+    make_optimizer,
+)
 
 
 def build_learning_rate(lr_proto):
@@ -17,6 +22,10 @@ def build_learning_rate(lr_proto):
     kind = lr_proto.WhichOneof("learning_rate")
     if kind is None or kind == "constant_learning_rate":
         return lr_proto.constant_learning_rate.learning_rate
+    if kind == "exponential_decay_learning_rate":
+        p = lr_proto.exponential_decay_learning_rate
+        return ExponentialDecaySchedule(p.initial_learning_rate, p.decay_steps, p.decay_factor,
+                                        p.staircase)
     if kind == "manual_step_learning_rate":
         p = lr_proto.manual_step_learning_rate
         boundaries_and_scales = {}
@@ -25,9 +34,11 @@ def build_learning_rate(lr_proto):
             boundaries_and_scales[int(s.step)] = s.learning_rate / prev
             prev = s.learning_rate
         return PiecewiseConstantSchedule(p.initial_learning_rate, boundaries_and_scales)
-    raise NotImplementedError(
-        f"learning rate {kind!r} is not ported: ROADMAP.md queue 1 #13"
-    )
+    if kind == "cosine_decay_learning_rate":
+        p = lr_proto.cosine_decay_learning_rate
+        return WarmupCosineDecaySchedule(p.warmup_learning_rate, p.learning_rate_base,
+                                         p.warmup_steps, p.total_steps)
+    raise ValueError(f"unknown learning rate {kind!r}")
 
 
 def build(optimizer_proto, train_config=None):
@@ -36,12 +47,12 @@ def build(optimizer_proto, train_config=None):
     kind = optimizer_proto.WhichOneof("optimizer")
     if kind != "momentum_optimizer":
         raise NotImplementedError(
-            f"optimizer {kind!r} is not ported: ROADMAP.md queue 1 #13"
+            f"optimizer {kind!r} is not ported: ROADMAP.md queue 1 item 12"
         )
     if optimizer_proto.use_moving_average:
         raise NotImplementedError(
             "use_moving_average (EMA of the weights) is not ported: ROADMAP.md "
-            "queue 1 #13"
+            "queue 1 item 12"
         )
     p = optimizer_proto.momentum_optimizer
     lr = build_learning_rate(p.learning_rate)

@@ -19,7 +19,7 @@ def build_step(step_proto) -> Tuple[str, dict]:
         raise ValueError("empty preprocessing step")
     if which not in _FIELD_MAPS or which not in TRANSFORMS:
         raise NotImplementedError(
-            f"augmentation {which!r} is not ported: ROADMAP.md queue 1 #14 "
+            f"augmentation {which!r} is not ported: ROADMAP.md queue 1 item 11 "
             "(the other device-side augmentations)"
         )
     sub = getattr(step_proto, which)

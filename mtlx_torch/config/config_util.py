@@ -36,9 +36,10 @@ def create_pipeline_proto_from_configs(configs: Dict) -> text_format.Message:
     pipeline = text_format.pipeline_schema().new(PIPELINE)
     for key, field in _SECTIONS:
         section = configs.get(key)
-        if section is not None and section.ListFields():
-            # the section object is shared, not copied: the returned
-            # message is written out and dropped
+        if section is not None:
+            # every section is present, empty or not, as mtlx's CopyFrom
+            # makes it; the section object is shared, not copied: the
+            # returned message is written out and dropped
             pipeline._set(pipeline._field(field), section)
     return pipeline
 

@@ -5,7 +5,8 @@
  * bit-equal; the CPython module around them is replaced by three C
  * functions that write into buffers the caller owns. ctypes releases the
  * interpreter lock for the call, and decode_batch runs a std::thread pool.
- * Built at first use by mtlx_torch/kernels/build.py with g++ -ljpeg.
+ * Built at first use by mtlx_torch/kernels/build.py with g++, against the
+ * libjpeg-turbo headers in jpeg/ and the libjpeg-turbo of Pillow's wheel.
  */
 #include <csetjmp>
 #include <cstddef>

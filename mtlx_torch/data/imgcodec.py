@@ -2,16 +2,19 @@
 
   * JPEG: the fused libjpeg decode + bilinear resize of `csrc/imgcodec.cc`
     (the port's copy of mtlx/data/_imgcodec.cc, bit-equal to it), built
-    with g++ -ljpeg at first use and called through ctypes, which releases
-    the interpreter lock; `decode_jpeg_batch` decodes on a thread pool.
+    with g++ at first use against the libjpeg-turbo headers in
+    `csrc/jpeg/` and the libjpeg-turbo of Pillow's wheel (one rule on
+    every machine: `kernels/build.py`), and called through ctypes, which
+    releases the interpreter lock; `decode_jpeg_batch` decodes on a
+    thread pool.
   * PNG: a numpy + zlib decoder (8-bit gray, gray + alpha, RGB and RGBA,
     not interlaced, all five row filters), and a filter-0 encoder.
 
 There is no fallback from one decoder to another: a JPEG that libjpeg
-cannot decode, or a machine without libjpeg, raises. An image that
-needs resizing and is not a JPEG is resized as mtlx's loader resizes it:
-with the TF1 convention in numpy (`tf1_resize`), else with PIL, which
-raises where PIL is not installed.
+cannot decode, or a machine without Pillow's libjpeg-turbo, raises. An
+image that needs resizing and is not a JPEG is resized as mtlx's loader
+resizes it: with the TF1 convention in numpy (`tf1_resize`), else with
+PIL, which raises where PIL is not installed.
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ def _codec():
         return build.load_host_library("imgcodec")
     except RuntimeError as e:
         raise RuntimeError(
-            "the JPEG decoder (mtlx_torch/data/csrc/imgcodec.cc) needs libjpeg "
-            "(jpeglib.h and libjpeg.so) and g++; its build failed:\n" + str(e)
+            "the JPEG decoder (mtlx_torch/data/csrc/imgcodec.cc) needs g++ and the "
+            "libjpeg-turbo of Pillow's wheel; its build failed:\n" + str(e)
         ) from None
 
 

@@ -302,9 +302,9 @@ def batches(
     ships bucketed true-shape images; aspect_grouping (default: on when
     pack_images is) batches records by shared compute bucket."""
     if host_geometry is not None:
-        raise NotImplementedError(f"host geometry (crop/pad augmentations) {_NOT_PORTED} #14")
+        raise NotImplementedError(f"host geometry (crop/pad augmentations) {_NOT_PORTED} item 11")
     if max_bucket_variants:
-        raise NotImplementedError(f"max_bucket_variants {_NOT_PORTED} #14")
+        raise NotImplementedError(f"max_bucket_variants {_NOT_PORTED} item 10")
     if aspect_grouping is None:
         aspect_grouping = pack_images
     aspect_grouping = aspect_grouping and batch_size > 1

@@ -49,7 +49,7 @@ def batch_preprocess(sample: Dict[str, Tensor], options: List[Tuple[str, dict]],
         fn = TRANSFORMS.get(name)
         if fn is None:
             raise NotImplementedError(
-                f"augmentation {name!r} is not ported: ROADMAP.md queue 1 #14 "
+                f"augmentation {name!r} is not ported: ROADMAP.md queue 1 item 11 "
                 "(the other device-side augmentations)"
             )
         sample = fn(sample, draws[name], **kwargs)

@@ -8,9 +8,11 @@ images through the detector's predict and postprocess on the device in
 batches grouped by compute bucket, feeds the numpy Pascal evaluator and
 prints `[eval] step N: {json}` with `Precision/mAP@0.5IOU`, the per-class
 APs and eval/images_per_sec; each evaluation's metrics are also appended
-to `<eval_dir>/metrics.jsonl`. `--run_once` evaluates the latest
-checkpoint and exits. It runs on the CUDA device unless `--device cpu`
-is passed. Visualizations and TensorBoard event files are not written.
+to `<eval_dir>/metrics.jsonl` and written, where finite, as scalars to a
+TensorBoard event file in eval_dir (`utils/summary_writer.py`).
+`--run_once` evaluates the latest checkpoint and exits. It runs on the
+CUDA device unless `--device cpu` is passed. Visualizations are not
+drawn.
 """
 
 from __future__ import annotations
@@ -73,8 +75,9 @@ def build_evaluators(eval_config, categories: List[dict]):
         elif name in ("weighted_pascal_voc_detection_metrics", "weighted_pascal_voc_metrics"):
             evaluators.append(WeightedPascalDetectionEvaluator(categories))
         elif name in _NOT_PORTED_METRICS:
+            item = 16 if "mask" in name or "segmentation" in name else 6
             raise NotImplementedError(f"the {name} evaluator is not ported: ROADMAP.md "
-                                      "queue 1 #16")
+                                      f"queue 1 item {item}")
         else:
             raise ValueError(f"unknown eval_config.metrics_set entry {name!r}")
     return evaluators
@@ -170,6 +173,7 @@ def main(argv=None):
     from mtlx_torch.train.train_step import TrainState
     from mtlx_torch.utils import label_map_util
     from mtlx_torch.utils.bucketing import resolve_bucketing
+    from mtlx_torch.utils.summary_writer import SummaryWriter
 
     device = resolve_device(args.device)
     configs = config_util.get_configs_from_pipeline_file(args.pipeline_config_path)
@@ -180,7 +184,7 @@ def main(argv=None):
     eval_config = configs["eval_config"]
     if eval_config.use_moving_averages:
         raise NotImplementedError("use_moving_averages (EMA of the weights) is not ported: "
-                                  "ROADMAP.md queue 1 #13")
+                                  "ROADMAP.md queue 1 item 12")
     input_config = (configs["train_input_config"] if args.eval_training_data
                     else configs["eval_input_config"])
     model = model_builder.build(configs["model"], is_training=False, device=device)
@@ -202,7 +206,7 @@ def main(argv=None):
 
     state = TrainState(0, model, None, None)
     manager = ckpt_lib.CheckpointManager(args.checkpoint_dir)
-    os.makedirs(args.eval_dir, exist_ok=True)
+    writer = SummaryWriter(args.eval_dir)
     last_step, evals, metrics = None, 0, None
     try:
         while True:
@@ -216,6 +220,10 @@ def main(argv=None):
                 print(f"[eval] step {step}: " + json.dumps(rounded), flush=True)
                 with open(os.path.join(args.eval_dir, "metrics.jsonl"), "a") as f:
                     f.write(json.dumps({"step": step, **rounded}) + "\n")
+                for k, v in metrics.items():
+                    if np.isfinite(v):
+                        writer.scalar(k, float(v), step)
+                writer.flush()
                 last_step = step
                 evals += 1
             if args.run_once or (eval_config.max_evals and evals >= eval_config.max_evals):
@@ -223,6 +231,7 @@ def main(argv=None):
             time.sleep(eval_config.eval_interval_secs or 300)
     finally:
         dataset.close()
+        writer.close()
     return metrics
 
 

@@ -1,11 +1,21 @@
-"""Standalone inference (port of mtlx/export/exporter.py `InferenceModel`).
+"""Model export and standalone inference (port of mtlx/export/exporter.py).
 
 An export directory holds the pipeline config (`pipeline.config`, the
-text proto) and the detector's `state_dict` (`model.pt`).
-`export_inference_graph` writes one from a train directory's latest
-checkpoint; `InferenceModel.load` rebuilds the eval-mode detector from
-it, reading the pipeline text with the port's own reader (no protobuf). Inputs
-are images as arrays; outputs follow the reference contract:
+text proto, with the resolved `bucketing.bucket_multiple`), the
+detector's `state_dict` (`model.pt`) and `export_metadata.json` (the
+checkpoint's step). `export_inference_graph` writes one from a train
+directory's checkpoint, also as a CLI:
+
+    python -m mtlx_torch.export.exporter --pipeline_config_path=... \
+        --trained_checkpoint_dir=... --output_directory=... \
+        [--checkpoint_step N] [--bucket_multiple M]
+
+`InferenceModel.load` rebuilds the eval-mode detector from a bundle,
+reading the pipeline text with the port's own reader (no protobuf), and
+serves the reference's three input types: images as arrays
+(`predict_image_tensor`, `predict_images`), encoded JPEG / PNG bytes
+(`predict_encoded_images`) and serialized tf.train.Examples
+(`predict_tf_examples`). Outputs follow the reference contract:
 detection_boxes (normalized to the original image), detection_scores,
 detection_classes (1-based), num_detections, as numpy arrays.
 
@@ -17,33 +27,26 @@ default) and capped at the model canvas, so a 600x800 image computes on
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from mtlx_torch.data import imgcodec
 from mtlx_torch.data.imgcodec import pil_resize
+from mtlx_torch.data.loader import keep_aspect_target
 from mtlx_torch.device import DeviceLike, resolve_device
 from mtlx_torch.utils.bucketing import bucket_extent, bucket_multiple as _bucket_multiple
 
 PIPELINE_FILE = "pipeline.config"
 STATE_DICT_FILE = "model.pt"
-
-
-def resize_keep_aspect(
-    image: np.ndarray, min_dimension: int, max_dimension: int
-) -> Tuple[np.ndarray, float]:
-    """Reference keep_aspect_ratio_resizer: scale so the short side reaches
-    min_dimension unless the long side would exceed max_dimension.
-    Returns (resized image, scale)."""
-    h, w = image.shape[:2]
-    scale = min(min_dimension / min(h, w), max_dimension / max(h, w))
-    return pil_resize(image, int(round(h * scale)), int(round(w * scale))), scale
-
-
-def resize_fixed(image: np.ndarray, height: int, width: int) -> np.ndarray:
-    return pil_resize(image, height, width)
+METADATA_FILE = "export_metadata.json"
+EXPORT_FORMAT = "mtlx_torch-v1"
+_JPEG_SIGNATURE = b"\xff\xd8\xff"
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 class InferenceModel:
@@ -105,18 +108,69 @@ class InferenceModel:
         return self._postprocess_output(self._serve(images, true_shapes))
 
     def predict_images(self, arrays: Sequence[np.ndarray]) -> Dict[str, np.ndarray]:
-        """Decoded [H, W, 3] uint8 images of any size (mtlx's
-        `_predict_decoded`): each resized by the config's image_resizer,
-        all padded onto the bucket of the batch's largest extent, served
-        as one batch."""
-        canvas_h, canvas_w = self.model.cfg.canvas_size
+        """Decoded [H, W, 3] uint8 images of any size: each resized by the
+        config's image_resizer, all padded onto the bucket of the batch's
+        largest extent, served as one batch."""
+        return self._predict_decoded(list(arrays))
+
+    def predict_encoded_images(self, blobs: Sequence[bytes]) -> Dict[str, np.ndarray]:
+        """Encoded images in, detections out; each blob is decoded by the
+        format its bytes begin with. JPEGs decode straight onto their
+        resizer target with the port's codec, on its thread pool (mtlx's
+        native branch); PNGs decode with the port's PNG decoder and
+        resize as `predict_images` resizes. Any other bytes raise. (mtlx
+        sends a batch through PIL as a whole when one blob is not a JPEG;
+        here each blob takes its own format's path.)"""
+        arrays: List[Optional[np.ndarray]] = [None] * len(blobs)
+        jpegs = []
+        for i, b in enumerate(blobs):
+            head = bytes(b[:8])
+            if head.startswith(_JPEG_SIGNATURE):
+                jpegs.append(i)
+            elif head == _PNG_SIGNATURE:
+                arrays[i] = self._resize(imgcodec.decode_png(b))
+            else:
+                raise ValueError(f"encoded image {i} is neither a JPEG nor a PNG (it begins "
+                                 f"with {head!r})")
+        if jpegs:
+            targets = [self._target(*imgcodec.jpeg_dims(blobs[i])) for i in jpegs]
+            decoded = imgcodec.decode_jpeg_batch([blobs[i] for i in jpegs],
+                                                 [t[0] for t in targets],
+                                                 [t[1] for t in targets], threads=2)
+            for i, a in zip(jpegs, decoded):
+                arrays[i] = a
+        return self._predict_decoded(arrays, already_resized=True)
+
+    def predict_tf_examples(self, serialized: Sequence[bytes]) -> Dict[str, np.ndarray]:
+        """Serialized tf.train.Examples in: each `image/encoded` decoded
+        by its `image/format` with the port's Example decoder, then served
+        as `predict_images` serves arrays."""
+        from mtlx_torch.data.example_decoder import decode_example
+
+        return self._predict_decoded([decode_example(s)["image"] for s in serialized])
+
+    def _target(self, h: int, w: int) -> Tuple[int, int]:
+        """The resizer's target (height, width) for an h x w image."""
         kind, params = self.resizer
+        if kind == "keep_aspect":
+            return keep_aspect_target(h, w, **params)
+        return params["height"], params["width"]
+
+    def _resize(self, image: np.ndarray) -> np.ndarray:
+        """The image resized onto its resizer target, bilinearly with PIL
+        as mtlx's serving path resizes (unchanged when already there)."""
+        return pil_resize(image, *self._target(*image.shape[:2]))
+
+    def _predict_decoded(self, arrays: List[np.ndarray],
+                         already_resized: bool = False) -> Dict[str, np.ndarray]:
+        """Serve decoded images as one batch on the bucket of its largest
+        extent (mtlx's `_predict_decoded`); `already_resized` images are on
+        their resizer target already."""
+        canvas_h, canvas_w = self.model.cfg.canvas_size
         resized, true_shapes = [], []
         for a in arrays:
-            if kind == "keep_aspect":
-                a, _ = resize_keep_aspect(a, **params)
-            else:
-                a = resize_fixed(a, **params)
+            if not already_resized:
+                a = self._resize(a)
             th, tw = a.shape[:2]
             resized.append(a[:canvas_h, :canvas_w])
             true_shapes.append([min(th, canvas_h), min(tw, canvas_w)])
@@ -140,27 +194,71 @@ class InferenceModel:
 
 
 def export_inference_graph(pipeline_config_path: str, trained_checkpoint_dir: str,
-                           output_directory: str) -> str:
-    """Bundle the pipeline text and the serving weights of a train
-    directory's latest checkpoint into `output_directory`, the bundle
-    `InferenceModel.load` reads (port of mtlx's export_inference_graph;
-    the weights are the eval-mode detector's `state_dict`, without the
-    training-only aux heads)."""
+                           output_directory: str, checkpoint_step: Optional[int] = None,
+                           bucket_multiple: int = 0) -> str:
+    """Bundle the pipeline config and the serving weights of a train
+    directory's checkpoint (the latest, or `checkpoint_step`) into
+    `output_directory`, the bundle `InferenceModel.load` reads (port of
+    mtlx's export_inference_graph). The serving bucket granularity is
+    resolved (the flag over the pipeline's `bucketing {}` block, else the
+    default) and written into the bundle's pipeline.config;
+    export_metadata.json holds the checkpoint's step. The weights are the
+    eval-mode detector's `state_dict`, without the training-only aux
+    heads."""
     from mtlx_torch.builders import model_builder
-    from mtlx_torch.config import config_util
+    from mtlx_torch.config import config_util, text_format
     from mtlx_torch.train.checkpoints import CheckpointManager
     from mtlx_torch.train.train_step import TrainState
+    from mtlx_torch.utils.bucketing import resolve_bucketing
 
-    with open(pipeline_config_path) as f:
-        text = f.read()
-    pipeline = config_util.parse_pipeline_text(text)
+    configs = config_util.get_configs_from_pipeline_file(pipeline_config_path)
+    configs["bucketing"].bucket_multiple = resolve_bucketing(configs["bucketing"],
+                                                             bucket_multiple)
+    if configs["eval_config"].use_moving_averages:
+        raise NotImplementedError("eval_config.use_moving_averages (export the EMA of the "
+                                  "weights) is not ported: ROADMAP.md queue 1 item 12")
     # the export only copies weights from the checkpoint into the bundle:
     # it computes nothing, so it needs no card and holds the detector in
     # host memory; `InferenceModel.load` puts the bundle on the card
-    model = model_builder.build(pipeline.model, is_training=False, device="cpu")
-    if CheckpointManager(trained_checkpoint_dir).restore(
-            TrainState(0, model, None, None), params_only=True) is None:
+    model = model_builder.build(configs["model"], is_training=False, device="cpu")
+    restored = CheckpointManager(trained_checkpoint_dir).restore(
+        TrainState(0, model, None, None), checkpoint_step, params_only=True)
+    if restored is None:
         raise FileNotFoundError(f"no checkpoint in {trained_checkpoint_dir}")
-    resizer = model_builder.resizer_params(model_builder.image_resizer(pipeline.model))
-    return InferenceModel(model, resizer, bucket_multiple=pipeline.bucketing.bucket_multiple,
-                          device="cpu", pipeline_text=text).save(output_directory)
+    text = text_format.to_text(
+        config_util.create_pipeline_proto_from_configs(configs))
+    resizer = model_builder.resizer_params(model_builder.image_resizer(configs["model"]))
+    InferenceModel(model, resizer, bucket_multiple=configs["bucketing"].bucket_multiple,
+                   device="cpu", pipeline_text=text).save(output_directory)
+    with open(os.path.join(output_directory, METADATA_FILE), "w") as f:
+        json.dump({"step": int(restored.step), "format": EXPORT_FORMAT}, f)
+    return output_directory
+
+
+def main(argv=None) -> str:
+    from mtlx_torch.utils.bucketing import bucket_multiple_arg
+
+    p = argparse.ArgumentParser(description="Export a trained checkpoint as a serving bundle")
+    p.add_argument("--pipeline_config_path", required=True)
+    p.add_argument("--trained_checkpoint_dir", required=True)
+    p.add_argument("--output_directory", required=True)
+    p.add_argument("--checkpoint_step", type=int, default=None)
+    p.add_argument("--saved_model", action="store_true",
+                   help="a TF SavedModel (jax2tf): not ported")
+    p.add_argument("--bucket_multiple", type=bucket_multiple_arg, default=0,
+                   help="serving compute-bucket granularity in pixels (a multiple of 32); "
+                        "overrides the pipeline's `bucketing {}` block and is recorded in the "
+                        "export's pipeline.config; default 128")
+    args = p.parse_args(argv)
+    if args.saved_model:
+        raise NotImplementedError("--saved_model: the TF SavedModel export goes through jax2tf, "
+                                  "which is out of the port's scope")
+    out = export_inference_graph(args.pipeline_config_path, args.trained_checkpoint_dir,
+                                 args.output_directory, args.checkpoint_step,
+                                 bucket_multiple=args.bucket_multiple)
+    print(f"[export] wrote {out}", flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -4,22 +4,28 @@ Each CUDA source `kernels/csrc/<name>.cu` has a plain C interface and
 compiles, on its own, into `mtlx_torch/_build/lib<name>-<source hash>.so`
 for `sm_90a`. The host sources of the data pipeline (`data/csrc/`: the
 TFRecord crc32c and the JPEG codec) compile the same way with gcc / g++
-(`load_host_library`). Every build runs at first use, from the sources in
-the checkout; a library whose name carries the hash of its source and
-flags is never stale. `build_all` starts one nvcc per CUDA source at
-once, so a cold process pays for the slowest source only.
+(`load_host_library`). The JPEG codec has one rule on every machine: the
+libjpeg-turbo headers kept in `data/csrc/jpeg/` and the libjpeg-turbo
+that Pillow's wheel bundles, linked by path with an rpath
+(`pillow_libjpeg`). Every build runs at first use, from the sources in
+the checkout; a library whose name carries the hash of its source,
+flags, headers and linked library is never stale. `build_all` starts
+one nvcc per CUDA source at once, so a cold process pays for the
+slowest source only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "kernels", "csrc")
@@ -56,13 +62,16 @@ NVCC_FLAGS = (
 
 _S = ctypes.c_size_t
 _U32 = ctypes.c_uint32
+JPEG_INCLUDE_DIR = os.path.join(HOST_CSRC_DIR, "jpeg")
+JPEG_HEADERS = ("jpeglib.h", "jmorecfg.h", "jerror.h", "jconfig.h")
 # the host sources: name -> (file, compiler, flags, C interface)
 HOST_SOURCES = {
     "crc32c": ("crc32c.c", "gcc", ("-O3", "-shared", "-fPIC"), {
         "mtlx_crc32c": ([_P, _S, _U32], _U32),
     }),
     "imgcodec": ("imgcodec.cc", "g++",
-                 ("-O3", "-shared", "-fPIC", "-std=c++17", "-ljpeg", "-lpthread"), {
+                 ("-O3", "-shared", "-fPIC", "-std=c++17", "-I" + JPEG_INCLUDE_DIR,
+                  "-lpthread"), {
         "mtlx_jpeg_dims": ([_P, _S, _P, _P, ctypes.c_char_p, _I], _I),
         "mtlx_jpeg_decode": ([_P, _S, _I, _I, _I, _P, _S, _P, ctypes.c_char_p, _I], _I),
         "mtlx_jpeg_decode_batch": ([_I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
@@ -182,12 +191,41 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
+def pillow_libjpeg() -> str:
+    """The path of the libjpeg-turbo (ABI 62) that Pillow's wheel bundles
+    in `<site-packages>/pillow.libs/`, which the JPEG codec links against.
+    Only Pillow's installed location is looked up: Pillow is not imported."""
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or not spec.submodule_search_locations:
+        raise RuntimeError("the JPEG codec links the libjpeg-turbo of Pillow's wheel, and "
+                           "Pillow is not installed")
+    site = os.path.dirname(os.path.abspath(list(spec.submodule_search_locations)[0]))
+    found = sorted(glob.glob(os.path.join(site, "pillow.libs", "libjpeg-*.so.62*")))
+    if len(found) != 1:
+        raise RuntimeError(f"the JPEG codec links the libjpeg-turbo of Pillow's wheel: want one "
+                           f"{site}/pillow.libs/libjpeg-*.so.62*, found {found}")
+    return found[0]
+
+
+def _host_link(name: str) -> Tuple[Tuple[str, ...], List[str]]:
+    """(what the host library `name` links against after its source, the
+    files besides the source that its build reads)."""
+    if name != "imgcodec":
+        return (), []
+    lib = pillow_libjpeg()
+    headers = [os.path.join(JPEG_INCLUDE_DIR, f) for f in JPEG_HEADERS]
+    return (lib, "-Wl,-rpath," + os.path.dirname(lib)), [lib, *headers]
+
+
 def _host_library_path(name: str) -> Tuple[str, str]:
     file, compiler, flags, _ = HOST_SOURCES[name]
     src = os.path.join(HOST_CSRC_DIR, file)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join((compiler,) + flags).encode()).hexdigest()
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    link, inputs = _host_link(name)
+    h = hashlib.sha256(" ".join((compiler,) + flags + link).encode())
+    for path in [src, *inputs]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def load_host_library(name: str) -> ctypes.CDLL:
@@ -207,9 +245,9 @@ def load_host_library(name: str) -> ctypes.CDLL:
                                    f"mtlx_torch/data/csrc/{file} at first use")
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.tmp{os.getpid()}"
-            # the libraries follow the source: -ljpeg must come after it
+            # the libraries follow the source
             compile_flags = [f for f in flags if not f.startswith("-l")]
-            libs = [f for f in flags if f.startswith("-l")]
+            libs = [*_host_link(name)[0], *(f for f in flags if f.startswith("-l"))]
             proc = subprocess.run([exe, *compile_flags, src, "-o", tmp, *libs],
                                   capture_output=True, text=True)
             build_logs[name] = proc.stdout + proc.stderr

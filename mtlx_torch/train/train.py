@@ -14,7 +14,10 @@ unless `--device cpu` is passed.
 Every `--log_every` steps (and at step 1) it prints `[train] {json}` with
 the step, images_per_sec, learning_rate, the losses, grad_norm and
 loader_wait_share: the share of wall time since the last line that the
-loop waited for the loader. TensorBoard event files are not written.
+loop waited for the loader; the losses, grad_norm, learning_rate and
+global_step/sec also go to a TensorBoard event file in train_dir
+(`utils/summary_writer.py`). `--profile_from N` traces steps N+1 to
+N+`--profile_steps` with `torch.profiler` into `<train_dir>/profile`.
 
 The random draws of step s come from a generator seeded by (seed, s), so
 a resumed run takes the same draws as one that never stopped.
@@ -83,6 +86,27 @@ def make_step_fn(model: FasterRCNN, aug_options: List[Tuple[str, dict]],
     return step_fn
 
 
+def start_profiler(device: torch.device):
+    """A started torch.profiler trace of the host and, on the card, its kernels."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def stop_profiler(profiler, train_dir: str, step: int) -> None:
+    """Stop the trace and write it as `<train_dir>/profile/trace_to_step_<step>.json`
+    (Chrome trace format)."""
+    profiler.stop()
+    out = os.path.join(train_dir, "profile")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"trace_to_step_{step}.json")
+    profiler.export_chrome_trace(path)
+    print(f"[train] profiler trace written to {path}", flush=True)
+
+
 def step_seed(seed: int, step: int) -> int:
     """The seed of step `step`'s draws."""
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
@@ -94,7 +118,6 @@ _NOT_PORTED_FLAGS = (
     ("max_bucket_variants", 0, "bucket coalescing"),
     ("precompile_buckets", False, "bucket precompilation"),
     ("distributed", False, "multi-host training"),
-    ("profile_from", 0, "the profiler trace"),
 )
 # reference TF1 cluster flags: accepted, noted and ignored
 _TF1_FLAGS = (("master", ""), ("task", 0), ("num_clones", 1), ("clone_on_cpu", False),
@@ -133,7 +156,11 @@ def parse_args(argv=None):
     p.add_argument("--max_bucket_variants", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--precompile_buckets", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--distributed", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--profile_from", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--profile_from", type=int, default=0,
+                   help="trace steps from this count on with torch.profiler (0 = off); "
+                        "the trace is written under <train_dir>/profile")
+    p.add_argument("--profile_steps", type=int, default=5,
+                   help="number of steps to trace with --profile_from")
     for flag, default in _TF1_FLAGS:
         kw = {"action": "store_true"} if isinstance(default, bool) else {
             "default": default, "type": type(default)}
@@ -161,6 +188,7 @@ def main(argv=None) -> None:
     from mtlx_torch.device import resolve_device
     from mtlx_torch.train import checkpoints as ckpt_lib
     from mtlx_torch.utils.bucketing import resolve_bucketing
+    from mtlx_torch.utils.summary_writer import SummaryWriter
 
     device = resolve_device(args.device)
     configs = config_util.get_configs_from_pipeline_file(args.pipeline_config_path)
@@ -231,19 +259,27 @@ def main(argv=None) -> None:
     saved = latest
     cur = state.step
     t_log, step_log, stall_log = time.perf_counter(), cur, 0
+    writer = SummaryWriter(args.train_dir)
+    profiler = None
     data_iter = device_prefetch(host_iter, device, stalls=stalls)  # starts at its first next()
     try:
         while cur < num_steps:
             batch, _ = next(data_iter, (None, None))
             if batch is None:  # num_epochs ran out
                 break
+            if args.profile_from and cur == args.profile_from:
+                profiler = start_profiler(device)
+            if profiler is not None and cur >= args.profile_from + args.profile_steps:
+                stop_profiler(profiler, args.train_dir, cur)
+                profiler = None
             batch = {k: v for k, v in batch.items()
                      if k not in ("gt_difficult", "gt_group_of", "original_shape")}
             generator.manual_seed(step_seed(args.seed + 1, cur))
             state, metrics = step_fn(state, batch, generator=generator)
             cur = state.step
             if cur % args.log_every == 0 or cur == 1:
-                values = {k: round(float(v), 4) for k, v in metrics.items()}  # syncs
+                raw = {k: float(v) for k, v in metrics.items()}  # syncs
+                values = {k: round(v, 4) for k, v in raw.items()}
                 now = time.perf_counter()
                 wall = now - t_log
                 line = {
@@ -254,13 +290,21 @@ def main(argv=None) -> None:
                     "loader_wait_share": round(sum(stalls[stall_log:]) / wall, 4),
                 }
                 print("[train] " + json.dumps(line), flush=True)
+                for k, v in raw.items():
+                    writer.scalar(k, v, cur)
+                writer.scalar("learning_rate", line["learning_rate"], cur)
+                writer.scalar("global_step/sec", line["images_per_sec"] / batch_size, cur)
+                writer.flush()
                 t_log, step_log, stall_log = now, cur, len(stalls)
             if cur % save_every == 0 or cur >= num_steps:
                 manager.save(cur, state)
                 saved = cur
     finally:
+        if profiler is not None:
+            stop_profiler(profiler, args.train_dir, cur)
         data_iter.close()
         dataset.close()
+        writer.close()
     if saved != state.step:
         manager.save(state.step, state)
     manager.wait()

@@ -9,8 +9,8 @@ it, written out so the numbers match optax and not `torch.optim`:
      against flax-style paths such as `backbone/conv1/kernel`)
   3. clip_by_global_norm: g if norm < max else g / norm * max, no epsilon
   4. sgd with momentum: trace = g + momentum * trace, update = -lr * trace,
-     lr from a constant or a piecewise-constant schedule indexed by the
-     optimizer's own count from 0
+     lr from a constant or a schedule (piecewise-constant, exponential or
+     warm-up + cosine) indexed by the optimizer's own count from 0
 
 Every parameter of the detector trains (flax's `params` collection): the
 convolutions, dense layers, the frozen batch norms' scale and bias and
@@ -24,7 +24,7 @@ with mtl.window_sampling window_scale and window_offset [B, G, 2]. A
 caller may pass its own draws (a test passes JAX's).
 
 Exponential moving averages of the parameters (use_moving_average) are
-not ported: ROADMAP.md queue 1 #13 (EMA).
+not ported: ROADMAP.md queue 1 item 12 (EMA).
 """
 
 from __future__ import annotations
@@ -57,6 +57,60 @@ class PiecewiseConstantSchedule:
             indicator = np.float32(max(0.0, np.sign(threshold - count)))
             v = v * indicator + (np.float32(1.0) - indicator) * np.float32(scale) * v
         return v
+
+
+class ExponentialDecaySchedule:
+    """optax.exponential_decay (transition_begin 0, no end value):
+    init_value * decay_rate ** (count / transition_steps), the exponent
+    floored with `staircase`, evaluated in float32 in optax's operation
+    order; constant where transition_steps <= 0 or decay_rate == 0."""
+
+    def __init__(self, init_value: float, transition_steps: int, decay_rate: float,
+                 staircase: bool = False):
+        self.init_value = init_value
+        self.transition_steps = transition_steps
+        self.decay_rate = decay_rate
+        self.staircase = staircase
+
+    def __call__(self, count: int) -> np.float32:
+        init = np.float32(self.init_value)
+        if self.transition_steps <= 0 or self.decay_rate == 0 or count <= 0:
+            return init
+        p = np.float32(count) / np.float32(self.transition_steps)
+        if self.staircase:
+            p = np.floor(p)
+        return init * np.power(np.float32(self.decay_rate), p)
+
+
+class WarmupCosineDecaySchedule:
+    """optax.warmup_cosine_decay_schedule (end value 0, exponent 1): a
+    linear warm-up from init_value to peak_value over warmup_steps, then
+    peak_value * 0.5 * (1 + cos(pi * t / (decay_steps - warmup_steps)))
+    with t = count - warmup_steps capped at its end, evaluated in float32
+    in optax's operation order."""
+
+    def __init__(self, init_value: float, peak_value: float, warmup_steps: int,
+                 decay_steps: int):
+        if not decay_steps - warmup_steps > 0:
+            raise ValueError("the cosine decay needs decay_steps > warmup_steps, got "
+                             f"decay_steps={decay_steps}, warmup_steps={warmup_steps}")
+        self.init_value = init_value
+        self.peak_value = peak_value
+        self.warmup_steps = warmup_steps
+        self.decay_steps = decay_steps
+
+    def __call__(self, count: int) -> np.float32:
+        f = np.float32
+        if count < self.warmup_steps:  # optax.linear_schedule
+            frac = f(1) - f(max(count, 0)) / f(self.warmup_steps)
+            return (f(self.init_value) - f(self.peak_value)) * frac + f(self.peak_value)
+        span = self.decay_steps - self.warmup_steps
+        t = f(min(count - self.warmup_steps, span))
+        # the float32 cosine rounded from float64 (XLA's float32 cosine is
+        # that in 98% of cases and an ulp off in the rest; numpy's is off
+        # in 17%, which 1 + cos near -1 turns into a relative 4e-6)
+        cos = f(np.cos(np.float64(f(np.pi) * t / f(span))))
+        return f(self.peak_value) * (f(0.5) * (f(1) + cos))
 
 
 def flax_path(name: str) -> str:

@@ -49,5 +49,5 @@ def resolve_bucketing(bucketing_config=None, bucket_multiple_flag: int = 0,
         cfg_variants = int(bucketing_config.max_bucket_variants)
     if int(max_bucket_variants_flag) or cfg_variants:
         raise NotImplementedError("max_bucket_variants (bucket coalescing) is not ported: "
-                                  "ROADMAP.md queue 1 #14")
+                                  "ROADMAP.md queue 1 item 10")
     return bucket_multiple(int(bucket_multiple_flag) or cfg_mult)

@@ -138,8 +138,11 @@ def test_unported_flags_raise():
 
     base = ["--pipeline_config_path", "x", "--train_dir", "y"]
     for flag in (["--grain_workers", "2"], ["--precompile_buckets"], ["--distributed"],
-                 ["--profile_from", "3"], ["--max_bucket_variants", "4"]):
+                 ["--max_bucket_variants", "4"]):
         with pytest.raises(NotImplementedError, match=flag[0]):
             train_cli.parse_args(base + flag)
     args = train_cli.parse_args(base + ["--num_clones", "2", "--master", "grpc://x"])
     assert args.num_clones == 2
+    # the profiler flags are ported: they parse
+    args = train_cli.parse_args(base + ["--profile_from", "3"])
+    assert (args.profile_from, args.profile_steps) == (3, 5)

@@ -1,0 +1,111 @@
+"""The port's learnability tool (`mtlx_torch/tools/synthetic_e2e_check.py`)
+against mtlx's (`tools/synthetic_e2e_check.py`) on the CPU, and the event
+files its train and eval CLI runs write.
+
+  * The dataset: the same 48 JPEG records (equal Examples, the same JPEG
+    bytes), and the same CONFIG text.
+  * A short run end to end with `--device cpu --require_map 0`: 31 steps,
+    the fewest the tool's schedule allows (its warm-up is 30 steps, and
+    optax, so mtlx's tool too, refuses a cosine decay of total_steps <=
+    warmup_steps; `--steps 2` raises in both).
+  * The event files parse with mtlx's `event_pb2`: the train file holds
+    every logged step's losses and learning_rate, the eval file the
+    metrics. Tolerance: the scalars equal the float32 of what the CLIs
+    returned or printed (learning_rate exactly; the losses within the
+    4-decimal rounding of the printed line).
+"""
+
+import glob
+import importlib.util
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from mtlx_torch.tools import synthetic_e2e_check as ttool
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "mtlx_synthetic_e2e_check", os.path.join(_REPO, "tools", "synthetic_e2e_check.py"))
+jtool = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(jtool)
+
+
+def _events(directory):
+    from mtlx.config.protos import event_pb2
+    from mtlx.data.tfrecord import read_records
+
+    (path,) = glob.glob(os.path.join(directory, "events.out.tfevents.*"))
+    return [event_pb2.Event.FromString(r) for r in read_records(path)]
+
+
+def test_dataset_and_config_equal_mtlx(tmp_path):
+    """The same records: equal Example messages of the same length, with
+    the same JPEG bytes. The files differ in the order of each Example's
+    feature map only (protobuf writes a map in its own hash order, the
+    port in insertion order)."""
+    from mtlx.config.protos import example_pb2
+    from mtlx.data.tfrecord import read_records
+
+    assert ttool.CONFIG == jtool.CONFIG
+    jtool.make_dataset(str(tmp_path / "mtlx.record"))
+    ttool.make_dataset(str(tmp_path / "port.record"))
+    want = list(read_records(str(tmp_path / "mtlx.record")))
+    got = list(read_records(str(tmp_path / "port.record")))
+    assert len(got) == len(want) == 48
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        g, w = example_pb2.Example.FromString(g), example_pb2.Example.FromString(w)
+        assert g == w
+        image = g.features.feature["image/encoded"].bytes_list.value[0]
+        assert image == w.features.feature["image/encoded"].bytes_list.value[0]
+        assert image[:3] == b"\xff\xd8\xff"
+
+
+def test_unported_model_and_short_schedule_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ttool.main(["--model", "ssd", "--device", "cpu"])
+    with pytest.raises(ValueError, match="decay_steps > warmup_steps"):
+        ttool.main(["--steps", "2", "--device", "cpu", "--workdir", str(tmp_path)])
+
+
+def test_short_run_end_to_end_writes_event_files(tmp_path, capsys):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        metrics = ttool.main(["--steps", "31", "--device", "cpu", "--require_map", "0",
+                              "--workdir", str(tmp_path)])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "[train] done at step 31" in out and "[synthetic-e2e] PASSED" in out
+    assert np.isfinite(metrics["Precision/mAP@0.5IOU"])
+    lr_line = next(ln for ln in out.splitlines() if ln.startswith("[synthetic-e2e] learning"))
+    lrs = json.loads(lr_line.split("update ", 1)[1])
+    assert set(lrs) == {"0", "30"} and lrs["0"] == pytest.approx(0.001, rel=1e-6)
+
+    lines = [json.loads(ln[len("[train] "):]) for ln in out.splitlines()
+             if ln.startswith("[train] {")]
+    assert [ln["step"] for ln in lines] == [1]  # --log_every 50, and step 1
+    events = _events(str(tmp_path / "train"))
+    assert events[0].file_version == "brain.Event:2"
+    scalars = {}
+    for ev in events[1:]:
+        for v in ev.summary.value:
+            scalars[(ev.step, v.tag)] = v.simple_value
+    for line in lines:
+        step = line["step"]
+        assert scalars[(step, "learning_rate")] == np.float32(line["learning_rate"])
+        assert (step, "global_step/sec") in scalars
+        for key, value in line.items():
+            if key.startswith("Loss/") or key in ("total_loss", "grad_norm"):
+                assert abs(scalars[(step, key)] - value) <= 5e-5 + 1e-6 * abs(value), key
+
+    eval_events = _events(str(tmp_path / "eval"))
+    got = {v.tag: v.simple_value for ev in eval_events[1:] for v in ev.summary.value}
+    assert {ev.step for ev in eval_events[1:]} == {31}
+    for key, value in metrics.items():
+        if np.isfinite(value):
+            assert got[key] == np.float32(value), key
