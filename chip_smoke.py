@@ -3,10 +3,13 @@ each against its plain PyTorch version at the main path's shapes, serve
 the flagship Faster R-CNN ResNet-50 through `InferenceModel`, train the
 flagship MTL R50 for a few steps, compare the card with the CPU on the
 same request and on the same train step, train, resume, evaluate and
-export the flagship from JPEG TFRecords through the port's CLIs, and
-train the 3-task MTL R50 from scratch on synthetic data until it detects.
+export the flagship from JPEG TFRecords through the port's CLIs, train
+the 3-task MTL R50 from scratch on synthetic data until it detects, and
+train, evaluate and serve the R101 3-task MTL on COCO-sized records
+through `torch.distributed.run` with the COCO and OpenImages metrics.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --data_parallel 4    # on a machine with 4 cards
 
 Phases (any failure exits non-zero):
   1. the card: `nvidia-smi` name and power limit, torch and CUDA versions
@@ -97,9 +100,38 @@ Phases (any failure exits non-zero):
      its plain version on the inputs this path gives it (the RPN NMS at
      8 x 576 -> 32, the crop of 8 x 16 sampled proposals on an 8x8 map and
      its backward, the IoU launches of the step's assignments)
+ 10. BASELINE config 5: 32 TFRecords of noise JPEGs at COCO's sizes
+     (640x480, 480x640, 640x427, 427x640; 1-20 boxes over the 80 ids COCO
+     uses, a tenth crowd, a tenth group-of) and the R101 COCO pipeline
+     pointing at them (the port's copy of the COCO label map); a port
+     checkpoint of the CLI's own seeded init with batch norm calibrated on
+     one batch as its fine_tune_checkpoint; the train CLI for 6 steps at
+     batch 16 through `python -m torch.distributed.run --nproc_per_node=1
+     -m mtlx_torch.train.train --distributed` (NCCL): step ms, img/s,
+     loader wait share, peak memory and launches from its own lines, each
+     step launching NMS, the crop and its backward once and the IoU three
+     times; the eval CLI on 16 records with the COCO, OpenImages and
+     Pascal metrics (finite, NMS twice and the crop once a batch of 8);
+     every kernel call of one eval batch against its plain version, the
+     postprocess NMS at 8 x 90 problems of 300 -> 100 exactly, timed; the
+     export CLI and one 640x480 request through the bundle; two ranks over
+     gloo, both on cuda:0, each taking one float32 step (TF32 off) of the
+     R101 model on its half of a global batch of 4 whose halves hold 21
+     and 3 boxes: the ranks' parameters bitwise equal, the loss and the
+     sum of |parameter| within 1e-4 relative of one rank on the whole
+     batch; whether torchvision imports, and its NMS and box IoU timed
+     where it does
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
+
+With `--data_parallel N` it builds the kernels and runs only the
+data-parallel check on N cards: the R101 COCO train CLI over NCCL for 6
+steps at batch 16 at world size 1 and N (64 records of one size in a
+fixed order; step ms, peak memory and launches of each), then N NCCL
+ranks, one a card, of one float32 step held within 1e-6 of N gloo ranks
+on cuda:0 (the same rows at the same batch size), and both printed
+beside one rank on the whole batch.
 """
 
 from __future__ import annotations
@@ -337,6 +369,7 @@ def check_nms(gen, results):
     for p, n, k, thr in ((1, 6000, 300, 0.7), (40, 300, 100, 0.6), (16, 6000, 300, 0.7)):
         shape = f"{p}x{n}->{k}"
         boxes, scores, valid = nms_case(gen, p, n)
+        results.setdefault("nms_inputs", (boxes, scores, valid, k, thr))
         idx, keep = equal_to_plain(boxes, scores, valid, k, thr, shape)
         picks = keep.sum(1)
         # work this run needs: every pick made plus the empty pick that ends
@@ -715,6 +748,7 @@ def check_iou(gen, results):
     gt[:, 7] = gt[:, 8, [2, 3, 0, 1]]  # inverted
     gt, anchors = gt.cuda(), anchors.cuda().contiguous()
     results["iou"] = time_iou(gt, anchors[None], "RPN assignment, synthetic boxes")
+    results["iou_inputs"] = (gt, anchors[None].expand(b, a, 4))
 
     # only padding rows; M not a multiple of 4 (the kernel's float4 rows);
     # the shared side first; each side per problem
@@ -1137,12 +1171,9 @@ def train_batch(rs, b: int, canvas=(640, 1024), max_gt: int = 100, sizes=((560, 
 
 
 def kernel_counts():
-    from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
+    from mtlx_torch.train.train import kernel_launches
 
-    return {"nms": nms_cuda.non_max_suppression.launches,
-            "roi_crop": roi_cuda.crop_and_resize.launches,
-            "roi_crop_backward": roi_cuda.crop_and_resize_backward.launches,
-            "iou": iou_cuda.iou_matrix.launches}
+    return kernel_launches()
 
 
 def reset_kernel_counts():
@@ -1755,8 +1786,7 @@ def check_kernels_on(calls, tag: str):
             raise AssertionError(f"the IoU differs from its plain version at {tag}")
         shapes.setdefault("iou", []).append(f"{b1.shape[0]}x{b1.shape[1]}x{b2.shape[1]}")
     torch.cuda.synchronize()
-    log(f"[learn] {tag}: every kernel call of one recorded train step equals its plain "
-        f"version: {shapes}")
+    log(f"[check] {tag}: every recorded kernel call equals its plain version: {shapes}")
     return shapes
 
 
@@ -1996,12 +2026,535 @@ def phase_cli(seed: int, results):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 10
+
+COCO_CONFIG = "configs/faster_rcnn_resnet101_mtl_coco.config"
+COCO_LABEL_MAP = "mtlx_torch/data/label_maps/mscoco_label_map.pbtxt"
+# COCO's common image sizes (height, width): 640x480, 480x640, 640x427
+# and 427x640 (w x h)
+COCO_SIZES = ((480, 640), (640, 480), (427, 640), (640, 427))
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def repo_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def coco_categories():
+    from mtlx_torch.utils import label_map_util
+
+    return list(label_map_util.create_category_index_from_labelmap(
+        os.path.join(REPO, COCO_LABEL_MAP)).values())
+
+
+def write_coco_records(path: str, rs, n: int, sizes=COCO_SIZES) -> str:
+    """n TFRecords of uint8 noise JPEGs (quality 90) at the given sizes in
+    turn (COCO's by default), 1-20 boxes each over the 80 ids COCO uses; a tenth of the boxes
+    crowd (difficult, as COCO's iscrowd reaches the loader) and a tenth
+    group-of."""
+    from mtlx_torch.data import tfrecord
+    from mtlx_torch.data.example_decoder import build_example
+
+    cats = coco_categories()
+    with tfrecord.TFRecordWriter(path) as w:
+        for i in range(n):
+            h, wd = sizes[i % len(sizes)]
+            image = rs.randint(0, 256, (h, wd, 3)).astype(np.uint8)
+            k = rs.randint(1, 21)
+            y0, x0 = rs.uniform(0, 0.8, k), rs.uniform(0, 0.8, k)
+            boxes = np.stack([y0, x0, np.minimum(y0 + rs.uniform(0.05, 0.5, k), 1.0),
+                              np.minimum(x0 + rs.uniform(0.05, 0.5, k), 1.0)], 1)
+            picked = [cats[j] for j in rs.randint(0, len(cats), k)]
+            w.write(build_example(encode_jpeg(image), b"jpeg", h, wd, f"coco{i}.jpg", boxes,
+                                  [c["id"] for c in picked], [c["name"] for c in picked],
+                                  difficult=(rs.uniform(size=k) < 0.1).astype(int),
+                                  group_of=(rs.uniform(size=k) < 0.1).astype(int)))
+    return path
+
+
+def coco_pipeline(record: str, fine_tune: str) -> str:
+    """The R101 COCO pipeline text with its input paths, label map,
+    fine_tune_checkpoint, checkpoint interval and eval size replaced, and
+    the OpenImages and Pascal metrics beside the COCO ones."""
+    with open(os.path.join(REPO, COCO_CONFIG)) as f:
+        text = f.read()
+    label_map = os.path.join(REPO, COCO_LABEL_MAP)
+    for old, new in (('"/data/coco/coco_train.record"', json.dumps(record)),
+                     ('"/data/coco/coco_val.record"', json.dumps(record)),
+                     ('"/data/coco/mscoco_label_map.pbtxt"', json.dumps(label_map)),
+                     ('fine_tune_checkpoint: ""', f"fine_tune_checkpoint: {json.dumps(fine_tune)}"),
+                     ("save_checkpoints_steps: 2000", "save_checkpoints_steps: 3"),
+                     ("num_examples: 5000", "num_examples: 16"),
+                     ('metrics_set: "coco_detection_metrics"',
+                      'metrics_set: "coco_detection_metrics"\n'
+                      '  metrics_set: "open_images_V2_detection_metrics"\n'
+                      '  metrics_set: "pascal_voc_detection_metrics"')):
+        if old not in text:
+            raise AssertionError(f"{COCO_CONFIG} no longer holds {old}")
+        text = text.replace(old, new)
+    return text
+
+
+def run_distributed_train(pipeline: str, train_dir: str, steps: int, seed: int,
+                          nproc: int = 1, extra=()):
+    """The train CLI under `torch.distributed.run --nproc_per_node=nproc`
+    with `--distributed` (NCCL, rank r on cuda:r); echoes and returns its
+    output and wall seconds."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={nproc}",
+           "--master_addr=127.0.0.1", f"--master_port={free_port()}",
+           "-m", "mtlx_torch.train.train", "--distributed", "--pipeline_config_path", pipeline,
+           "--train_dir", train_dir, "--num_steps", str(steps), "--log_every", "1",
+           "--seed", str(seed), *extra]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=REPO,
+                         env=repo_env())
+    wall = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        log(f"  | {line}")
+    if run.returncode != 0:
+        raise AssertionError(f"the distributed train CLI exited {run.returncode}:\n"
+                             f"{run.stderr[-4000:]}")
+    return run.stdout, wall
+
+
+def time_library_calls(results):
+    """torchvision's NMS and box IoU on phase 3's main-path inputs, where
+    the machine has torchvision; None where it has not."""
+    try:
+        import torchvision
+    except ImportError as e:
+        log(f"[coco] torchvision: not on this machine ({e}); no single torch call computes "
+            "greedy NMS with max_out or the pairwise IoU, so the library column stays null")
+        return None
+    boxes, scores, valid, k, thr = results["nms_inputs"]
+    b, s = boxes[0][valid[0]], scores[0][valid[0]]
+    nms_ms = cuda_ms(lambda: torchvision.ops.nms(b, s, thr)[:k], 200)
+    b1, b2 = results["iou_inputs"]
+    iou_ms = cuda_ms(lambda: [torchvision.ops.box_iou(x, y) for x, y in zip(b1, b2)], 20)
+    log(f"[coco] torchvision {torchvision.__version__}: ops.nms at {tuple(s.shape)} -> {k} "
+        f"{nms_ms:.4f} ms, ops.box_iou over {b1.shape[0]} problems {iou_ms:.4f} ms")
+    return dict(version=torchvision.__version__, nms_ms=nms_ms, box_iou_loop_ms=iou_ms)
+
+
+# one rank of the rank check: the R101 COCO model in float32 (TF32 off)
+# with the weights the parent wrote, one step on its rows of the global
+# batch on the device and over the backend named by argv[3:5]; saves its
+# parameters, metrics and the second stage's sampled proposals
+_RANK_STEP = r"""
+import sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from mtlx_torch.builders import model_builder
+from mtlx_torch.config import config_util
+from mtlx_torch.parallel import distributed
+from mtlx_torch.train import train_step as ts
+
+data = torch.load(sys.argv[1], weights_only=False)
+device, replicas = distributed.init_process_group(sys.argv[3], backend=sys.argv[4])
+configs = config_util.get_configs_from_pipeline_file(data["config"])
+model = model_builder.build(configs["model"], is_training=True, dtype=torch.float32,
+                            device=device)
+model.modules.load_state_dict(data["weights"])
+state = ts.create_train_state(model, ts.make_optimizer(learning_rate=data["lr"]))
+batch = {k: replicas.rows(v).to(device) for k, v in data["batch"].items()}
+gen = torch.Generator(device=device).manual_seed(data["seed"])
+image = batch["image"]
+draws = ts.rank_rows(ts.make_draws(model, ts.global_rows(image.shape[0], replicas),
+                                   tuple(image.shape[1:3]), gen,
+                                   num_gt=batch["gt_boxes"].shape[1]), replicas)
+gt = {"boxes": batch["gt_boxes"], "classes": batch["gt_classes"].long(),
+      "mask": batch["gt_mask"]}
+with torch.no_grad():
+    proposals = model.predict_train(model.preprocess(image.float()), batch["true_shape"], gt,
+                                    draws)["proposal_boxes"]
+state, metrics = ts.make_train_step(model, replicas=replicas)(state, batch, draws=draws)
+torch.save({"metrics": {k: v.cpu() for k, v in metrics.items()},
+            "params": {k: v.detach().cpu() for k, v in model.modules.state_dict().items()},
+            "proposals": proposals.cpu()},
+           f"{sys.argv[2]}.{replicas.rank}")
+distributed.destroy_process_group()
+"""
+
+
+def spawn_ranks(work: str, data: str, world: int, backend: str):
+    """Run _RANK_STEP in `world` processes (over gloo all on cuda:0, since
+    NCCL refuses two ranks on one card; over NCCL rank r on cuda:r);
+    returns each rank's saved results and the wall seconds."""
+    out = os.path.join(work, f"ranks_{backend}_out.pt")
+    device = "cuda:0" if backend == "gloo" else "cuda"
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(world):
+        env = dict(repo_env(), RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK_STEP, data, out, device, backend], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"a rank over {backend} failed:\n"
+                             + "\n".join(text[-3000:] for text in logs))
+    ranks = [torch.load(f"{out}.{r}") for r in range(world)]
+    for other in ranks[1:]:
+        for name, value in ranks[0]["params"].items():
+            if not torch.equal(value, other["params"][name]):
+                raise AssertionError(f"{world} ranks over {backend}: the ranks' {name} differ")
+    return ranks, wall
+
+
+def compare_steps(tag: str, got, want, tol):
+    """Hold one step's total_loss and sum of |parameter| (`got`, rank 0's)
+    within `tol` relative of `want`'s (None: only printed); logs every
+    loss term and the largest difference of a sampled second-stage
+    proposal's coordinates (pixels) between the two."""
+    loss = [float(got["metrics"]["total_loss"]), float(want["metrics"]["total_loss"])]
+    checksum = [sum(float(v.double().abs().sum()) for v in r["params"].values())
+                for r in (got, want)]
+    rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in (loss, checksum)]
+    terms = {k: (float(got["metrics"][k]), float(v)) for k, v in want["metrics"].items()
+             if k.startswith("Loss/")}
+    moved = float((got["proposals"] - want["proposals"]).abs().max())
+    log(f"[ranks] {tag}: total_loss {loss[0]:.7g} vs {loss[1]:.7g} (rel {rel[0]:.3g}), sum "
+        f"|param| {checksum[0]:.10g} vs {checksum[1]:.10g} (rel {rel[1]:.3g}), tolerance "
+        f"{tol if tol is not None else 'none (printed only)'}; sampled proposals differ by up "
+        f"to {moved:.3g} px; terms {terms}")
+    if tol is not None and max(rel) > tol:
+        raise AssertionError(f"{tag}: off by {rel} (loss, checksum), tolerance {tol}")
+    return dict(loss=loss, checksum=checksum, rel=rel, proposals_max_abs_px=moved)
+
+
+def check_ranks_on_cards(work: str, seed: int, world: int = 2, backend: str = "gloo"):
+    """`world` ranks each take one float32 step (TF32 off) of the R101
+    COCO model on their 2 rows of a global batch of 2 x world (256x384
+    bucket) whose ranks hold different counts of boxes; their parameters
+    must be bitwise equal. At world size 2 over gloo (both on cuda:0) the
+    loss and the sum of |parameter| must be within 1e-4 relative of one
+    rank's step on the whole batch. Over NCCL (rank r on cuda:r) they
+    must be within 1e-6 relative of the same ranks over gloo, with the
+    same sampled proposals: both compute the same rows at the same batch
+    size and differ only in the all-reduce's order of addition. Above
+    world size 2 the one-rank step is printed beside them, not held: at
+    a batch of 8 float32 rounding of the whole batch's convolutions
+    moved its loss by 3.7e-4 relative in the first four-card call, in the
+    box classifier's classification term (PERF.md)."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.train import train_step as ts
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        config = os.path.join(REPO, COCO_CONFIG)
+        configs = config_util.get_configs_from_pipeline_file(config)
+        model = model_builder.build(configs["model"], is_training=True, dtype=torch.float32,
+                                    device="cuda")
+        model.init_weights(torch.Generator().manual_seed(seed))
+        batch = train_batch(np.random.RandomState(seed + 12), 2 * world, canvas=(256, 384),
+                            sizes=((200, 256), (260, 384)))
+        batch["gt_classes"] = batch["gt_classes"] * 4  # COCO's ids, 0..76
+        # rank 0's rows hold 21 boxes, rank 1's 3, and so on in turn
+        for i in range(2 * world):
+            k = (12, 9, 2, 1)[i % 4]
+            batch["gt_mask"][i, k:] = False
+            batch["gt_mask"][i, :k] = True
+        calibrate_batch_norm_on(model, batch["image"], batch["true_shape"])
+        weights = {k: v.detach().cpu() for k, v in model.modules.state_dict().items()}
+        lr, step_seed = 0.003, seed + 13
+        data = os.path.join(work, "ranks.pt")
+        torch.save({"config": config, "weights": weights, "lr": lr, "seed": step_seed,
+                    "batch": {k: v.cpu() for k, v in batch.items()}}, data)
+
+        # one rank on the whole batch, with the same draws
+        state = ts.create_train_state(model, ts.make_optimizer(learning_rate=lr))
+        gen = torch.Generator(device="cuda").manual_seed(step_seed)
+        image = batch["image"]
+        draws = ts.make_draws(model, image.shape[0], tuple(image.shape[1:3]), gen,
+                              num_gt=batch["gt_boxes"].shape[1])
+        gt = {"boxes": batch["gt_boxes"], "classes": batch["gt_classes"].long(),
+              "mask": batch["gt_mask"]}
+        with torch.no_grad():
+            proposals = model.predict_train(model.preprocess(image.float()), batch["true_shape"],
+                                            gt, draws)["proposal_boxes"]
+        state, metrics = ts.make_train_step(model)(state, batch, draws=draws)
+        one = {"metrics": metrics, "proposals": proposals.cpu(),
+               "params": {k: v.detach().cpu() for k, v in model.modules.state_dict().items()}}
+        del model, state
+        torch.cuda.empty_cache()
+        # each rank's proposals are its rows of the global batch's
+        rows = lambda ranks: torch.cat([r["proposals"] for r in ranks])
+
+        gloo, wall = spawn_ranks(work, data, world, "gloo")
+        log(f"[ranks] {world} ranks over gloo on cuda:0 ({wall:.1f} s): parameters bitwise equal "
+            "across ranks")
+        out = {"gloo_vs_one": compare_steps(f"{world} gloo ranks vs one rank",
+                                            dict(gloo[0], proposals=rows(gloo)), one,
+                                            1e-4 if world == 2 else None),
+               "gloo_wall_s": wall}
+        if backend == "nccl":
+            nccl, wall = spawn_ranks(work, data, world, "nccl")
+            log(f"[ranks] {world} ranks over NCCL, rank r on cuda:r ({wall:.1f} s): parameters "
+                "bitwise equal across ranks")
+            out["nccl_vs_one"] = compare_steps(f"{world} NCCL ranks vs one rank",
+                                               dict(nccl[0], proposals=rows(nccl)), one,
+                                               1e-4 if world == 2 else None)
+            out["nccl_vs_gloo"] = compare_steps(f"{world} NCCL ranks vs {world} gloo ranks",
+                                                dict(nccl[0], proposals=rows(nccl)),
+                                                dict(gloo[0], proposals=rows(gloo)), 1e-6)
+            if out["nccl_vs_gloo"]["proposals_max_abs_px"]:
+                raise AssertionError("NCCL and gloo ranks sampled other proposals")
+            out["nccl_wall_s"] = wall
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def eval_batch_calls(pipeline: str, train_dir: str):
+    """One eval batch of 8 records through the eval CLI's detect on the
+    trained checkpoint, with every kernel call's inputs recorded."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.data.loader import DetectionDataset, pack_batch_images
+    from mtlx_torch.eval import eval as eval_cli
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train_step as ts
+
+    configs = config_util.get_configs_from_pipeline_file(pipeline)
+    model = model_builder.build(configs["model"], is_training=False, device="cuda")
+    ckpt_lib.CheckpointManager(train_dir).restore(ts.TrainState(0, model, None, None),
+                                                  params_only=True)
+    dataset = DetectionDataset(
+        list(configs["eval_input_config"].tf_record_input_reader.input_path),
+        model.cfg.canvas_size,
+        model_builder.resizer_params(model_builder.image_resizer(configs["model"])))
+    samples = dataset.get_batch(list(range(8)), decode_threads=2)
+    dataset.close()
+    shapes = np.stack([s["true_shape"] for s in samples])
+    images = pack_batch_images(np.stack([s["image"] for s in samples]), shapes)
+    return record_kernel_inputs(lambda: eval_cli.detect(model, images, shapes))
+
+
+def coco_workdir(work: str, seed: int, n: int, sizes=COCO_SIZES) -> str:
+    """n COCO-like JPEG records, the R101 COCO pipeline pointing at them,
+    and its fine_tune_checkpoint: the CLI's own init (same seed) with
+    batch norm calibrated on one batch of the records. Returns the
+    pipeline's path."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.data.loader import DetectionDataset, batches
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train_step as ts
+
+    t0 = time.perf_counter()
+    record = write_coco_records(os.path.join(work, "coco_noise.record"),
+                                np.random.RandomState(seed + 11), n, sizes)
+    fine_tune = os.path.join(work, "warm_start")
+    pipeline = os.path.join(work, "pipeline.config")
+    with open(pipeline, "w") as f:
+        f.write(coco_pipeline(record, fine_tune))
+    log(f"[coco] wrote {n} JPEG records at {sizes} "
+        f"({os.path.getsize(record) / 2**20:.1f} MiB) and the R101 COCO pipeline in "
+        f"{time.perf_counter() - t0:.2f} s")
+    configs = config_util.get_configs_from_pipeline_file(pipeline)
+    model = model_builder.build(configs["model"], is_training=True, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(seed))
+    dataset = DetectionDataset([record], model.cfg.canvas_size,
+                               model_builder.resizer_params(
+                                   model_builder.image_resizer(configs["model"])))
+    first = next(batches(dataset, 16, seed=seed, pack_images=True))
+    dataset.close()
+    calibrate_batch_norm_on(model, torch.from_numpy(first["image"]).cuda(),
+                            torch.from_numpy(first["true_shape"]).cuda())
+    manager = ckpt_lib.CheckpointManager(fine_tune)
+    manager.save(0, ts.create_train_state(model, ts.make_optimizer()))
+    manager.wait()
+    del model, manager
+    torch.cuda.empty_cache()
+    return pipeline
+
+
+def check_distributed_train(pipeline: str, train_dir: str, seed: int, nproc: int = 1,
+                            extra=()):
+    """6 steps at batch 16 of the train CLI over NCCL with nproc ranks:
+    finite metrics, and each step launching NMS, the crop and its
+    backward once and the IoU three times on rank 0. Returns its [train]
+    lines, its summary and the launches a step."""
+    out, wall = run_distributed_train(pipeline, train_dir, 6, seed, nproc, extra)
+    if f"world size {nproc} over nccl" not in out or "[train] done at step 6" not in out:
+        raise AssertionError(f"the train CLI did not run 6 steps over NCCL at world size {nproc}")
+    summary = json.loads(out.split("[train] summary ", 1)[1].splitlines()[0])
+    per_step = {k: v / 6 for k, v in summary["kernel_launches"].items()}
+    want = {"nms": 1, "roi_crop": 1, "roi_crop_backward": 1, "iou": 3}
+    lines = train_log_lines(out)
+    for line in lines:
+        bad = [k for k, v in line.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite train metrics at step {line['step']}: {bad}")
+        ips = line["images_per_sec"]
+        log(f"[coco] {nproc} rank(s), step {line['step']}: {16 / ips * 1e3:.2f} ms ({ips:.2f} "
+            f"img/s), loader wait share {line['loader_wait_share']:.4f}, total_loss "
+            f"{line['total_loss']:.7g}")
+    log(f"[coco] train CLI over NCCL at world size {nproc}: 6 steps at batch 16 in {wall:.2f} s "
+        f"(launcher, build and checkpoints included), peak memory on rank 0 "
+        f"{summary['peak_memory_gib']:.2f} GiB, launches on rank 0 {summary['kernel_launches']} "
+        f"= {per_step} a step")
+    if per_step != want:
+        raise AssertionError(f"R101 train CLI launches a step {per_step}, want {want}")
+    return lines, summary, per_step
+
+
+def phase_data_parallel(seed: int, world: int, results):
+    """`--data_parallel N` (N cards): the R101 COCO train CLI over NCCL at
+    world size 1 and N in one call, on 64 records of one size (one
+    bucket) in a fixed order, so both take the same 16 records a step
+    (rank r's are records r, r + N, ...: the rows come in another order,
+    so the flip draws fall on other images); then N NCCL ranks, one a
+    card, of one float32 step against N gloo ranks and one rank
+    (check_ranks_on_cards)."""
+    import shutil
+    import tempfile
+
+    if torch.cuda.device_count() < world:
+        raise AssertionError(f"--data_parallel {world} needs {world} cards, "
+                             f"this machine has {torch.cuda.device_count()}")
+    work = tempfile.mkdtemp(prefix="mtlx_dp_")
+    try:
+        pipeline = coco_workdir(work, seed, 64, sizes=((480, 640),))
+        runs = {}
+        for nproc in (1, world):
+            lines, summary, per_step = check_distributed_train(
+                pipeline, os.path.join(work, f"train{nproc}"), seed, nproc, ["--deterministic"])
+            runs[nproc] = dict(step_ms=[16 / ln["images_per_sec"] * 1e3 for ln in lines],
+                               total_loss=[ln["total_loss"] for ln in lines],
+                               peak_memory_gib=summary["peak_memory_gib"],
+                               launches_per_step=per_step)
+        results["data_parallel"] = dict(runs=runs,
+                                        ranks=check_ranks_on_cards(work, seed, world, "nccl"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_coco(seed: int, results):
+    """BASELINE config 5: the R101 3-task MTL on COCO-sized JPEG records,
+    trained through `torch.distributed.run --nproc_per_node=1 ...
+    --distributed` (NCCL), evaluated through the eval CLI with the COCO,
+    OpenImages and Pascal metrics, exported and served; then two ranks of
+    one float32 step on the card over gloo against one rank."""
+    import shutil
+    import tempfile
+
+    from mtlx_torch.eval import eval as eval_cli
+    from mtlx_torch.export import exporter
+    from mtlx_torch.export.exporter import InferenceModel
+    from mtlx_torch.kernels import nms_cuda
+    from mtlx_torch.train import checkpoints as ckpt_lib
+
+    work = tempfile.mkdtemp(prefix="mtlx_coco_")
+    try:
+        pipeline = coco_workdir(work, seed, 32)
+        train_dir = os.path.join(work, "train")
+        lines, summary, per_step = check_distributed_train(pipeline, train_dir, seed)
+        if ckpt_lib.CheckpointManager(train_dir).all_steps() != [3, 6]:
+            raise AssertionError("the distributed train CLI wrote other checkpoints than 3, 6")
+
+        eval_dir = os.path.join(work, "eval")
+        reset_kernel_counts()
+        out, metrics = run_cli(eval_cli.main, ["--pipeline_config_path", pipeline,
+                                               "--checkpoint_dir", train_dir,
+                                               "--eval_dir", eval_dir, "--run_once"])
+        eval_counts = kernel_counts()
+        eval_per_batch = {k: v / 2 for k, v in eval_counts.items()}
+        keys = ("DetectionBoxes_Precision/mAP", "DetectionBoxes_Precision/mAP@.50IOU",
+                "DetectionBoxes_Precision/mAP@.75IOU", "DetectionBoxes_Recall/AR@1",
+                "DetectionBoxes_Recall/AR@10", "DetectionBoxes_Recall/AR@100",
+                "OpenImagesV2_Precision/mAP@0.5IOU", "Precision/mAP@0.5IOU")
+        shown = {k: metrics[k] for k in keys}
+        log(f"[coco] eval at step 6 ({len(metrics)} metrics): {shown}; "
+            f"{metrics['eval/images_per_sec']:.2f} img/s; launches {eval_counts} = "
+            f"{eval_per_batch} a batch of 8")
+        bad = [k for k in keys if not np.isfinite(metrics[k])]
+        if "[eval] step 6: " not in out or bad:
+            raise AssertionError(f"the eval CLI gave non-finite metrics {bad}")
+        if eval_per_batch != {"nms": 2, "roi_crop": 1, "roi_crop_backward": 0, "iou": 0}:
+            raise AssertionError(f"eval launches a batch {eval_per_batch}")
+
+        # every kernel call of one eval batch against its plain version;
+        # the postprocess's 8 x 90 problems of 300 -> 100 timed
+        calls = eval_batch_calls(pipeline, train_dir)
+        shapes = check_kernels_on(calls, "R101 COCO eval batch")
+        # the postprocess passes all six arguments by position
+        boxes, scores, valid, k, thr, thr_s = next(
+            args for args, _ in calls["nms"] if args[1].shape[0] == 8 * 90)
+        run_k = lambda: nms_cuda.non_max_suppression(boxes, scores, valid, k, thr, thr_s)
+        run_p = lambda: nms_cuda.non_max_suppression_plain(boxes, scores, valid, k, thr, thr_s)
+        got, ref = run_k(), run_p()
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError("NMS at 720 x 300 -> 100 differs from its plain version")
+        nms_ms, nms_plain_ms = cuda_ms(run_k, 100), cuda_ms(run_p, 3)
+        live = int(valid.sum())
+        log(f"[coco] postprocess NMS {tuple(scores.shape)} -> {k} (IoU {thr}): equal to its plain "
+            f"version; {int(got[1].sum())} picks from {live} live rows; {nms_ms:.4f} ms a call, "
+            f"plain {nms_plain_ms:.3f} ms")
+
+        export_dir = os.path.join(work, "export")
+        t0 = time.perf_counter()
+        run_cli(exporter.main, ["--pipeline_config_path", pipeline,
+                                "--trained_checkpoint_dir", train_dir,
+                                "--output_directory", export_dir])
+        export_s = time.perf_counter() - t0
+        served = InferenceModel.load(export_dir)
+        image = request_picture(np.random.RandomState(seed + 14), 480, 640)
+        served.predict_images([image])  # warm-up
+        t0 = time.perf_counter()
+        det = served.predict_images([image])
+        request_ms = (time.perf_counter() - t0) * 1e3
+        check_outputs(det, 1)
+        n_det = int(det["num_detections"][0])
+        classes = det["detection_classes"][0][:n_det]
+        log(f"[coco] export CLI {export_s:.2f} s; one 640x480 request served in "
+            f"{request_ms:.2f} ms: {n_det} detections over classes "
+            f"{int(classes.min()) if n_det else '-'}..{int(classes.max()) if n_det else '-'}")
+        if n_det and (classes.min() < 1 or classes.max() > 90):
+            raise AssertionError(f"served classes outside COCO's 1..90: {classes}")
+
+        two_ranks = check_ranks_on_cards(work, seed)
+        results["coco"] = dict(
+            train_step_ms=[16 / ln["images_per_sec"] * 1e3 for ln in lines],
+            train_img_per_s=[ln["images_per_sec"] for ln in lines],
+            loader_wait_share=[ln["loader_wait_share"] for ln in lines],
+            peak_memory_gib=summary["peak_memory_gib"], train_launches_per_step=per_step,
+            eval_metrics=shown, eval_img_per_s=metrics["eval/images_per_sec"],
+            eval_launches_per_batch=eval_per_batch, eval_shapes=shapes,
+            postprocess_nms=dict(shape=f"{scores.shape[0]}x{scores.shape[1]}->{k}", ms=nms_ms,
+                                 plain_ms=nms_plain_ms),
+            export_s=export_s, request_ms=request_ms, two_ranks=two_ranks,
+            library=time_library_calls(results))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="N > 1: only build the kernels and hold the R101 COCO train CLI over "
+                        "NCCL at world size N to world size 1 (needs N cards)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2018,6 +2571,14 @@ def main(argv=None) -> int:
         log(f"[build] {name}: {'; '.join(regs)}")
 
     results = {}
+    if args.data_parallel > 1:
+        phase_data_parallel(args.seed, args.data_parallel, results)
+        print(smi)
+        print(json.dumps({"data_parallel": results["data_parallel"]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     gen = torch.Generator().manual_seed(args.seed)
     check_nms(gen, results)
     check_roi(gen, results)
@@ -2030,6 +2591,7 @@ def main(argv=None) -> int:
     phase_train_card_vs_cpu(args.seed)
     phase_cli(args.seed, results)
     phase_learnability(args.seed, results)
+    phase_coco(args.seed, results)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -2073,12 +2635,20 @@ def main(argv=None) -> int:
              dout_read_mb=bwd["dout_read_mb"]),
     ]
     cli = results["cli"]
+    coco = results["coco"]
     for k in kernels:
         k["cli_train_launches_per_step"] = cli["train_launches_per_step"][k["name"]]
         k["cli_eval_launches_per_batch"] = cli["eval_launches_per_batch"][k["name"]]
         k["learnability_launches"] = {tag: run["launches"][k["name"]]
                                       for tag, run in results["learnability"].items()}
         k["learnability_shapes"] = results["learnability"]["fixed"]["shapes"][k["name"]]
+        k["coco_train_launches_per_step"] = coco["train_launches_per_step"][k["name"]]
+        k["coco_eval_launches_per_batch"] = coco["eval_launches_per_batch"][k["name"]]
+        k["coco_eval_shapes"] = coco["eval_shapes"].get(k["name"], [])
+    kernels[0]["coco_postprocess"] = coco["postprocess_nms"]
+    library = coco["library"]
+    if library is not None:
+        kernels[0]["library_ms"] = library["nms_ms"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -51,7 +51,10 @@ def pad_or_clip(x: np.ndarray, length: int) -> np.ndarray:
 
 
 class DetectionDataset:
-    """Random-access TFRecord detection dataset with canvas shaping."""
+    """Random-access TFRecord detection dataset with canvas shaping. With
+    process_count > 1 it holds records [process_index::process_count] of
+    the input files (a data-parallel rank's shard, as mtlx's loader
+    shards by JAX process)."""
 
     def __init__(
         self,
@@ -60,6 +63,8 @@ class DetectionDataset:
         resizer: Tuple[str, dict] = ("keep_aspect", {"min_dimension": 600,
                                                       "max_dimension": 1024}),
         max_boxes: int = 100,
+        process_index: int = 0,
+        process_count: int = 1,
         keep_difficult: bool = True,
         load_instance_masks: bool = False,
         num_keypoints: int = 0,
@@ -78,6 +83,7 @@ class DetectionDataset:
         for path in input_paths:
             for off in tfrecord.record_index(path):
                 self._files.append((path, off))
+        self._files = self._files[process_index::process_count]
         # each file is mapped once: a record is a slice of the map, so
         # reading one copies nothing and needs no lock across threads
         self._maps: Dict[str, mmap.mmap] = {}
@@ -280,6 +286,22 @@ def _grouped_epoch_order(keys: List[Tuple[int, int]], batch_size: int,
     if shuffle:
         rng.shuffle(out)
     return out
+
+
+def batches_per_epoch(dataset: DetectionDataset, batch_size: int, pack_images: bool = False,
+                      aspect_grouping: Optional[bool] = None, bucket_multiple: int = 0) -> int:
+    """How many batches `batches` yields an epoch with drop_remainder (the
+    same arguments): with aspect grouping, each bucket's full batches and
+    the full batches of the leftovers."""
+    if aspect_grouping is None:
+        aspect_grouping = pack_images
+    if not (aspect_grouping and batch_size > 1):
+        return len(dataset) // batch_size
+    counts: Dict[Tuple[int, int], int] = {}
+    for k in record_bucket_keys(dataset, bucket_multiple=bucket_multiple):
+        counts[k] = counts.get(k, 0) + 1
+    return (sum(c // batch_size for c in counts.values())
+            + sum(c % batch_size for c in counts.values()) // batch_size)
 
 
 def batches(

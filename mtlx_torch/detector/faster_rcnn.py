@@ -565,8 +565,16 @@ class FasterRCNN:
     # ---- losses ----
 
     def loss(self, pred: Dict[str, Tensor], gt: Dict[str, Tensor],
-             draws: Dict[str, Tensor]) -> Dict[str, Tensor]:
-        """The joint loss: `Loss/*` terms and their sum `total_loss`."""
+             draws: Dict[str, Tensor], replicas=None) -> Dict[str, Tensor]:
+        """The joint loss: `Loss/*` terms and their sum `total_loss`.
+
+        With `replicas` (parallel/distributed.py) the batch is this rank's
+        rows of a global batch, and each term is scaled so that its mean
+        over the ranks is mtlx's term on the global batch: the per-image
+        and plain-mean terms already are, and the multi-object and
+        closeness terms, which divide by the count of valid boxes of the
+        whole batch, divide by the count summed over the ranks and are
+        multiplied by the world size."""
         c = self.cfg
         if c.hard_example_miner is not None:
             raise NotImplementedError(
@@ -578,7 +586,7 @@ class FasterRCNN:
         if c.number_of_stages > 1:
             out.update(self._second_stage_loss(pred, gt))
             if c.mtl.any:
-                out.update(self._aux_loss(pred, gt))
+                out.update(self._aux_loss(pred, gt, replicas))
         out["total_loss"] = sum(v for k, v in out.items() if k.startswith("Loss/"))
         return out
 
@@ -640,7 +648,7 @@ class FasterRCNN:
             * c.second_stage_localization_loss_weight,
         }
 
-    def _aux_loss(self, pred, gt):
+    def _aux_loss(self, pred, gt, replicas=None):
         c = self.cfg
         out = {}
         s = c.feature_stride
@@ -658,8 +666,11 @@ class FasterRCNN:
         def soft_ce(logits, labels, weight):
             valid = mask & (labels.sum(-1) > 0)
             ce = loss_lib.softmax_cross_entropy(logits, labels)
-            denom = torch.clamp_min(valid.float().sum(), 1.0)
-            return (ce * valid).sum() / denom * weight
+            count = valid.float().sum()
+            if replicas is not None:  # the batch-wide count is the global batch's
+                count = replicas.sum(count)
+                weight = weight * replicas.world_size
+            return (ce * valid).sum() / torch.clamp_min(count, 1.0) * weight
 
         if c.mtl.multiobject and "multiobject_logits" in pred:
             labels = recycle.multiobject_labels(

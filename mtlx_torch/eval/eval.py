@@ -5,9 +5,13 @@
 
 Polls checkpoint_dir for new checkpoints, runs eval_config.num_examples
 images through the detector's predict and postprocess on the device in
-batches grouped by compute bucket, feeds the numpy Pascal evaluator and
-prints `[eval] step N: {json}` with `Precision/mAP@0.5IOU`, the per-class
-APs and eval/images_per_sec; each evaluation's metrics are also appended
+batches grouped by compute bucket, feeds the numpy evaluators of
+eval_config.metrics_set (Pascal, weighted Pascal, COCO, OpenImages) and
+prints `[eval] step N: {json}` with their metrics (`Precision/mAP@0.5IOU`
+and the per-class APs; `DetectionBoxes_Precision/mAP`, `mAP@.50IOU`,
+`mAP@.75IOU`, the mAP and AR@100 by area and AR@1/10/100;
+`OpenImagesV2_Precision/mAP@0.5IOU`) and eval/images_per_sec; each
+evaluation's metrics are also appended
 to `<eval_dir>/metrics.jsonl` and written, where finite, as scalars to a
 TensorBoard event file in eval_dir (`utils/summary_writer.py`).
 `--run_once` evaluates the latest checkpoint and exits. It runs on the
@@ -26,12 +30,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-# metrics_set entries whose evaluators are not ported
+# metrics_set entries whose evaluators are not ported (mask matching)
 _NOT_PORTED_METRICS = (
     "pascal_voc_instance_segmentation_metrics",
     "weighted_pascal_voc_instance_segmentation_metrics",
-    "open_images_V2_detection_metrics",
-    "coco_detection_metrics",
     "coco_mask_metrics",
 )
 
@@ -62,7 +64,9 @@ def parse_args(argv=None):
 
 def build_evaluators(eval_config, categories: List[dict]):
     """metrics_set names -> evaluators (default: the Pascal VOC one)."""
+    from mtlx_torch.eval.coco_evaluation import CocoDetectionEvaluator
     from mtlx_torch.eval.object_detection_evaluation import (
+        OpenImagesDetectionEvaluator,
         PascalDetectionEvaluator,
         WeightedPascalDetectionEvaluator,
     )
@@ -74,10 +78,13 @@ def build_evaluators(eval_config, categories: List[dict]):
             evaluators.append(PascalDetectionEvaluator(categories))
         elif name in ("weighted_pascal_voc_detection_metrics", "weighted_pascal_voc_metrics"):
             evaluators.append(WeightedPascalDetectionEvaluator(categories))
+        elif name == "open_images_V2_detection_metrics":
+            evaluators.append(OpenImagesDetectionEvaluator(categories))
+        elif name == "coco_detection_metrics":
+            evaluators.append(CocoDetectionEvaluator(categories))
         elif name in _NOT_PORTED_METRICS:
-            item = 16 if "mask" in name or "segmentation" in name else 6
             raise NotImplementedError(f"the {name} evaluator is not ported: ROADMAP.md "
-                                      f"queue 1 item {item}")
+                                      "queue 1 item 16 (masks and keypoints)")
         else:
             raise ValueError(f"unknown eval_config.metrics_set entry {name!r}")
     return evaluators
@@ -137,6 +144,7 @@ def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
                 "groundtruth_boxes": s["gt_boxes"][:gt_n],
                 "groundtruth_classes": s["gt_classes"][:gt_n] + 1,
                 "groundtruth_difficult": s["gt_difficult"][:gt_n].astype(bool),
+                "groundtruth_group_of": s["gt_group_of"][:gt_n].astype(bool),
             }
             n_det = int(det["num_detections"][j])
             scale = np.asarray([th, tw, th, tw], np.float32)

@@ -1,8 +1,9 @@
 """Corpus-level detection evaluation (port of
 mtlx/eval/object_detection_evaluation.py: ObjectDetectionEvaluation and
-the Pascal and weighted Pascal evaluators, with the reference's metric
-names, 'Precision/mAP@0.5IOU' and 'PerformanceByCategory/AP@0.5IOU/<name>').
-The instance-segmentation and OpenImages evaluators are not ported."""
+the Pascal, OpenImages and weighted Pascal evaluators, with the
+reference's metric names, 'Precision/mAP@0.5IOU' and
+'PerformanceByCategory/AP@0.5IOU/<name>'). The instance-segmentation
+evaluators are not ported: ROADMAP.md queue 1 item 16."""
 
 from __future__ import annotations
 
@@ -136,6 +137,31 @@ class PascalDetectionEvaluator:
 
     def clear(self):
         self.__init__(self.categories, self.evaluation.per_image.iou_threshold)
+
+
+class OpenImagesDetectionEvaluator(PascalDetectionEvaluator):
+    """open_images_V2_detection_metrics: Pascal-style AP@0.5 with the
+    OpenImages group-of protocol. Group-of groundtruth boxes stay out of
+    the recall denominator, and an unmatched detection inside one (IoA >=
+    threshold) is unscored instead of a false positive. Groundtruth dicts
+    may carry 'groundtruth_group_of'."""
+
+    def add_single_ground_truth_image_info(self, image_id: str, groundtruth_dict: dict):
+        self.evaluation.add_single_ground_truth_image_info(
+            image_id,
+            groundtruth_dict["groundtruth_boxes"],
+            groundtruth_dict["groundtruth_classes"] - self._label_offset,
+            groundtruth_dict.get("groundtruth_difficult"),
+            groundtruth_is_group_of=groundtruth_dict.get("groundtruth_group_of"),
+        )
+
+    def evaluate(self) -> Dict[str, float]:
+        aps, mean_ap, _, _, _, _ = self.evaluation.evaluate()
+        out = {"OpenImagesV2_Precision/mAP@0.5IOU": mean_ap}
+        for cls_id, name in self._name.items():
+            out[f"OpenImagesV2_PerformanceByCategory/AP@0.5IOU/{name}"] = float(
+                aps[cls_id - self._label_offset])
+        return out
 
 
 class WeightedPascalDetectionEvaluator(PascalDetectionEvaluator):

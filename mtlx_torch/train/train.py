@@ -21,6 +21,18 @@ N+`--profile_steps` with `torch.profiler` into `<train_dir>/profile`.
 
 The random draws of step s come from a generator seeded by (seed, s), so
 a resumed run takes the same draws as one that never stopped.
+
+`--distributed` trains data-parallel over torch.distributed, one rank a
+process, launched by `python -m torch.distributed.run --nproc_per_node=N
+-m mtlx_torch.train.train --distributed ...` (NCCL on the cards, gloo
+with `--device cpu`). train_config.batch_size is the global batch: rank r
+reads records [r::N] and takes batch_size / N rows a step, the
+gradients are averaged over the ranks, and a global step equals one step
+on the concatenation of the ranks' rows (rank 0's first). Only rank 0
+writes the pipeline.config, checkpoints, event files, `[train]` lines
+and the profiler trace; every rank resumes from the same checkpoint.
+On the card the run ends with `[train] summary {json}`: the peak device
+memory and each hand-written kernel's launches on rank 0.
 """
 
 from __future__ import annotations
@@ -64,13 +76,14 @@ def make_augmented_batch_fn(aug_options: List[Tuple[str, dict]]) -> Callable:
 
 def make_step_fn(model: FasterRCNN, aug_options: List[Tuple[str, dict]],
                  regularization_fn: Optional[Callable] = None,
-                 bucket_multiple: int = 0) -> Callable:
+                 bucket_multiple: int = 0, replicas=None) -> Callable:
     """Returns step_fn(state, batch, generator=None, draws=None) ->
     (state, metrics): pad the batch to its bucket, augment it, take one
     train step. Draws not given come from `generator`, in the order of
-    train_step.make_draws (the augmentations' first)."""
+    train_step.make_draws (the augmentations' first); with `replicas` they
+    are made for the global batch and the rank takes its rows."""
     augment = make_augmented_batch_fn(aug_options)
-    raw_step = ts.make_train_step(model, regularization_fn)
+    raw_step = ts.make_train_step(model, regularization_fn, replicas=replicas)
 
     def step_fn(state, batch, generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, Tensor]] = None):
@@ -78,9 +91,10 @@ def make_step_fn(model: FasterRCNN, aug_options: List[Tuple[str, dict]],
         draws = dict(draws or {})
         if generator is not None:
             img = batch["image"]
-            made = ts.make_draws(model, img.shape[0], tuple(img.shape[1:3]), generator,
-                                 aug_options, num_gt=batch["gt_boxes"].shape[1])
-            draws = {**made, **draws}
+            made = ts.make_draws(model, ts.global_rows(img.shape[0], replicas),
+                                 tuple(img.shape[1:3]), generator, aug_options,
+                                 num_gt=batch["gt_boxes"].shape[1])
+            draws = {**ts.rank_rows(made, replicas), **draws}
         return raw_step(state, augment(batch, draws), draws=draws)
 
     return step_fn
@@ -114,10 +128,9 @@ def step_seed(seed: int, step: int) -> int:
 
 # flags of mtlx's CLI whose machinery is not ported: set, each raises
 _NOT_PORTED_FLAGS = (
-    ("grain_workers", 0, "the grain loader"),
-    ("max_bucket_variants", 0, "bucket coalescing"),
-    ("precompile_buckets", False, "bucket precompilation"),
-    ("distributed", False, "multi-host training"),
+    ("grain_workers", 0, "the grain loader (ROADMAP.md queue 1 item 8)"),
+    ("max_bucket_variants", 0, "bucket coalescing (ROADMAP.md queue 1 item 10)"),
+    ("precompile_buckets", False, "bucket precompilation (ROADMAP.md queue 1 item 9)"),
 )
 # reference TF1 cluster flags: accepted, noted and ignored
 _TF1_FLAGS = (("master", ""), ("task", 0), ("num_clones", 1), ("clone_on_cpu", False),
@@ -155,7 +168,9 @@ def parse_args(argv=None):
     p.add_argument("--grain_workers", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--max_bucket_variants", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--precompile_buckets", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--distributed", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel over torch.distributed: launch with python -m "
+                        "torch.distributed.run; every rank runs this command on its shard")
     p.add_argument("--profile_from", type=int, default=0,
                    help="trace steps from this count on with torch.profiler (0 = off); "
                         "the trace is written under <train_dir>/profile")
@@ -176,24 +191,51 @@ def parse_args(argv=None):
     return args
 
 
+def kernel_launches() -> Dict[str, int]:
+    """Each hand-written kernel's launches in this process so far."""
+    from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
+
+    return {"nms": nms_cuda.non_max_suppression.launches,
+            "roi_crop": roi_cuda.crop_and_resize.launches,
+            "roi_crop_backward": roi_cuda.crop_and_resize_backward.launches,
+            "iou": iou_cuda.iou_matrix.launches}
+
+
 def main(argv=None) -> None:
     # finer interpreter-lock switching: the prefetch thread and the step
     # loop otherwise starve each other on hosts with few cores
     sys.setswitchinterval(0.001)
     args = parse_args(argv)
+    replicas = None
+    if args.distributed:
+        from mtlx_torch.parallel import distributed
 
+        device, replicas = distributed.init_process_group(args.device)
+    else:
+        from mtlx_torch.device import resolve_device
+
+        device = resolve_device(args.device)
+    try:
+        _train(args, device, replicas)
+    finally:
+        if replicas is not None:
+            distributed.destroy_process_group()
+
+
+def _train(args, device: torch.device, replicas) -> None:
     from mtlx_torch.builders import model_builder, optimizer_builder, preprocessor_builder
     from mtlx_torch.config import config_util
-    from mtlx_torch.data.loader import DetectionDataset, batches, device_prefetch
-    from mtlx_torch.device import resolve_device
+    from mtlx_torch.data.loader import (DetectionDataset, batches, batches_per_epoch,
+                                        device_prefetch)
     from mtlx_torch.train import checkpoints as ckpt_lib
     from mtlx_torch.utils.bucketing import resolve_bucketing
     from mtlx_torch.utils.summary_writer import SummaryWriter
 
-    device = resolve_device(args.device)
+    main_rank = replicas is None or replicas.rank == 0
+    say = print if main_rank else (lambda *a, **k: None)
     configs = config_util.get_configs_from_pipeline_file(args.pipeline_config_path)
     for note in config_util.compatibility_notes(configs):
-        print(f"[train] note: {note}", flush=True)
+        say(f"[train] note: {note}", flush=True)
     multiple = resolve_bucketing(configs["bucketing"], args.bucket_multiple,
                                  args.max_bucket_variants)
     # the pipeline.config saved into train_dir carries the granularity, so
@@ -204,11 +246,13 @@ def main(argv=None) -> None:
                                 max_gt_boxes=train_config.max_number_of_boxes or 100,
                                 device=device)
     num_steps = args.num_steps or train_config.num_steps or 200000
-    batch_size = train_config.batch_size or 1
+    batch_size = train_config.batch_size or 1  # the global batch
+    local_batch = batch_size if replicas is None else replicas.per_rank_batch(batch_size)
 
-    os.makedirs(args.train_dir, exist_ok=True)
-    config_util.save_pipeline_config(
-        config_util.create_pipeline_proto_from_configs(configs), args.train_dir)
+    if main_rank:
+        os.makedirs(args.train_dir, exist_ok=True)
+        config_util.save_pipeline_config(
+            config_util.create_pipeline_proto_from_configs(configs), args.train_dir)
 
     tx, _, _ = optimizer_builder.build(train_config.optimizer, train_config)
     aug_options = preprocessor_builder.build(train_config.data_augmentation_options)
@@ -220,13 +264,18 @@ def main(argv=None) -> None:
         canvas_size=model.cfg.canvas_size,
         resizer=model_builder.resizer_params(model_builder.image_resizer(configs["model"])),
         max_boxes=model.cfg.max_gt_boxes,
+        process_index=0 if replicas is None else replicas.rank,
+        process_count=1 if replicas is None else replicas.world_size,
         load_instance_masks=(input_config.load_instance_masks
                              and model.cfg.predict_instance_masks),
         num_keypoints=input_config.num_keypoints,
         tf1_resize=args.tf1_resize,
     )
-    print(f"[train] {len(dataset)} examples, batch {batch_size}, canvas "
-          f"{model.cfg.canvas_size}, {num_steps} steps, device {device}", flush=True)
+    ranks = "" if replicas is None else (
+        f" (world size {replicas.world_size} over {replicas.backend}, {local_batch} a rank; "
+        "examples of rank 0's shard)")
+    say(f"[train] {len(dataset)} examples, batch {batch_size}{ranks}, canvas "
+        f"{model.cfg.canvas_size}, {num_steps} steps, device {device}", flush=True)
 
     state = ts.create_train_state(model, tx)
     manager = ckpt_lib.CheckpointManager(
@@ -234,23 +283,33 @@ def main(argv=None) -> None:
     latest = manager.latest_step()
     if latest is not None:  # every weight comes from the checkpoint
         state = manager.restore(state)
-        print(f"[train] resumed from step {latest}", flush=True)
+        say(f"[train] resumed from step {latest}", flush=True)
     else:
         model.init_weights(torch.Generator().manual_seed(args.seed))
         if train_config.fine_tune_checkpoint:
             restored, skipped = ckpt_lib.restore_warm_start(
                 model, train_config.fine_tune_checkpoint,
                 train_config.from_detection_checkpoint)
-            print(f"[train] warm start: {restored} restored, {skipped} skipped", flush=True)
+            say(f"[train] warm start: {restored} restored, {skipped} skipped", flush=True)
+    if replicas is not None:  # every rank starts from rank 0's state
+        replicas.broadcast_(list(model.modules.state_dict().values())
+                            + list(state.opt_state.trace))
 
-    step_fn = make_step_fn(model, aug_options, reg_fn, bucket_multiple=multiple)
+    step_fn = make_step_fn(model, aug_options, reg_fn, bucket_multiple=multiple,
+                           replicas=replicas)
     generator = torch.Generator(device=device)
     shuffle = input_config.shuffle and not args.deterministic
     # input_reader.num_epochs: 0 repeats forever; otherwise the run ends
     # when the data does, even before num_steps
-    host_iter = batches(dataset, batch_size, shuffle=shuffle, seed=args.seed,
-                        decode_threads=args.decode_threads,
-                        epochs=input_config.num_epochs or None,
+    epochs = input_config.num_epochs or None
+    if epochs is not None and replicas is not None:
+        # the ranks' shards may give unequal batch counts: stop all of them
+        # with the shortest, or one would wait forever in an all-reduce
+        per_epoch = batches_per_epoch(dataset, local_batch, bool(args.pack_transfer),
+                                      bool(args.aspect_grouping), multiple)
+        num_steps = min(num_steps, state.step + replicas.min_int(epochs * per_epoch))
+    host_iter = batches(dataset, local_batch, shuffle=shuffle, seed=args.seed,
+                        decode_threads=args.decode_threads, epochs=epochs,
                         pack_images=bool(args.pack_transfer),
                         aspect_grouping=bool(args.aspect_grouping),
                         bucket_multiple=multiple)
@@ -259,17 +318,20 @@ def main(argv=None) -> None:
     saved = latest
     cur = state.step
     t_log, step_log, stall_log = time.perf_counter(), cur, 0
-    writer = SummaryWriter(args.train_dir)
+    writer = SummaryWriter(args.train_dir) if main_rank else None
     profiler = None
+    profile_from = args.profile_from if main_rank else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     data_iter = device_prefetch(host_iter, device, stalls=stalls)  # starts at its first next()
     try:
         while cur < num_steps:
             batch, _ = next(data_iter, (None, None))
             if batch is None:  # num_epochs ran out
                 break
-            if args.profile_from and cur == args.profile_from:
+            if profile_from and cur == profile_from:
                 profiler = start_profiler(device)
-            if profiler is not None and cur >= args.profile_from + args.profile_steps:
+            if profiler is not None and cur >= profile_from + args.profile_steps:
                 stop_profiler(profiler, args.train_dir, cur)
                 profiler = None
             batch = {k: v for k, v in batch.items()
@@ -277,7 +339,7 @@ def main(argv=None) -> None:
             generator.manual_seed(step_seed(args.seed + 1, cur))
             state, metrics = step_fn(state, batch, generator=generator)
             cur = state.step
-            if cur % args.log_every == 0 or cur == 1:
+            if main_rank and (cur % args.log_every == 0 or cur == 1):
                 raw = {k: float(v) for k, v in metrics.items()}  # syncs
                 values = {k: round(v, 4) for k, v in raw.items()}
                 now = time.perf_counter()
@@ -296,7 +358,7 @@ def main(argv=None) -> None:
                 writer.scalar("global_step/sec", line["images_per_sec"] / batch_size, cur)
                 writer.flush()
                 t_log, step_log, stall_log = now, cur, len(stalls)
-            if cur % save_every == 0 or cur >= num_steps:
+            if main_rank and (cur % save_every == 0 or cur >= num_steps):
                 manager.save(cur, state)
                 saved = cur
     finally:
@@ -304,11 +366,19 @@ def main(argv=None) -> None:
             stop_profiler(profiler, args.train_dir, cur)
         data_iter.close()
         dataset.close()
-        writer.close()
-    if saved != state.step:
-        manager.save(state.step, state)
-    manager.wait()
-    print(f"[train] done at step {state.step}", flush=True)
+        if writer is not None:
+            writer.close()
+    if main_rank:
+        if saved != state.step:
+            manager.save(state.step, state)
+        manager.wait()
+    if replicas is not None:  # the other ranks wait for rank 0's checkpoint
+        replicas.barrier()
+    if main_rank and device.type == "cuda":
+        summary = {"peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+                   "kernel_launches": kernel_launches()}
+        print("[train] summary " + json.dumps(summary), flush=True)
+    say(f"[train] done at step {state.step}", flush=True)
 
 
 if __name__ == "__main__":

@@ -279,14 +279,33 @@ def make_draws(model: FasterRCNN, batch_size: int, canvas_hw: Tuple[int, int],
     return draws
 
 
-def make_train_step(model: FasterRCNN, regularization_fn: Optional[Callable] = None
-                    ) -> Callable:
+def global_rows(rows: int, replicas=None) -> int:
+    """The global batch's rows when each rank holds `rows` of them."""
+    return rows if replicas is None else rows * replicas.world_size
+
+
+def rank_rows(draws: Dict[str, Tensor], replicas=None) -> Dict[str, Tensor]:
+    """This rank's rows of draws made for the global batch."""
+    if replicas is None:
+        return draws
+    return {k: replicas.rows(v) for k, v in draws.items()}
+
+
+def make_train_step(model: FasterRCNN, regularization_fn: Optional[Callable] = None,
+                    replicas=None) -> Callable:
     """Returns step(state, batch, generator=None, draws=None) -> (state,
     metrics). batch: image [B, H, W, 3] (uint8 or float), true_shape
     [B, 2], gt_boxes [B, G, 4], gt_classes [B, G], gt_mask [B, G], all on
     the model's device. The draws not given come from `generator`.
     metrics: every loss term, total_loss and grad_norm (of the raw
-    gradients), as tensors on the device."""
+    gradients), as tensors on the device.
+
+    With `replicas` (parallel/distributed.py) the batch is this rank's
+    rows of the global batch: draws made here are the global batch's,
+    of which the rank takes its rows; after the backward the gradients
+    and the loss terms are averaged over the ranks in one all-reduce, so
+    the clip sees the global norm of the averaged gradient (as optax does
+    under jit) and every rank takes the same update."""
 
     def step(state: TrainState, batch: Dict[str, Tensor],
              generator: Optional[torch.Generator] = None,
@@ -297,14 +316,14 @@ def make_train_step(model: FasterRCNN, regularization_fn: Optional[Callable] = N
               "mask": batch["gt_mask"].bool()}
         draws = dict(draws or {})
         if generator is not None:
-            made = make_draws(m, images.shape[0], tuple(images.shape[1:3]), generator,
-                              num_gt=gt["boxes"].shape[1])
-            draws = {**made, **draws}
+            made = make_draws(m, global_rows(images.shape[0], replicas),
+                              tuple(images.shape[1:3]), generator, num_gt=gt["boxes"].shape[1])
+            draws = {**rank_rows(made, replicas), **draws}
         params = state.params
         for p in params.values():
             p.grad = None
         pred = m.predict_train(images, batch["true_shape"], gt, draws)
-        losses = dict(m.loss(pred, gt, draws))
+        losses = dict(m.loss(pred, gt, draws, replicas=replicas))
         if regularization_fn is not None:
             reg = regularization_fn(params)
             losses["Loss/regularization_loss"] = reg
@@ -312,11 +331,13 @@ def make_train_step(model: FasterRCNN, regularization_fn: Optional[Callable] = N
         losses["total_loss"].backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        metrics = {k: v.detach() for k, v in losses.items()}
+        if replicas is not None:
+            replicas.average_(list(grads.values()) + list(metrics.values()))
         grad_norm = global_norm(list(grads.values()))
         updates, opt_state = state.tx.update(grads, state.opt_state)
         with torch.no_grad():
             torch._foreach_add_([params[n] for n in opt_state.names], updates)
-        metrics = {k: v.detach() for k, v in losses.items()}
         metrics["grad_norm"] = grad_norm
         return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
 

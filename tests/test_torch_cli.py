@@ -137,10 +137,12 @@ def test_unported_flags_raise():
     from mtlx_torch.train import train as train_cli
 
     base = ["--pipeline_config_path", "x", "--train_dir", "y"]
-    for flag in (["--grain_workers", "2"], ["--precompile_buckets"], ["--distributed"],
+    for flag in (["--grain_workers", "2"], ["--precompile_buckets"],
                  ["--max_bucket_variants", "4"]):
         with pytest.raises(NotImplementedError, match=flag[0]):
             train_cli.parse_args(base + flag)
+    # data parallelism is ported: the flag parses
+    assert train_cli.parse_args(base + ["--distributed"]).distributed
     args = train_cli.parse_args(base + ["--num_clones", "2", "--master", "grpc://x"])
     assert args.num_clones == 2
     # the profiler flags are ported: they parse

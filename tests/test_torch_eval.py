@@ -131,9 +131,13 @@ def test_build_evaluators():
                                                "WeightedPascalDetectionEvaluator"]
     assert type(build_evaluators(config([]), CATEGORIES)[0]).__name__ == \
         "PascalDetectionEvaluator"
-    for name in ("coco_detection_metrics", "open_images_V2_detection_metrics",
-                 "pascal_voc_instance_segmentation_metrics"):
-        with pytest.raises(NotImplementedError, match=name):
+    evs = build_evaluators(config(["coco_detection_metrics",
+                                   "open_images_V2_detection_metrics"]), CATEGORIES)
+    assert [type(e).__name__ for e in evs] == ["CocoDetectionEvaluator",
+                                               "OpenImagesDetectionEvaluator"]
+    for name in ("pascal_voc_instance_segmentation_metrics",
+                 "weighted_pascal_voc_instance_segmentation_metrics", "coco_mask_metrics"):
+        with pytest.raises(NotImplementedError, match=f"{name}.*item 16"):
             build_evaluators(config([name]), CATEGORIES)
     with pytest.raises(ValueError, match="unknown"):
         build_evaluators(config(["no_such_metrics"]), CATEGORIES)
