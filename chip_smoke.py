@@ -6,7 +6,9 @@ same request and on the same train step, train, resume, evaluate and
 export the flagship from JPEG TFRecords through the port's CLIs, train
 the 3-task MTL R50 from scratch on synthetic data until it detects, and
 train, evaluate and serve the R101 3-task MTL on COCO-sized records
-through `torch.distributed.run` with the COCO and OpenImages metrics.
+through `torch.distributed.run` with the COCO and OpenImages metrics, and
+train, evaluate, export and serve R-FCN R101 and the Inception-v2 and
+Inception-ResNet-v2 MTL Faster R-CNNs through the CLIs.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --data_parallel 4    # on a machine with 4 cards
@@ -121,6 +123,26 @@ Phases (any failure exits non-zero):
      sum of |parameter| within 1e-4 relative of one rank on the whole
      batch; whether torchvision imports, and its NMS and box IoU timed
      where it does
+ 11. the rest of the two-stage family: configs/rfcn_resnet101_voc07,
+     faster_rcnn_inception_v2_voc07 and
+     faster_rcnn_inception_resnet_v2_mtl_coco, each unchanged but for its
+     paths (a fine_tune_checkpoint of the CLI's own seeded init with batch
+     norm calibrated on one batch), checkpoint interval (2) and eval size
+     (16), on 32 noise JPEGs at VOC's sizes (COCO's for the last): the
+     train CLI for 4 steps and a restart to 6, every step launching NMS
+     once, the crop and its backward twice (R-FCN: the class and box
+     maps) or once, and the IoU three times; the eval CLI with the
+     config's metrics (finite; NMS twice and the crop twice or once a
+     batch of 8); every kernel call of one train step and one eval batch
+     against its plain version, one more step profiled, the step's crop
+     and crop backward launches timed beside their bounds, plain
+     versions and library calls (F.grid_sample and its d(input)); the
+     export CLI and one request through the bundle; each
+     Inception trunk's proposal and box classifier features in float32
+     (TF32 off) on the card against the CPU within 1e-4 of the largest
+     magnitude; R-FCN's two crop launches of the request (every bin of the
+     class maps, 21 channels, and of the box maps, 80) timed beside their
+     plain version, F.grid_sample and bound
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -552,6 +574,19 @@ def grid_sample_ms(features, boxes, cs: int) -> float:
                                          align_corners=True), 50)
 
 
+def grid_sample_backward_ms(dout, boxes, hw) -> float:
+    """The crop backward's yardstick: the d(input) of F.grid_sample
+    (align_corners=True) on the crop's sample points, its grad_input only,
+    in dout's dtype."""
+    b, n, cs, _, c = dout.shape
+    grid = sample_grid(boxes, cs, hw[0], hw[1], dout.dtype)
+    feats_nchw = torch.zeros(b, hw[0], hw[1], c, dtype=dout.dtype,
+                             device=dout.device).permute(0, 3, 1, 2)
+    gout = dout.permute(0, 4, 1, 2, 3).reshape(b, c, n * cs, cs)
+    return cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        gout, feats_nchw, grid, 0, 0, True, [True, False]), 20)
+
+
 def time_crop(features, boxes, cs: int, tag: str, plain_reps: int = 10):
     """The crop kernel on these inputs: bit-equal to its plain version,
     timed beside its bound, its plain version, F.grid_sample, a fill of
@@ -863,16 +898,9 @@ def check_roi_backward(gen, results):
     tap_reads = int((taps_y[..., :, None] * taps_x[..., None, :]).sum())
     read_mb = tap_reads * c * 2 / 1e6
 
-    # yardstick: the d(input) of F.grid_sample (align_corners=True) on the
-    # same points, its grad_input only
-    grid = sample_grid(boxes, cs, h, w, torch.bfloat16)
-    feats_nchw = torch.zeros(b, h, w, c, dtype=torch.bfloat16, device="cuda").permute(0, 3, 1, 2)
-    gout = d16.permute(0, 4, 1, 2, 3).reshape(b, c, n * cs, cs)
-
     ms = cuda_ms(lambda: roi_cuda.crop_and_resize_backward(d16, boxes, (h, w)), 20)
     plain_ms = cuda_ms(lambda: roi_cuda.crop_and_resize_backward_plain(d16, boxes, (h, w)), 3)
-    library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-        gout, feats_nchw, grid, 0, 0, True, [True, False]), 20)
+    library_ms = grid_sample_backward_ms(d16, boxes, (h, w))
     ms32 = cuda_ms(lambda: roi_cuda.crop_and_resize_backward(dout, boxes, (h, w)), 20)
     # every dout element read once, d(features) written once; 4 taps of a
     # multiply (the weight) and an add per element
@@ -993,9 +1021,9 @@ def profile_request(im, request):
         log(f"[profile]   {ms:8.3f} ms  x{count:<4d} {key[:100]}")
 
 
-def check_outputs(out, b):
-    want = {"detection_boxes": (b, 300, 4), "detection_scores": (b, 300),
-            "detection_classes": (b, 300), "num_detections": (b,)}
+def check_outputs(out, b, k: int = 300):
+    want = {"detection_boxes": (b, k, 4), "detection_scores": (b, k),
+            "detection_classes": (b, k), "num_detections": (b,)}
     for key, shape in want.items():
         arr = out[key]
         if arr.shape != shape:
@@ -1186,7 +1214,8 @@ def reset_kernel_counts():
 
 
 def profile_train_step(step_fn, state, batch, gen):
-    """Device time by kernel over one train step (torch.profiler)."""
+    """Device time by kernel over one train step (torch.profiler); returns
+    the state after it and (wall ms, kernel-busy ms, the largest kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1200,12 +1229,14 @@ def profile_train_step(step_fn, state, batch, gen):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[train-profile] one step at batch 16: wall {wall_ms:.2f} ms (profiler on), kernels "
+    log(f"[train-profile] one step at batch {batch['image'].shape[0]}: wall {wall_ms:.2f} ms "
+        f"(profiler on), kernels "
         f"busy {busy:.2f} ms ({busy / wall_ms:.1%} of wall), "
         f"{sum(r[1] for r in rows)} device operations")
     for ms, count, key in rows[:15]:
         log(f"[train-profile]   {ms:8.3f} ms  x{count:<5d} {key[:100]}")
-    return state
+    return state, dict(wall_ms=wall_ms, busy_ms=busy, operations=sum(r[1] for r in rows),
+                       top=[(key[:80], ms, count) for ms, count, key in rows[:5]])
 
 
 def phase_train(seed: int, results):
@@ -1275,7 +1306,7 @@ def phase_train(seed: int, results):
     log(f"[train] {moved} of {len(params)} parameter tensors changed")
     if moved == 0:
         raise AssertionError("no parameter changed")
-    state = profile_train_step(step_fn, state, batches[0], gen)
+    state, _ = profile_train_step(step_fn, state, batches[0], gen)
     results["train_crop_calls"] = time_main_path_crops("training", crop_calls)
     results["train_iou_calls"] = time_main_path_ious(iou_calls)
     results["train"] = dict(step_ms=[t * 1e3 for t in times],
@@ -1790,9 +1821,11 @@ def check_kernels_on(calls, tag: str):
     return shapes
 
 
-def learnability_step_calls(work: str, seed: int):
-    """One train step of the tool's trained model on one batch of its
-    records, with every kernel call's inputs recorded."""
+def train_step_calls(pipeline: str, train_dir: str, seed: int):
+    """One train step of the latest checkpoint in train_dir on one batch of
+    the pipeline's records, with every kernel call's inputs recorded.
+    Returns (calls, step_fn, state, batch, generator): what the step ran
+    on, for a caller that takes another."""
     from mtlx_torch.builders import model_builder, optimizer_builder, preprocessor_builder
     from mtlx_torch.config import config_util
     from mtlx_torch.data.loader import DetectionDataset, batches
@@ -1800,13 +1833,12 @@ def learnability_step_calls(work: str, seed: int):
     from mtlx_torch.train import train as train_lib
     from mtlx_torch.train import train_step as ts
 
-    configs = config_util.get_configs_from_pipeline_file(os.path.join(work, "pipeline.config"))
+    configs = config_util.get_configs_from_pipeline_file(pipeline)
     train_config = configs["train_config"]
     model = model_builder.build(configs["model"], is_training=True,
                                 max_gt_boxes=train_config.max_number_of_boxes, device="cuda")
     tx, _, _ = optimizer_builder.build(train_config.optimizer, train_config)
-    state = ckpt_lib.CheckpointManager(os.path.join(work, "train")).restore(
-        ts.create_train_state(model, tx))
+    state = ckpt_lib.CheckpointManager(train_dir).restore(ts.create_train_state(model, tx))
     dataset = DetectionDataset(
         list(configs["train_input_config"].tf_record_input_reader.input_path),
         model.cfg.canvas_size,
@@ -1819,7 +1851,8 @@ def learnability_step_calls(work: str, seed: int):
     step_fn = train_lib.make_step_fn(
         model, preprocessor_builder.build(train_config.data_augmentation_options))
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return record_kernel_inputs(lambda: step_fn(state, batch, generator=gen))
+    calls = record_kernel_inputs(lambda: step_fn(state, batch, generator=gen))
+    return calls, step_fn, state, batch, gen
 
 
 def phase_learnability(seed: int, results):
@@ -1858,7 +1891,9 @@ def phase_learnability(seed: int, results):
                 f"{', '.join(f'{t:.2f}' for t in ms)}; total_loss by step "
                 f"{ {s: l['total_loss'] for s, l in losses.items()} }; launches {counts}; "
                 f"{wall:.1f} s (records, both CLIs)")
-            shapes = check_kernels_on(learnability_step_calls(work, seed), tag)
+            calls = train_step_calls(os.path.join(work, "pipeline.config"),
+                                     os.path.join(work, "train"), seed)[0]
+            shapes = check_kernels_on(calls, tag)
             runs[tag] = dict(map=mean_ap, ms_per_step=ms, losses=losses, launches=counts,
                              lr=lr_line, wall_s=wall, shapes=shapes,
                              eval_img_per_s=metrics["eval/images_per_sec"])
@@ -2546,6 +2581,336 @@ def phase_coco(seed: int, results):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 11
+
+# the rest of the two-stage family: (config, image sizes of its dataset,
+# the train CLI's launches a step, the eval CLI's launches a batch)
+_TRUNK_LAUNCHES = ({"nms": 1, "roi_crop": 1, "roi_crop_backward": 1, "iou": 3},
+                   {"nms": 2, "roi_crop": 1, "roi_crop_backward": 0, "iou": 0})
+_RFCN_LAUNCHES = ({"nms": 1, "roi_crop": 2, "roi_crop_backward": 2, "iou": 3},
+                  {"nms": 2, "roi_crop": 2, "roi_crop_backward": 0, "iou": 0})
+TWO_STAGE = (
+    ("rfcn_resnet101_voc07", "voc") + _RFCN_LAUNCHES,
+    ("faster_rcnn_inception_v2_voc07", "voc") + _TRUNK_LAUNCHES,
+    ("faster_rcnn_inception_resnet_v2_mtl_coco", "coco") + _TRUNK_LAUNCHES,
+)
+TWO_STAGE_STEPS = (4, 6)  # the first run, then the restart to step 6
+
+
+def two_stage_pipeline(name: str, record: str, label_map: str, fine_tune: str) -> str:
+    """configs/<name>.config with only its paths (records, label map, a
+    fine_tune_checkpoint), its checkpoint interval (2) and its eval size
+    (16) changed."""
+    path = os.path.join(REPO, "configs", f"{name}.config")
+    with open(path) as f:
+        text = f.read()
+    data = "voc" if "voc" in name else "coco"
+    reps = [(f'"/data/{data}/{old}"', json.dumps(new)) for old, new in (
+        ("pascal_train_voc0712.record", record), ("pascal_train_voc07.record", record),
+        ("pascal_test_voc07.record", record), ("coco_train.record", record),
+        ("coco_val.record", record), ("pascal_label_map.pbtxt", label_map),
+        ("mscoco_label_map.pbtxt", label_map))]
+    reps += [("num_examples: 4952", "num_examples: 16"), ("num_examples: 5000", "num_examples: 16"),
+             ("save_checkpoints_steps: 2000\n", ""), ('fine_tune_checkpoint: ""\n', "")]
+    for old, new in reps:
+        text = text.replace(old, new)
+    for gone in ('"/data/voc/', '"/data/coco/', "num_examples: 4952", "num_examples: 5000", "fine_tune_checkpoint:",
+                 "save_checkpoints_steps:"):
+        if gone in text:
+            raise AssertionError(f"{path}: {gone!r} left after the replacements")
+    return text.replace("train_config: {", "train_config: {\n  save_checkpoints_steps: 2\n"
+                        f"  fine_tune_checkpoint: {json.dumps(fine_tune)}", 1)
+
+
+def two_stage_workdir(work: str, name: str, data: str, seed: int, n: int = 32) -> str:
+    """n JPEG records at the dataset's sizes, the label map, the pipeline
+    and its fine_tune_checkpoint: the CLI's own init (same seed) with
+    batch norm calibrated on one batch of the records. Returns the
+    pipeline's path."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.data.loader import DetectionDataset, batches
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train_step as ts
+
+    rs = np.random.RandomState(seed + 15)
+    record = os.path.join(work, f"{data}_noise.record")
+    if data == "voc":
+        write_records(record, rs, n, "jpeg", VOC_SIZES)
+        label_map = os.path.join(work, "voc_label_map.pbtxt")
+        with open(label_map, "w") as f:
+            f.writelines(f"item {{ id: {i + 1} name: '{v}' }}\n" for i, v in enumerate(VOC_NAMES))
+    else:
+        write_coco_records(record, rs, n)
+        label_map = os.path.join(REPO, COCO_LABEL_MAP)
+    fine_tune = os.path.join(work, "warm_start")
+    pipeline = os.path.join(work, "pipeline.config")
+    with open(pipeline, "w") as f:
+        f.write(two_stage_pipeline(name, record, label_map, fine_tune))
+    configs = config_util.get_configs_from_pipeline_file(pipeline)
+    model = model_builder.build(configs["model"], is_training=True, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(seed))
+    dataset = DetectionDataset([record], model.cfg.canvas_size, model_builder.resizer_params(
+        model_builder.image_resizer(configs["model"])))
+    first = next(batches(dataset, configs["train_config"].batch_size, seed=seed, pack_images=True))
+    dataset.close()
+    calibrate_batch_norm_on(model, torch.from_numpy(first["image"]).cuda(),
+                            torch.from_numpy(first["true_shape"]).cuda())
+    manager = ckpt_lib.CheckpointManager(fine_tune)
+    manager.save(0, ts.create_train_state(model, ts.make_optimizer()))
+    manager.wait()
+    del model, manager
+    torch.cuda.empty_cache()
+    return pipeline
+
+
+def trunk_card_vs_cpu(name: str, seed: int):
+    """One float32 forward (TF32 off) of the config's proposal and box
+    classifier features on the card and on the CPU with the same seeded
+    weights: a 600x800 request on its 640x896 bucket, and 16 crops of the
+    second stage's size. Returns the largest difference over the largest
+    magnitude of each; fails above 1e-4."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        configs = config_util.get_configs_from_pipeline_file(
+            os.path.join(REPO, "configs", f"{name}.config"))
+        gpu = model_builder.build(configs["model"], is_training=False, dtype=torch.float32,
+                                  device="cuda")
+        gpu.init_weights(torch.Generator().manual_seed(seed))
+        cpu = model_builder.build(configs["model"], is_training=False, dtype=torch.float32,
+                                  device="cpu")
+        cpu.modules.load_state_dict(gpu.modules.state_dict())
+        image = np.zeros((1, 640, 896, 3), np.float32)
+        image[0, :600, :800] = request_picture(np.random.RandomState(seed + 16), 600, 800)
+        x = cpu.preprocess(torch.from_numpy(image))
+        cs = gpu.cfg.initial_crop_size
+        pool = gpu.cfg.maxpool_stride if gpu.cfg.maxpool_kernel_size > 1 else 1
+        width = gpu.modules.backbone.out_channels
+        rs = np.random.RandomState(seed + 17)
+        crops = torch.from_numpy(rs.normal(0, 1, (16, cs // pool, cs // pool, width))
+                                 .astype(np.float32))
+        out = {}
+        for part, inp in (("backbone", x), ("classifier_backbone", crops)):
+            with torch.no_grad():
+                want = getattr(cpu.modules, part)(inp)
+                got = getattr(gpu.modules, part)(inp.cuda()).cpu()
+            rel = float((got - want).abs().max() / want.abs().max())
+            out[part] = dict(shape=list(want.shape), rel=rel)
+            if not rel <= 1e-4:
+                raise AssertionError(f"{name} {part}: card and CPU differ by {rel} of the "
+                                     "largest magnitude (tolerance 1e-4)")
+        log(f"[two-stage] {name}: float32 card vs CPU, TF32 off: " + ", ".join(
+            f"{k} {v['shape']} within {v['rel']:.3g} of the largest magnitude"
+            for k, v in out.items()))
+        del gpu, cpu
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def time_ps_crop(calls):
+    """The R-FCN serving request's two crop launches (class maps, box
+    maps: every bin of the image in one launch) timed beside their plain
+    version and F.grid_sample on the same points, with the bound of each."""
+    from mtlx_torch.kernels import roi_cuda
+
+    out = []
+    for (features, boxes, crop_size), _ in calls:
+        run_k = lambda: roi_cuda.crop_and_resize(features, boxes, crop_size)
+        run_p = lambda: roi_cuda.crop_and_resize_plain(features, boxes, crop_size)
+        if not torch.equal(run_k(), run_p()):
+            raise AssertionError("the PS crop launch differs from its plain version")
+        ms, plain_ms = cuda_ms(run_k, 200), cuda_ms(run_p, 20)
+        library_ms = grid_sample_ms(features, boxes, int(crop_size[0]))
+        b, h, w, c = features.shape
+        n = boxes.shape[1]
+        outputs = b * n * crop_size[0] * crop_size[1] * c
+        nbytes = features.numel() * 4 + boxes.numel() * 4 + outputs * 4
+        bound, by = bound_ms(nbytes, outputs * ROI_OPS_PER_ELEMENT)
+        out.append(dict(shape=f"{b}x{h}x{w}x{c}x{n}->{crop_size[0]}x{crop_size[1]} float32",
+                        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                        bound_by=by, vector_path=c % 4 == 0))
+        log(f"[ps-crop] {out[-1]['shape']} ({'float4' if c % 4 == 0 else 'scalar'} path): "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+    return out
+
+
+def time_train_crops(calls, tag: str):
+    """The crop forward and backward launches of a recorded train step,
+    each timed beside its bound, its plain version and the library call
+    (F.grid_sample forward, through time_crop, and its d(input))."""
+    from mtlx_torch.kernels import roi_cuda
+
+    rows = [time_crop(features, boxes, int(crop_size[0]), f"{tag} train step", plain_reps=3)
+            for (features, boxes, crop_size), _ in calls["roi_crop"]]
+    for (dout, boxes, hw), _ in calls["roi_crop_backward"]:
+        b, n, ch, cw, c = dout.shape
+        elt = dout.element_size()
+        ms = cuda_ms(lambda: roi_cuda.crop_and_resize_backward(dout, boxes, hw), 20)
+        plain_ms = cuda_ms(lambda: roi_cuda.crop_and_resize_backward_plain(dout, boxes, hw), 3)
+        library_ms = grid_sample_backward_ms(dout, boxes, hw)
+        # every dout element read once, d(features) written once; 4 taps of
+        # a multiply and an add per element
+        t_bound, by = bound_ms(nbytes=dout.numel() * elt + boxes.numel() * 4
+                               + b * hw[0] * hw[1] * c * elt, ops=dout.numel() * 8)
+        shape = f"{b}x{n}x{ch}x{cw}x{c}->{hw[0]}x{hw[1]} {str(dout.dtype)[6:]}"
+        log(f"[roi-bwd] {tag} train step {shape}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"grid_sampler_2d_backward {library_ms:.4f} ms, bound {t_bound:.4f} ms ({by})")
+        rows.append(dict(shape=shape, backward=True, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=t_bound, bound_by=by))
+    return rows
+
+
+def run_two_stage(name: str, data: str, train_want, eval_want, seed: int):
+    """One config through the CLIs on the card: train (first run and a
+    restart), eval, export and a request through the bundle; one train
+    step and one eval batch recorded and held to the plain versions."""
+    import shutil
+    import tempfile
+
+    from mtlx_torch.config import config_util
+    from mtlx_torch.eval import eval as eval_cli
+    from mtlx_torch.export import exporter
+    from mtlx_torch.export.exporter import InferenceModel
+    from mtlx_torch.kernels import roi_cuda
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train as train_cli
+
+    work = tempfile.mkdtemp(prefix="mtlx_two_stage_")
+    try:
+        t0 = time.perf_counter()
+        pipeline = two_stage_workdir(work, name, data, seed)
+        setup_s = time.perf_counter() - t0
+        train_dir = os.path.join(work, "train")
+        runs = []
+        for steps in TWO_STAGE_STEPS:
+            reset_kernel_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out, _ = run_cli(train_cli.main, ["--pipeline_config_path", pipeline, "--train_dir",
+                                              train_dir, "--num_steps", str(steps),
+                                              "--log_every", "1", "--seed", str(seed)])
+            runs.append(dict(out=out, wall=time.perf_counter() - t0, counts=kernel_counts(),
+                             peak=torch.cuda.max_memory_allocated(), lines=train_log_lines(out)))
+        first, again = runs
+        if "warm start: " not in first["out"]:
+            raise AssertionError(f"{name}: the first train run did not warm-start")
+        if f"resumed from step {TWO_STAGE_STEPS[0]}" not in again["out"] or \
+                f"[train] done at step {TWO_STAGE_STEPS[1]}" not in again["out"]:
+            raise AssertionError(f"{name}: the restart did not resume and finish")
+        if ckpt_lib.CheckpointManager(train_dir).all_steps() != [2, 4, 6]:
+            raise AssertionError(f"{name}: checkpoints {ckpt_lib.CheckpointManager(train_dir).all_steps()}")
+        per_step = {}
+        for run, n in zip(runs, (TWO_STAGE_STEPS[0], TWO_STAGE_STEPS[1] - TWO_STAGE_STEPS[0])):
+            per_step = {k: v / n for k, v in run["counts"].items()}
+            if per_step != train_want:
+                raise AssertionError(f"{name}: train launches a step {per_step}, want {train_want}")
+            for line in run["lines"]:
+                bad = [k for k, v in line.items() if not np.isfinite(v)]
+                if bad:
+                    raise AssertionError(f"{name}: non-finite train metrics at step "
+                                         f"{line['step']}: {bad}")
+        lines = first["lines"] + again["lines"]
+        bs = config_util.get_configs_from_pipeline_file(pipeline)["train_config"].batch_size
+        step_ms = [bs / ln["images_per_sec"] * 1e3 for ln in lines]
+        peak_gib = max(r["peak"] for r in runs) / 2**30
+        log(f"[two-stage] {name}: train {TWO_STAGE_STEPS[0]} steps + restart to "
+            f"{TWO_STAGE_STEPS[1]} at batch {bs} ({first['wall']:.2f} + {again['wall']:.2f} s "
+            f"CLI wall); step ms {[round(t, 2) for t in step_ms]}; img/s "
+            f"{[round(ln['images_per_sec'], 2) for ln in lines]}; loader wait share "
+            f"{[round(ln['loader_wait_share'], 4) for ln in lines]}; peak {peak_gib:.2f} GiB; "
+            f"launches a step {per_step}; total_loss "
+            f"{[round(ln['total_loss'], 5) for ln in lines]}")
+
+        eval_dir = os.path.join(work, "eval")
+        reset_kernel_counts()
+        out, metrics = run_cli(eval_cli.main, ["--pipeline_config_path", pipeline,
+                                               "--checkpoint_dir", train_dir,
+                                               "--eval_dir", eval_dir, "--run_once"])
+        eval_per_batch = {k: v / 2 for k, v in kernel_counts().items()}
+        keys = [k for k in ("Precision/mAP@0.5IOU", "DetectionBoxes_Precision/mAP",
+                            "DetectionBoxes_Precision/mAP@.50IOU") if k in metrics]
+        shown = {k: metrics[k] for k in keys}
+        log(f"[two-stage] {name}: eval at step {TWO_STAGE_STEPS[1]} on 16 records: {shown}; "
+            f"{metrics['eval/images_per_sec']:.2f} img/s; launches a batch of 8 {eval_per_batch}")
+        if not keys or not all(np.isfinite(v) for v in shown.values()):
+            raise AssertionError(f"{name}: the eval CLI gave no finite metrics: {shown}")
+        if eval_per_batch != eval_want:
+            raise AssertionError(f"{name}: eval launches a batch {eval_per_batch}, want {eval_want}")
+
+        calls, step_fn, state, batch, gen = train_step_calls(pipeline, train_dir, seed)
+        _, profile = profile_train_step(step_fn, state, batch, gen)
+        del step_fn, state, batch
+        torch.cuda.empty_cache()
+        shapes = {"train": check_kernels_on(calls, f"{name} train step"),
+                  "eval": check_kernels_on(eval_batch_calls(pipeline, train_dir),
+                                           f"{name} eval batch")}
+        crop_times = time_train_crops(calls, name)
+        del calls
+        torch.cuda.empty_cache()
+
+        export_dir = os.path.join(work, "export")
+        t0 = time.perf_counter()
+        run_cli(exporter.main, ["--pipeline_config_path", pipeline, "--trained_checkpoint_dir",
+                                train_dir, "--output_directory", export_dir])
+        export_s = time.perf_counter() - t0
+        served = InferenceModel.load(export_dir)
+        h, w = (480, 640) if data == "coco" else (375, 500)
+        image = request_picture(np.random.RandomState(seed + 18), h, w)
+        served.predict_images([image])  # warm-up
+        t0 = time.perf_counter()
+        crops = record_calls(lambda: served.predict_images([image]), roi_cuda, "crop_and_resize")
+        request_ms = (time.perf_counter() - t0) * 1e3
+        det = served.predict_images([image])
+        k = served.model.cfg.second_stage_max_total_detections
+        check_outputs(det, 1, k)
+        n_det = int(det["num_detections"][0])
+        classes = det["detection_classes"][0][:n_det]
+        top = 90 if data == "coco" else 20
+        log(f"[two-stage] {name}: export CLI {export_s:.2f} s; one {w}x{h} request through the "
+            f"bundle ({request_ms:.2f} ms with its crop inputs recorded): {n_det} detections "
+            f"over classes {int(classes.min()) if n_det else '-'}..{int(classes.max()) if n_det else '-'}")
+        if n_det and (classes.min() < 1 or classes.max() > top):
+            raise AssertionError(f"{name}: served classes outside 1..{top}: {classes}")
+        result = dict(step_ms=step_ms, img_per_s=[ln["images_per_sec"] for ln in lines],
+                      loader_wait_share=[ln["loader_wait_share"] for ln in lines],
+                      peak_memory_gib=peak_gib, batch_size=bs, setup_s=setup_s,
+                      train_launches_per_step=per_step, eval_metrics=shown,
+                      eval_img_per_s=metrics["eval/images_per_sec"],
+                      eval_launches_per_batch=eval_per_batch, shapes=shapes,
+                      train_crop_times=crop_times, train_profile=profile, export_s=export_s,
+                      request_ms=request_ms, detections=n_det)
+        if name.startswith("rfcn"):
+            result["ps_crop"] = time_ps_crop(crops)
+        return result
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_two_stage(seed: int, results):
+    """R-FCN R101 and the Inception-v2 and Inception-ResNet-v2 Faster
+    R-CNNs: each trunk's float32 forward on the card against the CPU,
+    then each config through the train, eval and export CLIs and a
+    request through its bundle."""
+    out = {}
+    for name, data, train_want, eval_want in TWO_STAGE:
+        t0 = time.perf_counter()
+        r = run_two_stage(name, data, train_want, eval_want, seed)
+        if "inception" in name:
+            r["card_vs_cpu"] = trunk_card_vs_cpu(name, seed)
+        r["wall_s"] = time.perf_counter() - t0
+        log(f"[two-stage] {name}: {r['wall_s']:.1f} s")
+        out[name] = r
+    results["two_stage"] = out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2592,6 +2957,7 @@ def main(argv=None) -> int:
     phase_cli(args.seed, results)
     phase_learnability(args.seed, results)
     phase_coco(args.seed, results)
+    phase_two_stage(args.seed, results)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -2645,6 +3011,20 @@ def main(argv=None) -> int:
         k["coco_train_launches_per_step"] = coco["train_launches_per_step"][k["name"]]
         k["coco_eval_launches_per_batch"] = coco["eval_launches_per_batch"][k["name"]]
         k["coco_eval_shapes"] = coco["eval_shapes"].get(k["name"], [])
+    for k in kernels:
+        for name, r in results["two_stage"].items():
+            k.setdefault("two_stage_train_launches_per_step", {})[name] = \
+                r["train_launches_per_step"][k["name"]]
+            k.setdefault("two_stage_eval_launches_per_batch", {})[name] = \
+                r["eval_launches_per_batch"][k["name"]]
+            k.setdefault("two_stage_shapes", {})[name] = {
+                part: r["shapes"][part].get(k["name"], []) for part in ("train", "eval")}
+    kernels[1]["rfcn_ps_crop"] = results["two_stage"]["rfcn_resnet101_voc07"]["ps_crop"]
+    for k in (kernels[1], kernels[3]):
+        k["two_stage_train_ms"] = {
+            name: [row for row in r["train_crop_times"]
+                   if row.get("backward", False) == (k["name"] == "roi_crop_backward")]
+            for name, r in results["two_stage"].items()}
     kernels[0]["coco_postprocess"] = coco["postprocess_nms"]
     library = coco["library"]
     if library is not None:

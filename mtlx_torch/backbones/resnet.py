@@ -173,6 +173,8 @@ def _nhwc(x: Tensor) -> Tensor:
 class ResNetProposalFeatures(nn.Module):
     """conv1 + block1..block3 -> the stride-16 map. NHWC in, NHWC out."""
 
+    out_channels = 1024
+
     def __init__(self, depth: int = 50, dtype: torch.dtype = torch.bfloat16,
                  bn_trainable: bool = False, slim_stride_order: bool = False,
                  conv0_space_to_depth: bool = False, bn: BNSpec = BNSpec()):
@@ -180,7 +182,7 @@ class ResNetProposalFeatures(nn.Module):
         if conv0_space_to_depth:
             raise NotImplementedError(
                 "SpaceToDepthConv1 (conv0_space_to_depth) is not ported: "
-                "ROADMAP.md queue 1, the other backbone options"
+                "ROADMAP.md queue 1 item 15 (SpaceToDepthConv1)"
             )
         sizes = BLOCK_SIZES[depth]
         self.dtype = dtype
@@ -205,6 +207,8 @@ class ResNetProposalFeatures(nn.Module):
 
 class ResNetBoxClassifierFeatures(nn.Module):
     """block4 at stride 1 on ROI crops: [N, h, w, 1024] -> [N, h, w, 2048]."""
+
+    out_channels = 2048
 
     def __init__(self, depth: int = 50, dtype: torch.dtype = torch.bfloat16,
                  bn_trainable: bool = False, slim_stride_order: bool = False,

@@ -3,8 +3,9 @@
 Takes `{"params": ..., "batch_stats": ...}` as nested dicts of numpy
 arrays (what `mtlx.detector.faster_rcnn.FasterRCNN.init_variables`
 returns, or a restored checkpoint) and returns a `state_dict` for
-`FasterRCNNModules`. The module paths are the same on both sides, so
-the map is path to path:
+`FasterRCNNModules` (or `RFCNModules`). The module paths are the same on
+both sides, for the ResNet and both Inception trunks alike (mtlx names
+every module), so the map is path to path:
 
   * conv `kernel` HWIO -> `weight` OIHW
   * dense `kernel` [in, out] -> `weight` [out, in]
@@ -27,8 +28,10 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-# top-level flax modules of every model (serving and training)
-INFERENCE_MODULES = ("backbone", "classifier_backbone", "rpn", "box_predictor")
+# top-level flax modules of every model (serving and training); an R-FCN
+# has rfcn_predictor where a Faster R-CNN has box_predictor
+INFERENCE_MODULES = ("backbone", "classifier_backbone", "rpn", "box_predictor",
+                     "rfcn_predictor")
 # top-level flax modules of a training model only (the MTL auxiliary heads)
 TRAINING_ONLY_MODULES = ("fg_head", "mo_head", "cl_head")
 

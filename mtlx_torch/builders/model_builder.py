@@ -1,13 +1,15 @@
 """model_builder — pipeline proto -> detector (port of
-mtlx/builders/model_builder.py), Faster R-CNN with the
-mask_rcnn_box_predictor only. At is_training=True the MTL heads are on
-as the proto asks; the hard example miner raises."""
+mtlx/builders/model_builder.py): Faster R-CNN with the
+mask_rcnn_box_predictor, or R-FCN with the rfcn_box_predictor. At
+is_training=True the MTL heads are on as the proto asks; the hard
+example miner and SSD raise."""
 
 from __future__ import annotations
 
 import torch
 
 from mtlx_torch.detector.faster_rcnn import FasterRCNN, FasterRCNNConfig, MTLConfig
+from mtlx_torch.detector.rfcn import RFCN, RFCNConfig
 from mtlx_torch.device import DeviceLike
 
 FEATURE_EXTRACTORS = {
@@ -66,10 +68,11 @@ def _initializer_spec(hyperparams):
 
 def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
                  dtype: torch.dtype = torch.bfloat16) -> FasterRCNNConfig:
-    """The FasterRCNNConfig of a DetectionModel proto."""
+    """The FasterRCNNConfig (RFCNConfig for an rfcn_box_predictor) of a
+    DetectionModel proto."""
     which = model_proto.WhichOneof("model")
     if which == "ssd":
-        raise NotImplementedError("SSD is not ported: ROADMAP.md queue 1, SSD")
+        raise NotImplementedError("SSD is not ported: ROADMAP.md queue 1 item 14 (SSD)")
     if which != "faster_rcnn":
         raise ValueError(f"unknown model type {which!r}")
     fr = model_proto.faster_rcnn
@@ -95,12 +98,10 @@ def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
 
     sp = fr.second_stage_box_predictor
     predictor_kind = sp.WhichOneof("box_predictor_oneof")
-    if predictor_kind == "rfcn_box_predictor":
-        raise NotImplementedError("R-FCN is not ported: ROADMAP.md queue 1, R-FCN")
     if is_training and fr.HasField("hard_example_miner"):
         raise NotImplementedError(
-            "the hard example miner is not ported: ROADMAP.md queue 1, slice 2 "
-            "(hard_example_mining_mask)"
+            "the hard example miner is not ported: ROADMAP.md queue 1 item 12 "
+            "(the hard example miner)"
         )
     use_dropout, keep_prob, fc_init = False, 1.0, None
     predict_masks, mask_depth = False, 256
@@ -133,7 +134,10 @@ def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
         window_sampling=fr.mtl.window_sampling,
         refine=fr.mtl.refine,
     )
-    return FasterRCNNConfig(
+    # the fields both meta-architectures take (mtlx's RFCNConfig leaves
+    # the ROI crop, dropout, masks, miner and number_of_stages at their
+    # defaults)
+    common = dict(
         num_classes=fr.num_classes,
         canvas_size=canvas_from_resizer(fr.image_resizer, stride),
         backbone=FEATURE_EXTRACTORS[extractor_type],
@@ -152,9 +156,6 @@ def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
         first_stage_positive_balance_fraction=fr.first_stage_positive_balance_fraction,
         first_stage_localization_loss_weight=fr.first_stage_localization_loss_weight,
         first_stage_objectness_loss_weight=fr.first_stage_objectness_loss_weight,
-        initial_crop_size=fr.initial_crop_size or 14,
-        maxpool_kernel_size=fr.maxpool_kernel_size or 2,
-        maxpool_stride=fr.maxpool_stride or 2,
         second_stage_batch_size=fr.second_stage_batch_size,
         second_stage_balance_fraction=fr.second_stage_balance_fraction,
         second_stage_nms_score_threshold=nms.score_threshold,
@@ -163,19 +164,34 @@ def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
         second_stage_max_total_detections=nms.max_total_detections,
         second_stage_localization_loss_weight=fr.second_stage_localization_loss_weight,
         second_stage_classification_loss_weight=fr.second_stage_classification_loss_weight,
-        second_stage_dropout=use_dropout and is_training,
-        second_stage_dropout_keep_prob=keep_prob,
-        second_stage_fc_initializer=fc_init,
         score_converter=score_converter,
-        predict_instance_masks=predict_masks,
-        mask_prediction_conv_depth=mask_depth,
-        second_stage_mask_prediction_loss_weight=fr.second_stage_mask_prediction_loss_weight,
         batch_norm_trainable=fr.feature_extractor.batch_norm_trainable,
         batch_norm_params=bn_params,
         slim_stride_order=fr.feature_extractor.slim_stride_order,
-        number_of_stages=fr.number_of_stages,
         max_gt_boxes=max_gt_boxes,
         dtype=dtype,
+    )
+    if predictor_kind == "rfcn_box_predictor":
+        r = sp.rfcn_box_predictor
+        return RFCNConfig(
+            **common,
+            num_spatial_bins=(r.num_spatial_bins_height, r.num_spatial_bins_width),
+            rfcn_depth=r.depth,
+            rfcn_crop_size=(r.crop_height, r.crop_width),
+            mtl=mtl if is_training else MTLConfig(),
+        )
+    return FasterRCNNConfig(
+        **common,
+        initial_crop_size=fr.initial_crop_size or 14,
+        maxpool_kernel_size=fr.maxpool_kernel_size or 2,
+        maxpool_stride=fr.maxpool_stride or 2,
+        second_stage_dropout=use_dropout and is_training,
+        second_stage_dropout_keep_prob=keep_prob,
+        second_stage_fc_initializer=fc_init,
+        predict_instance_masks=predict_masks,
+        mask_prediction_conv_depth=mask_depth,
+        second_stage_mask_prediction_loss_weight=fr.second_stage_mask_prediction_loss_weight,
+        number_of_stages=fr.number_of_stages,
         # eval drops the training-only aux heads unless the refine path
         # fuses them into inference features
         mtl=mtl if (is_training or mtl.refine) else MTLConfig(),
@@ -184,8 +200,11 @@ def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
 
 def build(model_proto, is_training: bool, max_gt_boxes: int = 100,
           dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None) -> FasterRCNN:
-    """Dispatch on the model oneof, mirroring the reference's build()."""
-    return FasterRCNN(build_config(model_proto, is_training, max_gt_boxes, dtype), device)
+    """Dispatch on the model oneof and the box predictor, mirroring the
+    reference's build(): an RFCN for an rfcn_box_predictor, else a
+    FasterRCNN."""
+    cfg = build_config(model_proto, is_training, max_gt_boxes, dtype)
+    return (RFCN if isinstance(cfg, RFCNConfig) else FasterRCNN)(cfg, device)
 
 
 def _regularizer(hyperparams):
@@ -211,7 +230,8 @@ def regularization_scopes(model_proto):
         if kind and w:
             scopes.append(("rpn", kind, w))
     sp = fr.second_stage_box_predictor
-    if sp.WhichOneof("box_predictor_oneof") == "mask_rcnn_box_predictor":
+    kind_of = sp.WhichOneof("box_predictor_oneof")
+    if kind_of == "mask_rcnn_box_predictor":
         m = sp.mask_rcnn_box_predictor
         for field, scope in (("fc_hyperparams", "box_predictor"),
                              ("conv_hyperparams", "mask_head")):
@@ -219,6 +239,10 @@ def regularization_scopes(model_proto):
                 kind, w = _regularizer(getattr(m, field))
                 if kind and w:
                     scopes.append((scope, kind, w))
+    elif kind_of == "rfcn_box_predictor" and sp.rfcn_box_predictor.HasField("conv_hyperparams"):
+        kind, w = _regularizer(sp.rfcn_box_predictor.conv_hyperparams)
+        if kind and w:
+            scopes.append(("rfcn_predictor", kind, w))
     return scopes
 
 

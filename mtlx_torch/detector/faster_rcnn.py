@@ -42,6 +42,8 @@ from torch import Tensor, nn
 from mtlx_torch.anchors.grid import GridAnchorGenerator
 from mtlx_torch.assign import matcher as matcher_lib
 from mtlx_torch.assign import samplers, target_assigner
+from mtlx_torch.backbones import inception_resnet_v2 as irv2
+from mtlx_torch.backbones import inception_v2 as iv2
 from mtlx_torch.backbones import resnet
 from mtlx_torch.coders import box_coders
 from mtlx_torch.device import DeviceLike, resolve_device
@@ -219,56 +221,74 @@ def softmax(logits: Tensor) -> Tensor:
     return _flush_subnormal(e / e.sum(dim=-1, keepdim=True))
 
 
+def make_trunk(cfg: FasterRCNNConfig) -> Tuple[nn.Module, nn.Module]:
+    """The backbone's proposal and box classifier features, as mtlx's
+    FasterRCNNModules.setup dispatches on cfg.backbone; each carries its
+    output width (`out_channels`)."""
+    if cfg.backbone in ("inception_resnet_v2", "inception_v2"):
+        bn = irv2.BNKnobs(cfg.batch_norm_trainable,
+                          resnet.BNSpec(*cfg.batch_norm_params)
+                          if cfg.batch_norm_params is not None else irv2.INCEPTION_BN)
+        if cfg.backbone == "inception_resnet_v2":
+            return (irv2.InceptionResnetV2ProposalFeatures(cfg.dtype, bn),
+                    irv2.InceptionResnetV2BoxClassifierFeatures(cfg.dtype, bn))
+        return (iv2.InceptionV2ProposalFeatures(dtype=cfg.dtype, bn=bn),
+                iv2.InceptionV2BoxClassifierFeatures(dtype=cfg.dtype, bn=bn))
+    if cfg.backbone not in ("resnet10", "resnet50", "resnet101", "resnet152"):
+        raise NotImplementedError(
+            f"backbone {cfg.backbone!r} is not ported: ROADMAP.md queue 1 item 15 "
+            "(the other backbones)"
+        )
+    bn = (resnet.BNSpec(*cfg.batch_norm_params)
+          if cfg.batch_norm_params is not None else resnet.BNSpec())
+    depth = cfg.resnet_depth
+    return (resnet.ResNetProposalFeatures(depth, cfg.dtype, cfg.batch_norm_trainable,
+                                          cfg.slim_stride_order, cfg.conv0_space_to_depth, bn),
+            resnet.ResNetBoxClassifierFeatures(depth, cfg.dtype, cfg.batch_norm_trainable,
+                                               cfg.slim_stride_order, bn))
+
+
 class FasterRCNNModules(nn.Module):
     """All parameters of the detector, named as mtlx's flax modules:
     backbone, classifier_backbone, rpn, box_predictor, and the MTL heads
-    fg_head, mo_head, cl_head when their tasks are on."""
+    fg_head, mo_head, cl_head when their tasks are on. The RPN and the
+    aux heads read the backbone's stride-16 map, the box predictor the
+    pooled box classifier features: their widths are the trunk's."""
 
     def __init__(self, cfg: FasterRCNNConfig):
         super().__init__()
-        if cfg.backbone not in ("resnet10", "resnet50", "resnet101", "resnet152"):
-            raise NotImplementedError(
-                f"backbone {cfg.backbone!r} is not ported: ROADMAP.md queue 1, "
-                "the other backbones"
-            )
         if cfg.predict_instance_masks:
             raise NotImplementedError(
-                "the mask head is not ported: ROADMAP.md queue 1, masks and keypoints"
+                "the mask head is not ported: ROADMAP.md queue 1 item 16 (masks and keypoints)"
             )
         if cfg.mtl.refine and (cfg.mtl.multiobject or cfg.mtl.closeness):
             raise NotImplementedError(
                 "the MTL refine path (aux hidden features fused into the box "
-                "predictor) is not ported: ROADMAP.md queue 1, the MTL refine path"
+                "predictor) is not ported: ROADMAP.md queue 1 item 12 (the MTL refine path)"
             )
-        bn = (resnet.BNSpec(*cfg.batch_norm_params)
-              if cfg.batch_norm_params is not None else resnet.BNSpec())
-        depth = cfg.resnet_depth
-        self.backbone = resnet.ResNetProposalFeatures(
-            depth, cfg.dtype, cfg.batch_norm_trainable, cfg.slim_stride_order,
-            cfg.conv0_space_to_depth, bn,
-        )
-        self.classifier_backbone = resnet.ResNetBoxClassifierFeatures(
-            depth, cfg.dtype, cfg.batch_norm_trainable, cfg.slim_stride_order, bn,
-        )
+        self.backbone, self.classifier_backbone = make_trunk(cfg)
+        width = self.backbone.out_channels
         self.rpn = box_predictors.RPNHead(
-            1024, len(cfg.anchor_scales) * len(cfg.anchor_aspect_ratios),
+            width, len(cfg.anchor_scales) * len(cfg.anchor_aspect_ratios),
             cfg.rpn_depth, cfg.rpn_kernel_size, cfg.rpn_atrous_rate, cfg.dtype,
         )
-        self.box_predictor = box_predictors.MaskRCNNBoxPredictor(
-            2048, cfg.num_classes, cfg.dtype
-        )
-        # the aux heads read the stride-16 map (1024 channels) and windows
-        # mean-pooled from it
+        self._second_stage_head(cfg, self.classifier_backbone.out_channels)
+        # the aux heads read the stride-16 map and windows mean-pooled from it
         if cfg.mtl.foreground:
-            self.fg_head = aux_heads.ForegroundHead(1024, dtype=cfg.dtype)
+            self.fg_head = aux_heads.ForegroundHead(width, dtype=cfg.dtype)
         if cfg.mtl.multiobject:
-            self.mo_head = aux_heads.MultiObjectHead(1024, cfg.num_classes, dtype=cfg.dtype)
+            self.mo_head = aux_heads.MultiObjectHead(width, cfg.num_classes, dtype=cfg.dtype)
         if cfg.mtl.closeness:
-            self.cl_head = aux_heads.ClosenessHead(1024, cfg.num_classes, dtype=cfg.dtype)
+            self.cl_head = aux_heads.ClosenessHead(width, cfg.num_classes, dtype=cfg.dtype)
+
+    def _second_stage_head(self, cfg: FasterRCNNConfig, width: int) -> None:
+        self.box_predictor = box_predictors.MaskRCNNBoxPredictor(
+            width, cfg.num_classes, cfg.dtype
+        )
 
     def classify_rois(self, roi_crops: Tensor):
-        """[N, h, w, 1024] ROI crops -> block4 -> mean pool -> (class
-        logits [N, K+1], box refinements [N, K, 4])."""
+        """[N, h, w, C] ROI crops -> box classifier features -> mean pool
+        -> (class logits [N, K+1], box refinements [N, K, 4])."""
         x = self.classifier_backbone(roi_crops)
         return self.box_predictor(x.float().mean(dim=(1, 2)))
 
@@ -297,10 +317,12 @@ class FasterRCNN:
     """Two-stage detector around FasterRCNNModules, on one device.
     `device=None` means the CUDA device (raises without one)."""
 
+    modules_class = FasterRCNNModules
+
     def __init__(self, cfg: FasterRCNNConfig, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.modules = FasterRCNNModules(cfg).to(self.device).eval()
+        self.modules = self.modules_class(cfg).to(self.device).eval()
         if self.device.type == "cuda":
             self.modules.to(memory_format=torch.channels_last)
         self._anchor_gen = GridAnchorGenerator(
@@ -422,7 +444,7 @@ class FasterRCNN:
         if c.second_stage_dropout:
             raise NotImplementedError(
                 "second-stage dropout in training is not ported: ROADMAP.md "
-                "queue 1, the box predictor's dropout"
+                "queue 1 item 12 (the box predictor's dropout)"
             )
         canvas_hw = (int(images.shape[1]), int(images.shape[2]))
         anchors = self.anchors_for(canvas_hw)
@@ -453,22 +475,29 @@ class FasterRCNN:
             self._predict_aux(pred, feats, groundtruth, canvas_hw, draws)
         return pred
 
+    def _normalized(self, proposals: Tensor, canvas_hw: Optional[Tuple[int, int]]) -> Tensor:
+        """Canvas-pixel proposals [B, P, 4] -> normalized to the canvas."""
+        ch, cw = canvas_hw if canvas_hw is not None else self.cfg.canvas_size
+        canvas = torch.tensor([ch, cw, ch, cw], dtype=torch.float32, device=proposals.device)
+        return (proposals / canvas).contiguous()
+
     def _second_stage(self, feats: Tensor, proposals: Tensor,
                       canvas_hw: Optional[Tuple[int, int]] = None):
-        """ROI crop -> maxpool -> block4 -> FC heads. Returns
-        (class_predictions [B, P, K+1], refined_box_encodings [B, P, K, 4])."""
+        """ROI crop -> maxpool -> box classifier features -> FC heads.
+        Returns (class_predictions [B, P, K+1], refined_box_encodings
+        [B, P, K, 4]). A 1x1 / stride-1 maxpool is the identity and is
+        skipped."""
         c = self.cfg
         b, p = proposals.shape[:2]
-        ch, cw = canvas_hw if canvas_hw is not None else c.canvas_size
-        canvas = torch.tensor([ch, cw, ch, cw], dtype=torch.float32, device=proposals.device)
-        norm_proposals = (proposals / canvas).contiguous()
         crops = roi_lib.batch_crop_and_resize(
-            feats.contiguous(), norm_proposals, (c.initial_crop_size, c.initial_crop_size)
+            feats.contiguous(), self._normalized(proposals, canvas_hw),
+            (c.initial_crop_size, c.initial_crop_size)
         )  # [B, P, cs, cs, C]
         crops = crops.reshape((b * p,) + crops.shape[2:])
-        crops = F.max_pool2d(
-            crops.permute(0, 3, 1, 2), c.maxpool_kernel_size, c.maxpool_stride
-        ).permute(0, 2, 3, 1)
+        if c.maxpool_kernel_size > 1 or c.maxpool_stride > 1:
+            crops = F.max_pool2d(
+                crops.permute(0, 3, 1, 2), c.maxpool_kernel_size, c.maxpool_stride
+            ).permute(0, 2, 3, 1)
         cls_logits, box_refine = self.modules.classify_rois(crops)
         return cls_logits.reshape(b, p, -1), box_refine.reshape(b, p, -1, 4)
 
@@ -578,8 +607,8 @@ class FasterRCNN:
         c = self.cfg
         if c.hard_example_miner is not None:
             raise NotImplementedError(
-                "the hard example miner is not ported: ROADMAP.md queue 1, "
-                "slice 2 (hard_example_mining_mask)"
+                "the hard example miner is not ported: ROADMAP.md queue 1 item 12 "
+                "(the hard example miner)"
             )
         out: Dict[str, Tensor] = {}
         out.update(self._first_stage_loss(pred, gt, (draws["anchor_pos"], draws["anchor_neg"])))

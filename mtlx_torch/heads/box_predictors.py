@@ -1,6 +1,7 @@
-"""Faster R-CNN box predictor heads (port of mtlx/heads/box_predictors.py).
+"""Faster R-CNN and R-FCN box predictor heads (port of
+mtlx/heads/box_predictors.py).
 
-Both heads hold float32 parameters, compute in the module dtype (bfloat16
+The heads hold float32 parameters, compute in the module dtype (bfloat16
 on the card) and emit float32 outputs, so the softmax and the decode run
 in float32.
 """
@@ -13,6 +14,7 @@ from torch import Tensor, nn
 
 from mtlx_torch.backbones.resnet import same_pad
 from mtlx_torch.layers import Conv2d, Linear
+from mtlx_torch.ops import roi as roi_ops
 
 
 class RPNHead(nn.Module):
@@ -69,3 +71,38 @@ class MaskRCNNBoxPredictor(nn.Module):
             cls.float(),
             box.float().reshape(*pooled.shape[:-1], self.num_classes, 4),
         )
+
+
+class RfcnBoxPredictor(nn.Module):
+    """R-FCN's position-sensitive score and box maps (mtlx.heads
+    .box_predictors.RfcnBoxPredictor): a 1x1 `reduce` conv + ReLU, then
+    1x1 `class_maps` (bins * (K + 1)) and `box_maps` (bins * K * 4) in
+    the compute type, cast to float32 and cropped per proposal by the
+    position-sensitive crop with the bins averaged.
+
+    (NHWC features [B, H, W, C], canvas-normalized proposals [B, N, 4])
+    -> (class logits [B, N, K + 1], box refinements [B, N, K, 4]),
+    float32."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 num_spatial_bins=(3, 3), depth: int = 1024, crop_size=(12, 12),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        bins = num_spatial_bins[0] * num_spatial_bins[1]
+        self.num_classes = num_classes
+        self.num_spatial_bins = tuple(num_spatial_bins)
+        self.crop_size = tuple(crop_size)
+        self.dtype = dtype
+        self.reduce = Conv2d(in_channels, depth, 1, compute_dtype=dtype)
+        self.class_maps = Conv2d(depth, bins * (num_classes + 1), 1, compute_dtype=dtype)
+        self.box_maps = Conv2d(depth, bins * num_classes * 4, 1, compute_dtype=dtype)
+
+    def forward(self, features: Tensor, proposal_boxes: Tensor):
+        b, n = proposal_boxes.shape[:2]
+        x = F.relu(self.reduce(features.to(self.dtype).permute(0, 3, 1, 2)))
+        crop = lambda maps: roi_ops.position_sensitive_crop_regions(
+            maps.permute(0, 2, 3, 1).float(), proposal_boxes, self.crop_size,
+            self.num_spatial_bins, global_pool=True)
+        cls = crop(self.class_maps(x))
+        box = crop(self.box_maps(x))
+        return cls, box.reshape(b, n, self.num_classes, 4)

@@ -3,7 +3,7 @@ each takes predictions, targets and per-anchor weights and returns the
 per-anchor loss; callers normalize.
 
 `hard_example_mining_mask` is not ported yet (the flagship has no
-miner): ROADMAP.md queue 1, slice 2 (the hard example miner).
+miner): ROADMAP.md queue 1 item 12 (the hard example miner).
 """
 
 from __future__ import annotations

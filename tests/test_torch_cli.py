@@ -15,6 +15,7 @@ bit for bit, and the draws of a step depend on the seed and the step.
 import ast
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -64,7 +65,10 @@ def workdir(tmp_path_factory):
     cfg = str(tmp / "pipeline.config")
     with open(cfg, "w") as f:
         f.write(_config().format(record=record, label_map=label_map))
-    return {"tmp": tmp, "config": cfg}
+    yield {"tmp": tmp, "config": cfg}
+    # checkpoints and bundles of a full-width R50 (about a GiB): pytest
+    # keeps each run's temporary directories
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _losses(out: str):

@@ -101,7 +101,7 @@ def test_build_config_equal_for_faster_rcnn(path):
     for training in (False, True):
         try:
             want = tbuilder.build_config(theirs.model, is_training=training)
-        except NotImplementedError as e:  # R-FCN, the hard example miner
+        except NotImplementedError as e:  # the hard example miner (no Faster R-CNN config sets one)
             with pytest.raises(NotImplementedError, match=str(e)[:30]):
                 tbuilder.build_config(ours.model, is_training=training)
             continue

@@ -23,6 +23,7 @@ gloo, held to mtlx.
 
 import ast
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -301,6 +302,8 @@ def test_train_cli_two_ranks_write_on_rank_0_and_resume(tmp_path, capsys):
     assert ckpt_lib.CheckpointManager(train_dir).all_steps() == [2, 3]
     events = [f for f in os.listdir(train_dir) if f.startswith("events.out.tfevents")]
     assert len(events) == 2, events
+    # the checkpoints of a full-width R50: pytest keeps each run's tmp_path
+    shutil.rmtree(tmp_path)
 
 
 def test_per_rank_batch_raises_when_ranks_do_not_divide():

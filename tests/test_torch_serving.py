@@ -20,6 +20,7 @@ against mtlx's `InferenceModel` and `export_inference_graph` on the CPU.
 import io
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -239,3 +240,6 @@ def test_export_cli_matches_mtlx(tmp_path):
         f.write(_PIPELINE.replace("num_examples: 4", "num_examples: 4 use_moving_averages: true"))
     with pytest.raises(NotImplementedError, match="item 12"):
         texporter.export_inference_graph(ema, tdir, str(tmp_path / "ema"))
+    # two checkpoint dirs and four bundles of a full-width R50 (about a
+    # GiB): pytest keeps each run's tmp_path
+    shutil.rmtree(tmp_path)
