@@ -8,7 +8,8 @@ the 3-task MTL R50 from scratch on synthetic data until it detects, and
 train, evaluate and serve the R101 3-task MTL on COCO-sized records
 through `torch.distributed.run` with the COCO and OpenImages metrics, and
 train, evaluate, export and serve R-FCN R101 and the Inception-v2 and
-Inception-ResNet-v2 MTL Faster R-CNNs through the CLIs.
+Inception-ResNet-v2 MTL Faster R-CNNs through the CLIs, and SSD
+MobileNet-v1 and SSD Inception-v2 (300x300, VOC) through them too.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --data_parallel 4    # on a machine with 4 cards
@@ -136,13 +137,36 @@ Phases (any failure exits non-zero):
      batch of 8); every kernel call of one train step and one eval batch
      against its plain version, one more step profiled, the step's crop
      and crop backward launches timed beside their bounds, plain
-     versions and library calls (F.grid_sample and its d(input)); the
+     versions and library calls (F.grid_sample and its d(input)), its NMS
+     and IoU launches and the eval batch's NMS beside their bounds and
+     plain versions; the
      export CLI and one request through the bundle; each
      Inception trunk's proposal and box classifier features in float32
      (TF32 off) on the card against the CPU within 1e-4 of the largest
      magnitude; R-FCN's two crop launches of the request (every bin of the
      class maps, 21 channels, and of the box maps, 80) timed beside their
      plain version, F.grid_sample and bound
+ 12. the single-shot family: configs/ssd_mobilenet_v1_voc and
+     ssd_inception_v2_voc, each unchanged but for its paths, checkpoint
+     interval (2) and eval size (16), on 32 noise JPEGs at VOC's sizes:
+     the train CLI at batch 32 (live batch norm, RMSProp, the moving
+     average of the weights, the flip and ssd_random_crop) for 4 steps and
+     a restart to 6, every step launching the crop once (the window
+     resample of the batch) and the IoU once (the batch's assignment), and
+     no NMS or crop backward; the eval CLI (finite mAP; NMS once a batch of
+     8, every class of every image); every kernel call of one train step
+     and one eval batch against its plain version, those launches timed
+     beside their bounds, plain versions and (for the crop) F.grid_sample,
+     one more step profiled; the export CLI and one request through the
+     bundle (NMS once); each SSD's trunk endpoints and head outputs in
+     float32 (TF32 off, live batch norm) on the card against the CPU
+     within 1e-4 of the largest magnitude; LiveBatchNorm at MobileNet's
+     largest batch norm (32 x 64 x 150 x 150) in float32 against the CPU
+     and in bfloat16 timed beside F.batch_norm with its bound; two gloo
+     ranks on cuda:0 against one rank for one float32 SSD MobileNet step
+     on a global batch of 4 (loss and sum of |parameter| within 1e-4
+     relative). Phase 9 also runs the tool's SSD mode (MobileNet x 0.5,
+     128x128, 300 steps, mAP@0.5 >= 0.3)
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -1836,7 +1860,8 @@ def train_step_calls(pipeline: str, train_dir: str, seed: int):
     configs = config_util.get_configs_from_pipeline_file(pipeline)
     train_config = configs["train_config"]
     model = model_builder.build(configs["model"], is_training=True,
-                                max_gt_boxes=train_config.max_number_of_boxes, device="cuda")
+                                max_gt_boxes=train_config.max_number_of_boxes or 100,
+                                device="cuda")
     tx, _, _ = optimizer_builder.build(train_config.optimizer, train_config)
     state = ckpt_lib.CheckpointManager(train_dir).restore(ts.create_train_state(model, tx))
     dataset = DetectionDataset(
@@ -1856,16 +1881,26 @@ def train_step_calls(pipeline: str, train_dir: str, seed: int):
 
 
 def phase_learnability(seed: int, results):
-    """The learnability tool, fixed and keep-aspect, 300 steps each on the
-    card in this process; each mAP@0.5 must reach 0.5, and each run must
-    launch every kernel as its steps and eval batches call for."""
+    """The learnability tool, Faster R-CNN fixed and keep-aspect and SSD
+    fixed, 300 steps each on the card in this process; each mAP@0.5 must
+    reach the tool's bar (0.5 for Faster R-CNN, 0.3 for SSD, as mtlx's
+    tool), and each run must launch every kernel as its steps and eval
+    batches call for."""
     import shutil
     import tempfile
 
     from mtlx_torch.tools import synthetic_e2e_check as tool
 
     runs = {}
-    for tag, extra in (("fixed", []), ("keep_aspect", ["--keep_aspect"])):
+    # 300 steps at batch 8, and 24 eval images in 3 batches of 8: Faster
+    # R-CNN runs NMS once a step and twice an eval batch, crops once each and
+    # assigns three times a step; SSD assigns once a step and runs NMS once
+    # an eval batch
+    frcnn = {"nms": 300 + 2 * 3, "roi_crop": 300 + 3, "roi_crop_backward": 300, "iou": 3 * 300}
+    ssd = {"nms": 3, "roi_crop": 0, "roi_crop_backward": 0, "iou": 300}
+    for tag, extra, want, bar in (("fixed", [], frcnn, 0.5),
+                                  ("keep_aspect", ["--keep_aspect"], frcnn, 0.5),
+                                  ("ssd", ["--model", "ssd"], ssd, 0.3)):
         work = tempfile.mkdtemp(prefix=f"mtlx_learn_{tag}_")
         try:
             reset_kernel_counts()
@@ -1874,9 +1909,6 @@ def phase_learnability(seed: int, results):
             wall = time.perf_counter() - t0
             counts = kernel_counts()
             lines = train_log_lines(out)
-            # 300 steps at batch 8, and 24 eval images in 3 batches of 8
-            want = {"nms": 300 + 2 * 3, "roi_crop": 300 + 3, "roi_crop_backward": 300,
-                    "iou": 3 * 300}
             if counts != want:
                 raise AssertionError(f"learnability {tag}: launches {counts}, want {want}")
             lr_line = next(ln for ln in out.splitlines()
@@ -1886,7 +1918,7 @@ def phase_learnability(seed: int, results):
                                    if k.startswith("Loss/") or k == "total_loss"}
                       for ln in lines}
             mean_ap = metrics["Precision/mAP@0.5IOU"]
-            log(f"[learn] {tag}: mAP@0.5 {mean_ap:.4f} after 300 steps (bar 0.5), "
+            log(f"[learn] {tag}: mAP@0.5 {mean_ap:.4f} after 300 steps (bar {bar}), "
                 f"{lr_line.split('] ', 1)[1]}; ms a step over each 50 "
                 f"{', '.join(f'{t:.2f}' for t in ms)}; total_loss by step "
                 f"{ {s: l['total_loss'] for s, l in losses.items()} }; launches {counts}; "
@@ -2210,9 +2242,9 @@ draws = ts.rank_rows(ts.make_draws(model, ts.global_rows(image.shape[0], replica
                                    num_gt=batch["gt_boxes"].shape[1]), replicas)
 gt = {"boxes": batch["gt_boxes"], "classes": batch["gt_classes"].long(),
       "mask": batch["gt_mask"]}
-with torch.no_grad():
+with torch.no_grad():  # SSD samples no proposals
     proposals = model.predict_train(model.preprocess(image.float()), batch["true_shape"], gt,
-                                    draws)["proposal_boxes"]
+                                    draws).get("proposal_boxes", torch.zeros(0))
 state, metrics = ts.make_train_step(model, replicas=replicas)(state, batch, draws=draws)
 torch.save({"metrics": {k: v.cpu() for k, v in metrics.items()},
             "params": {k: v.detach().cpu() for k, v in model.modules.state_dict().items()},
@@ -2261,7 +2293,8 @@ def compare_steps(tag: str, got, want, tol):
     rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in (loss, checksum)]
     terms = {k: (float(got["metrics"][k]), float(v)) for k, v in want["metrics"].items()
              if k.startswith("Loss/")}
-    moved = float((got["proposals"] - want["proposals"]).abs().max())
+    diff = (got["proposals"] - want["proposals"]).abs()
+    moved = float(diff.max()) if diff.numel() else 0.0
     log(f"[ranks] {tag}: total_loss {loss[0]:.7g} vs {loss[1]:.7g} (rel {rel[0]:.3g}), sum "
         f"|param| {checksum[0]:.10g} vs {checksum[1]:.10g} (rel {rel[1]:.3g}), tolerance "
         f"{tol if tol is not None else 'none (printed only)'}; sampled proposals differ by up "
@@ -2494,7 +2527,6 @@ def phase_coco(seed: int, results):
     from mtlx_torch.eval import eval as eval_cli
     from mtlx_torch.export import exporter
     from mtlx_torch.export.exporter import InferenceModel
-    from mtlx_torch.kernels import nms_cuda
     from mtlx_torch.train import checkpoints as ckpt_lib
 
     work = tempfile.mkdtemp(prefix="mtlx_coco_")
@@ -2531,18 +2563,9 @@ def phase_coco(seed: int, results):
         calls = eval_batch_calls(pipeline, train_dir)
         shapes = check_kernels_on(calls, "R101 COCO eval batch")
         # the postprocess passes all six arguments by position
-        boxes, scores, valid, k, thr, thr_s = next(
-            args for args, _ in calls["nms"] if args[1].shape[0] == 8 * 90)
-        run_k = lambda: nms_cuda.non_max_suppression(boxes, scores, valid, k, thr, thr_s)
-        run_p = lambda: nms_cuda.non_max_suppression_plain(boxes, scores, valid, k, thr, thr_s)
-        got, ref = run_k(), run_p()
-        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-            raise AssertionError("NMS at 720 x 300 -> 100 differs from its plain version")
-        nms_ms, nms_plain_ms = cuda_ms(run_k, 100), cuda_ms(run_p, 3)
-        live = int(valid.sum())
-        log(f"[coco] postprocess NMS {tuple(scores.shape)} -> {k} (IoU {thr}): equal to its plain "
-            f"version; {int(got[1].sum())} picks from {live} live rows; {nms_ms:.4f} ms a call, "
-            f"plain {nms_plain_ms:.3f} ms")
+        postprocess_nms = time_recorded_nms(
+            next(args for args, _ in calls["nms"] if args[1].shape[0] == 8 * 90),
+            "R101 COCO postprocess")
 
         export_dir = os.path.join(work, "export")
         t0 = time.perf_counter()
@@ -2573,8 +2596,7 @@ def phase_coco(seed: int, results):
             peak_memory_gib=summary["peak_memory_gib"], train_launches_per_step=per_step,
             eval_metrics=shown, eval_img_per_s=metrics["eval/images_per_sec"],
             eval_launches_per_batch=eval_per_batch, eval_shapes=shapes,
-            postprocess_nms=dict(shape=f"{scores.shape[0]}x{scores.shape[1]}->{k}", ms=nms_ms,
-                                 plain_ms=nms_plain_ms),
+            postprocess_nms=postprocess_nms,
             export_s=export_s, request_ms=request_ms, two_ranks=two_ranks,
             library=time_library_calls(results))
     finally:
@@ -2853,7 +2875,13 @@ def run_two_stage(name: str, data: str, train_want, eval_want, seed: int):
                   "eval": check_kernels_on(eval_batch_calls(pipeline, train_dir),
                                            f"{name} eval batch")}
         crop_times = time_train_crops(calls, name)
-        del calls
+        eval_calls = eval_batch_calls(pipeline, train_dir)
+        nms_iou_times = {
+            "nms": [time_recorded_nms(args, f"{name} {part}") for part, recorded in
+                    (("train step", calls), ("eval batch", eval_calls))
+                    for args, _ in recorded["nms"]],
+            "iou": [time_iou(b1, b2, f"{name} train step") for (b1, b2), _ in calls["iou"]]}
+        del calls, eval_calls
         torch.cuda.empty_cache()
 
         export_dir = os.path.join(work, "export")
@@ -2885,7 +2913,8 @@ def run_two_stage(name: str, data: str, train_want, eval_want, seed: int):
                       train_launches_per_step=per_step, eval_metrics=shown,
                       eval_img_per_s=metrics["eval/images_per_sec"],
                       eval_launches_per_batch=eval_per_batch, shapes=shapes,
-                      train_crop_times=crop_times, train_profile=profile, export_s=export_s,
+                      train_crop_times=crop_times, nms_iou_times=nms_iou_times,
+                      train_profile=profile, export_s=export_s,
                       request_ms=request_ms, detections=n_det)
         if name.startswith("rfcn"):
             result["ps_crop"] = time_ps_crop(crops)
@@ -2909,6 +2938,400 @@ def phase_two_stage(seed: int, results):
         log(f"[two-stage] {name}: {r['wall_s']:.1f} s")
         out[name] = r
     results["two_stage"] = out
+
+
+# ---------------------------------------------------------------- phase 12
+
+# the single-shot family: (config, the train CLI's launches a step, the eval
+# CLI's launches a batch of 8). A step crops once (ssd_random_crop's window
+# resample of the batch) and compares boxes once (the whole batch's ground
+# truth against the 1917 anchors); an eval batch runs NMS once (every class
+# of every image).
+SSD_CONFIGS = (
+    ("ssd_mobilenet_v1_voc", {"nms": 0, "roi_crop": 1, "roi_crop_backward": 0, "iou": 1},
+     {"nms": 1, "roi_crop": 0, "roi_crop_backward": 0, "iou": 0}),
+    ("ssd_inception_v2_voc", {"nms": 0, "roi_crop": 1, "roi_crop_backward": 0, "iou": 1},
+     {"nms": 1, "roi_crop": 0, "roi_crop_backward": 0, "iou": 0}),
+)
+SSD_STEPS = (4, 6)  # the first run, then the restart to step 6
+# operations an element of the live batch norm's forward and backward: the
+# paired sums (a square and two adds), the folded affine (a multiply-add),
+# the backward's paired sums (a multiply and two adds) and its affine (two
+# multiply-adds and an add)
+LIVE_BN_OPS_PER_ELEMENT = 12
+
+
+def ssd_pipeline(name: str, record: str, label_map: str) -> str:
+    """configs/<name>.config with only its paths (records, label map), its
+    checkpoint interval (2) and its eval size (16) changed."""
+    path = os.path.join(REPO, "configs", f"{name}.config")
+    with open(path) as f:
+        text = f.read()
+    for old, new in (('"/data/voc/pascal_train_voc0712.record"', json.dumps(record)),
+                     ('"/data/voc/pascal_test_voc07.record"', json.dumps(record)),
+                     ('"/data/voc/pascal_label_map.pbtxt"', json.dumps(label_map)),
+                     ("num_examples: 4952", "num_examples: 16")):
+        if old not in text:
+            raise AssertionError(f"{path} no longer holds {old}")
+        text = text.replace(old, new)
+    return text.replace("train_config: {", "train_config: {\n  save_checkpoints_steps: 2", 1)
+
+
+def time_recorded_nms(args, tag: str):
+    """A recorded NMS call: equal to its plain version, timed beside its
+    plain version and its bound (every pick made plus the empty pick that
+    ends a problem early, each a pass over the N boxes)."""
+    from mtlx_torch.kernels import nms_cuda
+
+    boxes, scores, valid, k, thr, score_thr = args[:6]
+    run_k = lambda: nms_cuda.non_max_suppression(boxes, scores, valid, k, thr, score_thr)
+    run_p = lambda: nms_cuda.non_max_suppression_plain(boxes, scores, valid, k, thr, score_thr)
+    got, ref = run_k(), run_p()
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise AssertionError(f"NMS differs from its plain version at {tag}")
+    p, n = scores.shape
+    picks = got[1].sum(1)
+    steps = int(torch.clamp(picks + 1, max=k).sum())
+    t_bound, by = bound_ms(nbytes=p * n * (16 + 4 + 1) + p * k * (4 + 1),
+                           ops=steps * n * NMS_OPS_PER_BOX_STEP)
+    ms, plain_ms = cuda_ms(run_k, 100), cuda_ms(run_p, 3)
+    shape = f"{p}x{n}->{k}"
+    log(f"[nms] {tag} {shape} (IoU {thr}): equal to its plain version; {int(picks.sum())} picks "
+        f"from {int(valid.sum())} live rows; {ms:.4f} ms a call, plain {plain_ms:.3f} ms, "
+        f"bound {t_bound:.5f} ms ({by}), library null")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                max_abs_err=0.0, picks=int(picks.sum()))
+
+
+def ssd_card_vs_cpu(name: str, seed: int):
+    """One float32 training-mode forward (TF32 off, live batch norm on the
+    batch's statistics) of the config's SSD on the card and on the CPU
+    with the same seeded weights, two 300x300 pictures: the trunk's two
+    endpoints and the heads' class and box outputs within 1e-4 of the
+    largest magnitude of each."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        configs = config_util.get_configs_from_pipeline_file(
+            os.path.join(REPO, "configs", f"{name}.config"))
+        gpu = model_builder.build(configs["model"], is_training=True, dtype=torch.float32,
+                                  device="cuda")
+        gpu.init_weights(torch.Generator().manual_seed(seed))
+        cpu = model_builder.build(configs["model"], is_training=True, dtype=torch.float32,
+                                  device="cpu")
+        cpu.modules.load_state_dict(gpu.modules.state_dict())
+        rs = np.random.RandomState(seed + 19)
+        images = np.stack([request_picture(rs, 300, 300) for _ in range(2)]).astype(np.float32)
+        x = cpu.preprocess(torch.from_numpy(images))
+        out = {}
+        with torch.no_grad():
+            for model in (gpu, cpu):
+                model.modules.train()
+            want_ends = cpu.modules.backbone(x)
+            got_ends = gpu.modules.backbone(x.cuda())
+            want = cpu.modules(x)[:2]
+            got = gpu.modules(x.cuda())[:2]
+        for part, g, w in (("endpoint_16", got_ends[0], want_ends[0]),
+                           ("endpoint_32", got_ends[1], want_ends[1]),
+                           ("class_predictions", got[0], want[0]),
+                           ("box_encodings", got[1], want[1])):
+            rel = float((g.cpu() - w).abs().max() / w.abs().max())
+            out[part] = dict(shape=list(w.shape), rel=rel)
+            if not rel <= 1e-4:
+                raise AssertionError(f"{name} {part}: card and CPU differ by {rel} of the "
+                                     "largest magnitude (tolerance 1e-4)")
+        log(f"[ssd] {name}: float32 card vs CPU, TF32 off, live batch norm: " + ", ".join(
+            f"{k} {v['shape']} within {v['rel']:.3g} of the largest magnitude"
+            for k, v in out.items()))
+        del gpu, cpu
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def live_batch_norm_on_card(seed: int):
+    """LiveBatchNorm at SSD MobileNet's largest batch norm (conv1_pw_bn:
+    32 x 64 x 150 x 150, channels-last as the model lays it out): in
+    float32 its output, input and parameter gradients and moving
+    statistics on the card within 1e-4 of the largest magnitude of the
+    same function on the CPU; in bfloat16 its forward and backward timed
+    beside F.batch_norm's (cuDNN) on the same tensors, with their bound."""
+    from mtlx_torch.backbones.resnet import LiveBatchNorm
+
+    gen = torch.Generator().manual_seed(seed + 20)
+    shape = (32, 64, 150, 150)
+    x = (torch.randn(shape, generator=gen) * 2 + 0.5)
+    dy = torch.randn(shape, generator=gen)
+    ws = dict(scale=torch.rand(64, generator=gen) + 0.5, bias=torch.randn(64, generator=gen),
+              mean=torch.randn(64, generator=gen) * 0.1, var=torch.rand(64, generator=gen) + 0.5)
+
+    def run(device, dtype):
+        bn = LiveBatchNorm(64, momentum=0.9997, epsilon=1e-3).to(device)
+        bn.load_state_dict(ws)
+        xx = x.to(device, dtype).contiguous(memory_format=torch.channels_last).requires_grad_()
+        y = bn(xx)
+        y.backward(dy.to(device, dtype).contiguous(memory_format=torch.channels_last))
+        bn.commit()
+        return bn, xx, y
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got, want = run("cuda", torch.float32), run("cpu", torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs = {}
+    for tag, g, w in (("y", got[2], want[2]), ("dx", got[1].grad, want[1].grad),
+                      ("dscale", got[0].scale.grad, want[0].scale.grad),
+                      ("dbias", got[0].bias.grad, want[0].bias.grad),
+                      ("mean", got[0].mean, want[0].mean), ("var", got[0].var, want[0].var)):
+        errs[tag] = float((g.detach().cpu() - w.detach()).abs().max() / w.abs().max())
+        if not errs[tag] <= 1e-4:
+            raise AssertionError(f"LiveBatchNorm {tag}: card and CPU differ by {errs[tag]} of "
+                                 "the largest magnitude (tolerance 1e-4)")
+    del got, want
+
+    xb = x.cuda().to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dyb = dy.cuda().to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bn = LiveBatchNorm(64, momentum=0.9997, epsilon=1e-3).cuda().train()
+    xr = xb.detach().requires_grad_()
+
+    def live():
+        bn(xr).backward(dyb)
+
+    weight = torch.ones(64, device="cuda", requires_grad=True)
+    bias = torch.zeros(64, device="cuda", requires_grad=True)
+    running = torch.zeros(64, device="cuda"), torch.ones(64, device="cuda")
+
+    def library():
+        F.batch_norm(xr, *running, weight, bias, training=True, momentum=0.0003,
+                     eps=1e-3).backward(dyb)
+
+    # in turns: library, live, live, library
+    lib = [cuda_ms(library, 20)]
+    ms = [cuda_ms(live, 20), cuda_ms(live, 20)]
+    lib.append(cuda_ms(library, 20))
+    n = xb.numel()
+    t_bound, by = bound_ms(nbytes=5 * n * 2, ops=n * LIVE_BN_OPS_PER_ELEMENT)
+    row = dict(name="live_batch_norm", shape="x".join(map(str, shape)) + " bfloat16 channels-last",
+               ms=min(ms), ms_runs=ms, library_ms=min(lib), library_runs=lib, bound_ms=t_bound,
+               bound_by=by, card_vs_cpu_f32=errs)
+    log(f"[live-bn] {row['shape']}: float32 card vs CPU within {max(errs.values()):.3g} of the "
+        f"largest magnitude ({errs}); forward + backward {ms[0]:.4f} / {ms[1]:.4f} ms, "
+        f"F.batch_norm {lib[0]:.4f} / {lib[1]:.4f} ms, bound {t_bound:.4f} ms ({by})")
+    return row
+
+
+def check_ssd_ranks(work: str, seed: int):
+    """Two ranks over gloo, both on cuda:0, each take one float32 step
+    (TF32 off) of SSD MobileNet on its 2 rows of a global batch of 4
+    (300x300, ssd_random_crop off), with live batch norm summing its
+    statistics over the ranks: their parameters bitwise equal, the loss and
+    the sum of |parameter| (moving statistics included) within 1e-4
+    relative of one rank's step on the whole batch."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.train import train_step as ts
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        config = os.path.join(REPO, "configs", "ssd_mobilenet_v1_voc.config")
+        configs = config_util.get_configs_from_pipeline_file(config)
+        model = model_builder.build(configs["model"], is_training=True, dtype=torch.float32,
+                                    device="cuda")
+        model.init_weights(torch.Generator().manual_seed(seed))
+        batch = train_batch(np.random.RandomState(seed + 21), 4, canvas=(300, 300),
+                            sizes=((300, 300), (300, 300)))
+        for i, k in enumerate((12, 9, 2, 1)):  # the ranks' rows hold 21 and 3 boxes
+            batch["gt_mask"][i, k:] = False
+        weights = {k: v.detach().cpu() for k, v in model.modules.state_dict().items()}
+        lr = 0.003
+        data = os.path.join(work, "ssd_ranks.pt")
+        torch.save({"config": config, "weights": weights, "lr": lr, "seed": seed,
+                    "batch": {k: v.cpu() for k, v in batch.items()}}, data)
+        state = ts.create_train_state(model, ts.make_optimizer(learning_rate=lr))
+        state, metrics = ts.make_train_step(model)(state, batch)
+        one = {"metrics": metrics, "proposals": torch.zeros(0),
+               "params": {k: v.detach().cpu() for k, v in model.modules.state_dict().items()}}
+        del model, state
+        torch.cuda.empty_cache()
+        gloo, wall = spawn_ranks(work, data, 2, "gloo")
+        log(f"[ssd-ranks] 2 ranks over gloo on cuda:0 ({wall:.1f} s): parameters and moving "
+            "statistics bitwise equal across ranks")
+        return dict(compare_steps("SSD MobileNet: 2 gloo ranks vs one rank", gloo[0], one, 1e-4),
+                    wall_s=wall)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def run_ssd(name: str, train_want, eval_want, seed: int):
+    """One SSD config through the CLIs on the card: 32 noise JPEGs at VOC's
+    sizes, train (first run and a restart) at the config's batch of 32
+    with ssd_random_crop, eval on 16 records, export and a request through
+    the bundle; one train step and one eval batch recorded, held to the
+    plain versions and their launches timed."""
+    import shutil
+    import tempfile
+
+    from mtlx_torch.builders import preprocessor_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.eval import eval as eval_cli
+    from mtlx_torch.export import exporter
+    from mtlx_torch.export.exporter import InferenceModel
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train as train_cli
+
+    work = tempfile.mkdtemp(prefix="mtlx_ssd_")
+    try:
+        rs = np.random.RandomState(seed + 22)
+        record = write_records(os.path.join(work, "voc_noise.record"), rs, 32, "jpeg", VOC_SIZES)
+        label_map = os.path.join(work, "voc_label_map.pbtxt")
+        with open(label_map, "w") as f:
+            f.writelines(f"item {{ id: {i + 1} name: '{v}' }}\n" for i, v in enumerate(VOC_NAMES))
+        pipeline = os.path.join(work, "pipeline.config")
+        with open(pipeline, "w") as f:
+            f.write(ssd_pipeline(name, record, label_map))
+        train_config = config_util.get_configs_from_pipeline_file(pipeline)["train_config"]
+        bs = train_config.batch_size
+        options = [n for n, _ in preprocessor_builder.build(
+            train_config.data_augmentation_options)]
+        if bs != 32 or options != ["random_horizontal_flip", "ssd_random_crop"]:
+            raise AssertionError(f"{name}: batch {bs}, options {options}")
+        train_dir = os.path.join(work, "train")
+        runs = []
+        for steps in SSD_STEPS:
+            reset_kernel_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out, _ = run_cli(train_cli.main, ["--pipeline_config_path", pipeline, "--train_dir",
+                                              train_dir, "--num_steps", str(steps),
+                                              "--log_every", "1", "--seed", str(seed)])
+            runs.append(dict(out=out, wall=time.perf_counter() - t0, counts=kernel_counts(),
+                             peak=torch.cuda.max_memory_allocated(), lines=train_log_lines(out)))
+        first, again = runs
+        if f"resumed from step {SSD_STEPS[0]}" not in again["out"] or \
+                f"[train] done at step {SSD_STEPS[1]}" not in again["out"]:
+            raise AssertionError(f"{name}: the restart did not resume and finish")
+        if ckpt_lib.CheckpointManager(train_dir).all_steps() != [2, 4, 6]:
+            raise AssertionError(f"{name}: checkpoints {ckpt_lib.CheckpointManager(train_dir).all_steps()}")
+        per_step = {}
+        for run, n in zip(runs, (SSD_STEPS[0], SSD_STEPS[1] - SSD_STEPS[0])):
+            per_step = {k: v / n for k, v in run["counts"].items()}
+            if per_step != train_want:
+                raise AssertionError(f"{name}: train launches a step {per_step}, want {train_want}")
+            for line in run["lines"]:
+                bad = [k for k, v in line.items() if not np.isfinite(v)]
+                if bad:
+                    raise AssertionError(f"{name}: non-finite train metrics at step "
+                                         f"{line['step']}: {bad}")
+        ckpt = ckpt_lib.load_checkpoint(ckpt_lib.checkpoint_path(train_dir, SSD_STEPS[1]))
+        if "ema" not in ckpt or "opt_nu" not in ckpt:
+            raise AssertionError(f"{name}: the checkpoint lacks the moving average or RMSProp's "
+                                 "second moment")
+        lines = first["lines"] + again["lines"]
+        step_ms = [bs / ln["images_per_sec"] * 1e3 for ln in lines]
+        peak_gib = max(r["peak"] for r in runs) / 2**30
+        log(f"[ssd] {name}: train {SSD_STEPS[0]} steps + restart to {SSD_STEPS[1]} at batch "
+            f"{bs} ({first['wall']:.2f} + {again['wall']:.2f} s CLI wall); step ms "
+            f"{[round(t, 2) for t in step_ms]}; img/s "
+            f"{[round(ln['images_per_sec'], 2) for ln in lines]}; loader wait share "
+            f"{[round(ln['loader_wait_share'], 4) for ln in lines]}; peak {peak_gib:.2f} GiB; "
+            f"launches a step {per_step}; total_loss "
+            f"{[round(ln['total_loss'], 5) for ln in lines]}")
+
+        reset_kernel_counts()
+        out, metrics = run_cli(eval_cli.main, ["--pipeline_config_path", pipeline,
+                                               "--checkpoint_dir", train_dir, "--eval_dir",
+                                               os.path.join(work, "eval"), "--run_once"])
+        eval_per_batch = {k: v / 2 for k, v in kernel_counts().items()}
+        shown = {"Precision/mAP@0.5IOU": metrics["Precision/mAP@0.5IOU"]}
+        log(f"[ssd] {name}: eval at step {SSD_STEPS[1]} on 16 records: {shown}; "
+            f"{metrics['eval/images_per_sec']:.2f} img/s; launches a batch of 8 {eval_per_batch}")
+        if not np.isfinite(shown["Precision/mAP@0.5IOU"]):
+            raise AssertionError(f"{name}: the eval CLI gave no finite mAP: {shown}")
+        if eval_per_batch != eval_want:
+            raise AssertionError(f"{name}: eval launches a batch {eval_per_batch}, want {eval_want}")
+
+        calls, step_fn, state, batch, gen = train_step_calls(pipeline, train_dir, seed)
+        _, profile = profile_train_step(step_fn, state, batch, gen)
+        del step_fn, state, batch
+        torch.cuda.empty_cache()
+        eval_calls = eval_batch_calls(pipeline, train_dir)
+        shapes = {"train": check_kernels_on(calls, f"{name} train step"),
+                  "eval": check_kernels_on(eval_calls, f"{name} eval batch")}
+        timed = {
+            "roi_crop": [time_crop(f, b, int(cs[0]), f"{name} ssd_random_crop", plain_reps=3)
+                         for (f, b, cs), _ in calls["roi_crop"]],
+            "iou": [time_iou(b1, b2, f"{name} assignment") for (b1, b2), _ in calls["iou"]],
+            "nms": [time_recorded_nms(args, f"{name} postprocess") for args, _ in eval_calls["nms"]],
+        }
+        del calls, eval_calls
+        torch.cuda.empty_cache()
+
+        export_dir = os.path.join(work, "export")
+        t0 = time.perf_counter()
+        run_cli(exporter.main, ["--pipeline_config_path", pipeline, "--trained_checkpoint_dir",
+                                train_dir, "--output_directory", export_dir])
+        export_s = time.perf_counter() - t0
+        served = InferenceModel.load(export_dir)
+        image = request_picture(np.random.RandomState(seed + 23), 375, 500)
+        served.predict_images([image])  # warm-up
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        det = served.predict_images([image])
+        request_ms = (time.perf_counter() - t0) * 1e3
+        if kernel_counts()["nms"] != 1:
+            raise AssertionError(f"{name}: a request launched NMS {kernel_counts()['nms']} times")
+        check_outputs(det, 1, 100)
+        n_det = int(det["num_detections"][0])
+        classes = det["detection_classes"][0][:n_det]
+        log(f"[ssd] {name}: export CLI {export_s:.2f} s; one 500x375 request through the bundle "
+            f"in {request_ms:.2f} ms: {n_det} detections over classes "
+            f"{int(classes.min()) if n_det else '-'}..{int(classes.max()) if n_det else '-'}")
+        if n_det and (classes.min() < 1 or classes.max() > 20):
+            raise AssertionError(f"{name}: served classes outside 1..20: {classes}")
+        return dict(step_ms=step_ms, img_per_s=[ln["images_per_sec"] for ln in lines],
+                    loader_wait_share=[ln["loader_wait_share"] for ln in lines],
+                    peak_memory_gib=peak_gib, batch_size=bs,
+                    train_launches_per_step=per_step, eval_metrics=shown,
+                    eval_img_per_s=metrics["eval/images_per_sec"],
+                    eval_launches_per_batch=eval_per_batch, shapes=shapes, timed=timed,
+                    train_profile=profile, export_s=export_s, request_ms=request_ms,
+                    detections=n_det)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_ssd(seed: int, results):
+    """SSD MobileNet-v1 and SSD Inception-v2 (300x300, VOC) through the
+    train, eval and export CLIs and a request; each trunk and head in
+    float32 on the card against the CPU; LiveBatchNorm on the card against
+    the CPU and timed beside F.batch_norm; two gloo ranks against one."""
+    import shutil
+    import tempfile
+
+    out = {}
+    for name, train_want, eval_want in SSD_CONFIGS:
+        t0 = time.perf_counter()
+        r = run_ssd(name, train_want, eval_want, seed)
+        r["card_vs_cpu"] = ssd_card_vs_cpu(name, seed)
+        r["wall_s"] = time.perf_counter() - t0
+        log(f"[ssd] {name}: {r['wall_s']:.1f} s")
+        out[name] = r
+    out["live_batch_norm"] = live_batch_norm_on_card(seed)
+    work = tempfile.mkdtemp(prefix="mtlx_ssd_ranks_")
+    try:
+        out["two_ranks"] = check_ssd_ranks(work, seed)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    results["ssd"] = out
 
 
 # ---------------------------------------------------------------- main
@@ -2958,6 +3381,7 @@ def main(argv=None) -> int:
     phase_learnability(args.seed, results)
     phase_coco(args.seed, results)
     phase_two_stage(args.seed, results)
+    phase_ssd(args.seed, results)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -3020,11 +3444,25 @@ def main(argv=None) -> int:
             k.setdefault("two_stage_shapes", {})[name] = {
                 part: r["shapes"][part].get(k["name"], []) for part in ("train", "eval")}
     kernels[1]["rfcn_ps_crop"] = results["two_stage"]["rfcn_resnet101_voc07"]["ps_crop"]
+    for k in (kernels[0], kernels[2]):
+        k["two_stage_timed"] = {name: r["nms_iou_times"][k["name"]]
+                                for name, r in results["two_stage"].items()}
     for k in (kernels[1], kernels[3]):
         k["two_stage_train_ms"] = {
             name: [row for row in r["train_crop_times"]
                    if row.get("backward", False) == (k["name"] == "roi_crop_backward")]
             for name, r in results["two_stage"].items()}
+    ssd = results["ssd"]
+    for k in kernels:
+        for name, _, _ in SSD_CONFIGS:
+            r = ssd[name]
+            k.setdefault("ssd_train_launches_per_step", {})[name] = \
+                r["train_launches_per_step"][k["name"]]
+            k.setdefault("ssd_eval_launches_per_batch", {})[name] = \
+                r["eval_launches_per_batch"][k["name"]]
+            k.setdefault("ssd_shapes", {})[name] = {
+                part: r["shapes"][part].get(k["name"], []) for part in ("train", "eval")}
+            k.setdefault("ssd_timed", {})[name] = r["timed"].get(k["name"], [])
     kernels[0]["coco_postprocess"] = coco["postprocess_nms"]
     library = coco["library"]
     if library is not None:

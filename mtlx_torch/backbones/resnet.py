@@ -93,13 +93,131 @@ class FrozenBatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def _paired_sums(a: Tensor, b: Tensor):
+    """sum(a) and sum(a * b) per channel of NCHW tensors, accumulated in
+    float32 (mtlx's `_paired_sums`; float64 tensors in float64)."""
+    dt = torch.promote_types(a.dtype, torch.float32)
+    af = a.to(dt)
+    return af.sum((0, 2, 3)), (af * b.to(dt)).sum((0, 2, 3))
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode batch norm as one folded affine with mtlx's hand-written
+    backward (`_bn_train`, `_bn_train_fwd`, `_bn_train_bwd`).
+
+    Forward: the statistics E[x] and E[x^2] - E[x]^2 (clamped at 0) in
+    float32, inv = gamma * rsqrt(var + eps), y = x * inv + (beta - mean *
+    inv) in the compute type. Backward: dx = dy * a_c + x * b_c + c_c with
+    per-channel constants from the paired sums of dy and dy * x.
+
+    With `replicas` the paired sums are summed over the ranks, in the
+    forward and in the backward, so every rank normalizes by the
+    statistics of the global batch, as mtlx's step on the global batch
+    does. The gradients of gamma and beta come from this rank's sums: the
+    train step averages them over the ranks with every other gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, epsilon, replicas):
+        n = x.numel() // x.shape[1]
+        s1, s2 = _paired_sums(x, x)
+        if replicas is not None:
+            s1, s2 = replicas.sums([s1, s2])
+            n *= replicas.world_size
+        mean = s1 / n
+        var = torch.clamp_min(s2 / n - mean * mean, 0.0)
+        inv = gamma * torch.rsqrt(var + epsilon)
+        dt = x.dtype
+        y = x * inv.to(dt)[:, None, None] + (beta - mean * inv).to(dt)[:, None, None]
+        ctx.save_for_backward(x, gamma, mean, var, inv)
+        ctx.epsilon, ctx.n, ctx.replicas = epsilon, n, replicas
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        x, gamma, mean, var, inv = ctx.saved_tensors
+        gmean = torch.zeros_like(mean) if gmean is None else gmean
+        gvar = torch.zeros_like(var) if gvar is None else gvar
+        s1, sx = _paired_sums(gy, x)
+        rsig = torch.rsqrt(var + ctx.epsilon)  # inv / gamma, but gamma may be 0
+        dgamma = rsig * (sx - mean * s1)
+        dbeta = s1
+        if ctx.replicas is not None:
+            s1, sx = ctx.replicas.sums([s1, sx])
+        stot = sx - mean * s1
+        gv = gvar - 0.5 * rsig * rsig * rsig * gamma * stot
+        gmu = gmean - inv * s1 - 2.0 * mean * gv
+        dt, n = x.dtype, ctx.n
+        a_c = inv.to(dt)[:, None, None]
+        b_c = (2.0 * gv / n).to(dt)[:, None, None]
+        c_c = (gmu / n).to(dt)[:, None, None]
+        dx = gy.to(dt) * a_c + x * b_c + c_c
+        return dx, dgamma, dbeta, None, None
+
+
+class LiveBatchNorm(nn.Module):
+    """Trainable batch norm (port of mtlx's LiveBatchNorm): the folded
+    affine in the compute type, with batch statistics in training and the
+    moving statistics in eval.
+
+    In training (`self.training`) the forward normalizes by the batch's
+    statistics through `_BatchNormTrain` and keeps them in `batch_stats`;
+    the train step folds them into the moving statistics after the update
+    (`commit_batch_stats`: ra = momentum * ra + (1 - momentum) * stat,
+    with the biased variance), as mtlx's step writes its
+    `updated_batch_stats`. An eval forward reads the moving statistics and
+    changes nothing. The names `scale`, `bias`, `mean` and `var` are
+    FrozenBatchNorm's, so a checkpoint moves between the two modes.
+    `replicas` (set by the data-parallel train step) makes the statistics
+    those of the global batch."""
+
+    def __init__(self, features: int, momentum: float = 0.99, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        if scale:
+            self.scale = nn.Parameter(torch.ones(features))
+        if center:
+            self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.batch_stats = None
+        self.replicas = None
+
+    def forward(self, x: Tensor) -> Tensor:  # NCHW
+        gamma = self.scale if hasattr(self, "scale") else torch.ones_like(self.mean)
+        beta = self.bias if hasattr(self, "bias") else torch.zeros_like(self.mean)
+        if not self.training:
+            inv = gamma * torch.rsqrt(self.var + self.epsilon)
+            shift = beta - self.mean * inv
+            dt = x.dtype
+            return x * inv.to(dt)[:, None, None] + shift.to(dt)[:, None, None]
+        y, mean, var = _BatchNormTrain.apply(x, gamma, beta, self.epsilon, self.replicas)
+        self.batch_stats = (mean.detach(), var.detach())
+        return y
+
+    @torch.no_grad()
+    def commit(self) -> None:
+        """Fold the last training forward's statistics into the moving ones."""
+        if self.batch_stats is None:
+            return
+        mean, var = self.batch_stats
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+        self.var.copy_(m * self.var + (1.0 - m) * var)
+        self.batch_stats = None
+
+
+def live_batch_norms(module: nn.Module):
+    """Every LiveBatchNorm under `module`."""
+    return [m for m in module.modules() if isinstance(m, LiveBatchNorm)]
+
+
 def make_norm(features: int, trainable: bool, bn: BNSpec = BNSpec()) -> nn.Module:
+    """Frozen batch norm, or with `trainable` (batch_norm_trainable) the
+    live one, which trains on batch statistics."""
     if trainable:
-        raise NotImplementedError(
-            "LiveBatchNorm (feature_extractor.batch_norm_trainable) is not "
-            "ported yet: ROADMAP.md queue 2, LiveBatchNorm as a "
-            "torch.autograd.Function"
-        )
+        return LiveBatchNorm(features, bn.momentum, bn.epsilon, bn.center, bn.scale)
     return FrozenBatchNorm(features, bn.epsilon, bn.center, bn.scale)
 
 

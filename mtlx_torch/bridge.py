@@ -3,15 +3,17 @@
 Takes `{"params": ..., "batch_stats": ...}` as nested dicts of numpy
 arrays (what `mtlx.detector.faster_rcnn.FasterRCNN.init_variables`
 returns, or a restored checkpoint) and returns a `state_dict` for
-`FasterRCNNModules` (or `RFCNModules`). The module paths are the same on
-both sides, for the ResNet and both Inception trunks alike (mtlx names
-every module), so the map is path to path:
+`FasterRCNNModules` (or `RFCNModules`, or `SSDModules`). The module paths
+are the same on both sides, for the ResNet, both Inception trunks and
+MobileNet alike (mtlx names every module), so the map is path to path:
 
-  * conv `kernel` HWIO -> `weight` OIHW
+  * conv `kernel` HWIO -> `weight` OIHW (a depthwise [3, 3, 1, C] kernel
+    becomes the grouped conv's [C, 1, 3, 3])
   * dense `kernel` [in, out] -> `weight` [out, in]
   * `bias` -> `bias`
-  * batch-norm `scale`/`bias` (params) -> the FrozenBatchNorm parameters
-    of the same names, and `mean`/`var` (batch_stats) -> its buffers
+  * batch-norm `scale`/`bias` (params) -> the FrozenBatchNorm (or
+    LiveBatchNorm) parameters of the same names, and `mean`/`var`
+    (batch_stats) -> its buffers
   * LayerNorm `scale`/`bias` (the aux heads) -> the same names
 
 The MTL auxiliary heads (`fg_head`, `mo_head`, `cl_head`) exist only in
@@ -23,15 +25,23 @@ half-mapped.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 
 # top-level flax modules of every model (serving and training); an R-FCN
-# has rfcn_predictor where a Faster R-CNN has box_predictor
+# has rfcn_predictor where a Faster R-CNN has box_predictor, and an SSD
+# has extra and one box_predictor_{i} a feature map
 INFERENCE_MODULES = ("backbone", "classifier_backbone", "rpn", "box_predictor",
-                     "rfcn_predictor")
+                     "rfcn_predictor", "extra")
+_SSD_PREDICTOR = re.compile(r"^box_predictor_\d+$")
+
+
+def is_inference_module(top: str) -> bool:
+    """Whether `top` is a top-level flax module of a serving model."""
+    return top in INFERENCE_MODULES or bool(_SSD_PREDICTOR.match(top))
 # top-level flax modules of a training model only (the MTL auxiliary heads)
 TRAINING_ONLY_MODULES = ("fg_head", "mo_head", "cl_head")
 
@@ -57,7 +67,7 @@ def flax_to_state_dict(variables: Mapping, training_heads: bool = False
             where = "/".join((collection,) + path)
             if top in TRAINING_ONLY_MODULES and not training_heads:
                 continue
-            if top not in INFERENCE_MODULES + TRAINING_ONLY_MODULES:
+            if not is_inference_module(top) and top not in TRAINING_ONLY_MODULES:
                 raise ValueError(f"no counterpart in the port for {where}")
             arr = np.asarray(leaf, dtype=np.float32)
             module = ".".join(path[:-1])

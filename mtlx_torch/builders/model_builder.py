@@ -1,8 +1,8 @@
 """model_builder — pipeline proto -> detector (port of
 mtlx/builders/model_builder.py): Faster R-CNN with the
-mask_rcnn_box_predictor, or R-FCN with the rfcn_box_predictor. At
-is_training=True the MTL heads are on as the proto asks; the hard
-example miner and SSD raise."""
+mask_rcnn_box_predictor, R-FCN with the rfcn_box_predictor, or SSD
+(builders/ssd_builder.py). At is_training=True the MTL heads are on as
+the proto asks; Faster R-CNN's hard example miner raises."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import torch
 
 from mtlx_torch.detector.faster_rcnn import FasterRCNN, FasterRCNNConfig, MTLConfig
 from mtlx_torch.detector.rfcn import RFCN, RFCNConfig
+from mtlx_torch.detector.ssd import SSD, SSDConfig
 from mtlx_torch.device import DeviceLike
 
 FEATURE_EXTRACTORS = {
@@ -25,14 +26,19 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def canvas_from_resizer(image_resizer, stride: int = 16):
+def canvas_from_resizer(image_resizer, stride: int = 16, exact_fixed_shape: bool = False):
     """Static canvas from the image_resizer proto:
     keep_aspect_ratio_resizer(min, max) -> (max, max); fixed_shape_resizer
-    -> (h, w); rounded up to a multiple of 2 * stride."""
+    -> (h, w); rounded up to a multiple of 2 * stride, except a fixed
+    shape with `exact_fixed_shape` (SSD): its SAME-padded extractors
+    ceil-divide any size, and SSD300 (conv11 at 19x19, 1917 anchors)
+    computes at exactly 300x300, not at 320."""
     mult = 2 * stride
     kind = image_resizer.WhichOneof("image_resizer_oneof")
     if kind == "fixed_shape_resizer":
         r = image_resizer.fixed_shape_resizer
+        if exact_fixed_shape:
+            return (r.height, r.width)
         return (_round_up(r.height, mult), _round_up(r.width, mult))
     r = image_resizer.keep_aspect_ratio_resizer
     side = _round_up(r.max_dimension, mult)
@@ -67,12 +73,14 @@ def _initializer_spec(hyperparams):
 
 
 def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
-                 dtype: torch.dtype = torch.bfloat16) -> FasterRCNNConfig:
-    """The FasterRCNNConfig (RFCNConfig for an rfcn_box_predictor) of a
-    DetectionModel proto."""
+                 dtype: torch.dtype = torch.bfloat16):
+    """The FasterRCNNConfig (RFCNConfig for an rfcn_box_predictor, SSDConfig
+    for an ssd model) of a DetectionModel proto."""
     which = model_proto.WhichOneof("model")
     if which == "ssd":
-        raise NotImplementedError("SSD is not ported: ROADMAP.md queue 1 item 14 (SSD)")
+        from mtlx_torch.builders import ssd_builder
+
+        return ssd_builder.build_config(model_proto.ssd, is_training, max_gt_boxes, dtype)
     if which != "faster_rcnn":
         raise ValueError(f"unknown model type {which!r}")
     fr = model_proto.faster_rcnn
@@ -199,11 +207,13 @@ def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
 
 
 def build(model_proto, is_training: bool, max_gt_boxes: int = 100,
-          dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None) -> FasterRCNN:
+          dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
     """Dispatch on the model oneof and the box predictor, mirroring the
-    reference's build(): an RFCN for an rfcn_box_predictor, else a
-    FasterRCNN."""
+    reference's build(): an SSD for an ssd model, an RFCN for an
+    rfcn_box_predictor, else a FasterRCNN."""
     cfg = build_config(model_proto, is_training, max_gt_boxes, dtype)
+    if isinstance(cfg, SSDConfig):
+        return SSD(cfg, device)
     return (RFCN if isinstance(cfg, RFCNConfig) else FasterRCNN)(cfg, device)
 
 
@@ -219,11 +229,24 @@ def _regularizer(hyperparams):
 
 
 def regularization_scopes(model_proto):
-    """Weight regularization of a Faster R-CNN proto's Hyperparams:
-    [(top-level module prefix, kind, weight)], what
-    train_step.make_regularization_fn takes (mtlx's
-    regularization_scopes)."""
+    """Weight regularization of a model proto's Hyperparams: [(top-level
+    module prefix, kind, weight)], what train_step.make_regularization_fn
+    takes (mtlx's regularization_scopes)."""
     scopes = []
+    if model_proto.WhichOneof("model") == "ssd":
+        ssd = model_proto.ssd
+        bp = ssd.box_predictor
+        if (bp.WhichOneof("box_predictor_oneof") == "convolutional_box_predictor"
+                and bp.convolutional_box_predictor.HasField("conv_hyperparams")):
+            kind, w = _regularizer(bp.convolutional_box_predictor.conv_hyperparams)
+            if kind and w:
+                scopes.append(("box_predictor", kind, w))
+                scopes.append(("extra", kind, w))
+        if ssd.feature_extractor.HasField("conv_hyperparams"):
+            kind, w = _regularizer(ssd.feature_extractor.conv_hyperparams)
+            if kind and w:
+                scopes.append(("backbone", kind, w))
+        return scopes
     fr = model_proto.faster_rcnn
     if fr.HasField("first_stage_box_predictor_conv_hyperparams"):
         kind, w = _regularizer(fr.first_stage_box_predictor_conv_hyperparams)

@@ -1,16 +1,17 @@
 """optimizer_builder + learning schedules (port of
-mtlx/builders/optimizer_builder.py: the momentum optimizer with a
-constant, exponential-decay, manual-step or warm-up + cosine learning
-rate, each the optax schedule mtlx builds).
-
-The RMSProp and Adam optimizers and moving averages of the weights are
-not ported yet: ROADMAP.md queue 1 item 12.
+mtlx/builders/optimizer_builder.py): the momentum, RMSProp and Adam
+optimizers (optax's sgd, rmsprop and adam, in mtlx's chain order:
+bias multiplier, freeze, clip, then the optimizer) with a constant,
+exponential-decay, manual-step or warm-up + cosine learning rate, each
+the optax schedule mtlx builds, and the decay of the moving average of
+the weights (use_moving_average, true by the proto's default).
 """
 
 from __future__ import annotations
 
 from mtlx_torch.train.train_step import (
     ExponentialDecaySchedule,
+    Optimizer,
     PiecewiseConstantSchedule,
     WarmupCosineDecaySchedule,
     make_optimizer,
@@ -43,24 +44,28 @@ def build_learning_rate(lr_proto):
 
 def build(optimizer_proto, train_config=None):
     """Returns (optimizer, learning rate or schedule, ema_decay); ema_decay
-    is None (moving averages are not ported and raise when asked for)."""
+    is the moving-average rate when use_moving_average is set (the
+    proto's default), else None."""
     kind = optimizer_proto.WhichOneof("optimizer")
-    if kind != "momentum_optimizer":
-        raise NotImplementedError(
-            f"optimizer {kind!r} is not ported: ROADMAP.md queue 1 item 12"
-        )
-    if optimizer_proto.use_moving_average:
-        raise NotImplementedError(
-            "use_moving_average (EMA of the weights) is not ported: ROADMAP.md "
-            "queue 1 item 12"
-        )
-    p = optimizer_proto.momentum_optimizer
-    lr = build_learning_rate(p.learning_rate)
-    tx = make_optimizer(
-        learning_rate=lr,
-        momentum=p.momentum_optimizer_value,
+    ema_decay = (optimizer_proto.moving_average_decay
+                 if optimizer_proto.use_moving_average else None)
+    chain = dict(
         gradient_clipping_by_norm=train_config.gradient_clipping_by_norm if train_config else 0.0,
         bias_grad_multiplier=train_config.bias_grad_multiplier if train_config else 0.0,
         freeze_variables=tuple(train_config.freeze_variables) if train_config else (),
     )
-    return tx, lr, None
+    if kind == "momentum_optimizer":
+        p = optimizer_proto.momentum_optimizer
+        lr = build_learning_rate(p.learning_rate)
+        return make_optimizer(learning_rate=lr, momentum=p.momentum_optimizer_value,
+                              **chain), lr, ema_decay
+    if kind == "rms_prop_optimizer":
+        p = optimizer_proto.rms_prop_optimizer
+        lr = build_learning_rate(p.learning_rate)
+        return Optimizer(lr, momentum=p.momentum_optimizer_value, kind="rmsprop",
+                         decay=p.decay, epsilon=p.epsilon, **chain), lr, ema_decay
+    if kind == "adam_optimizer":
+        p = optimizer_proto.adam_optimizer
+        lr = build_learning_rate(p.learning_rate)
+        return Optimizer(lr, kind="adam", **chain), lr, ema_decay
+    raise ValueError(f"unknown optimizer {kind!r}")

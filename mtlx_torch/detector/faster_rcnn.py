@@ -441,6 +441,11 @@ class FasterRCNN:
         px, classes [B, G] (0-based), mask [B, G] bool; draws: see the
         module docstring."""
         c = self.cfg
+        if c.batch_norm_trainable:
+            raise NotImplementedError(
+                "live batch norm in a two-stage detector's training is not ported: ROADMAP.md "
+                "queue 1 item 12 (live batch norm in Faster R-CNN)"
+            )
         if c.second_stage_dropout:
             raise NotImplementedError(
                 "second-stage dropout in training is not ported: ROADMAP.md "

@@ -190,9 +190,6 @@ def main(argv=None):
     multiple = resolve_bucketing(configs["bucketing"], args.bucket_multiple,
                                  args.max_bucket_variants)
     eval_config = configs["eval_config"]
-    if eval_config.use_moving_averages:
-        raise NotImplementedError("use_moving_averages (EMA of the weights) is not ported: "
-                                  "ROADMAP.md queue 1 item 12")
     input_config = (configs["train_input_config"] if args.eval_training_data
                     else configs["eval_input_config"])
     model = model_builder.build(configs["model"], is_training=False, device=device)
@@ -220,7 +217,10 @@ def main(argv=None):
         while True:
             step = manager.latest_step()
             if step is not None and step != last_step:
-                manager.restore(state, step, params_only=True)
+                # use_moving_averages evaluates the moving average of the
+                # weights, where the checkpoint has one
+                manager.restore(state, step, params_only=True,
+                                use_ema=eval_config.use_moving_averages)
                 metrics = evaluate_checkpoint(model, dataset, eval_config, categories,
                                               batch_size=args.eval_batch_size,
                                               bucket_multiple=multiple)

@@ -177,6 +177,8 @@ class InferenceModel:
         shapes = np.asarray(true_shapes, np.int32)
         bh = bucket_extent(shapes[:, 0].max(), canvas_h, self.bucket_multiple)
         bw = bucket_extent(shapes[:, 1].max(), canvas_w, self.bucket_multiple)
+        if not getattr(self.model, "supports_bucketed_compute", True):
+            bh, bw = canvas_h, canvas_w  # SSD computes on its whole canvas
         images = np.zeros((len(resized), bh, bw, 3), resized[0].dtype)
         for i, a in enumerate(resized):
             images[i, : a.shape[0], : a.shape[1]] = a
@@ -214,15 +216,15 @@ def export_inference_graph(pipeline_config_path: str, trained_checkpoint_dir: st
     configs = config_util.get_configs_from_pipeline_file(pipeline_config_path)
     configs["bucketing"].bucket_multiple = resolve_bucketing(configs["bucketing"],
                                                              bucket_multiple)
-    if configs["eval_config"].use_moving_averages:
-        raise NotImplementedError("eval_config.use_moving_averages (export the EMA of the "
-                                  "weights) is not ported: ROADMAP.md queue 1 item 12")
     # the export only copies weights from the checkpoint into the bundle:
     # it computes nothing, so it needs no card and holds the detector in
     # host memory; `InferenceModel.load` puts the bundle on the card
     model = model_builder.build(configs["model"], is_training=False, device="cpu")
+    # eval_config.use_moving_averages exports the moving average of the
+    # weights, where the checkpoint has one
     restored = CheckpointManager(trained_checkpoint_dir).restore(
-        TrainState(0, model, None, None), checkpoint_step, params_only=True)
+        TrainState(0, model, None, None), checkpoint_step, params_only=True,
+        use_ema=configs["eval_config"].use_moving_averages)
     if restored is None:
         raise FileNotFoundError(f"no checkpoint in {trained_checkpoint_dir}")
     text = text_format.to_text(

@@ -1,4 +1,4 @@
-"""Faster R-CNN and R-FCN box predictor heads (port of
+"""Faster R-CNN, R-FCN and SSD box predictor heads (port of
 mtlx/heads/box_predictors.py).
 
 The heads hold float32 parameters, compute in the module dtype (bfloat16
@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from mtlx_torch.backbones.mobilenet import SameConv2d
 from mtlx_torch.backbones.resnet import same_pad
 from mtlx_torch.layers import Conv2d, Linear
 from mtlx_torch.ops import roi as roi_ops
@@ -106,3 +107,67 @@ class RfcnBoxPredictor(nn.Module):
         cls = crop(self.class_maps(x))
         box = crop(self.box_maps(x))
         return cls, box.reshape(b, n, self.num_classes, 4)
+
+
+class ConvolutionalBoxPredictor(nn.Module):
+    """SSD's head for one feature map (mtlx's ConvolutionalBoxPredictor):
+    optional 1x1 ReLU convs at depth max(min(features' depth, max_depth),
+    min_depth), then a kxk SAME class conv and box conv.
+
+    NHWC features [B, H, W, C] -> ([B, H*W*A, num_classes + 1],
+    [B, H*W*A, box_code_size]), float32. The NCHW outputs are permuted to
+    NHWC before the reshape, so the anchors come in (y, x, anchor) order as
+    the multi-grid anchors lay them out. With use_dropout, training drops
+    the class branch's input as flax's nn.Dropout does: an element stays,
+    divided by keep_prob, where its uniform draw is below keep_prob
+    (jax.random.bernoulli's rule); outside training dropout is the
+    identity."""
+
+    def __init__(self, in_channels: int, num_classes: int, num_anchors_per_location: int,
+                 box_code_size: int = 4, kernel_size: int = 3, min_depth: int = 0,
+                 max_depth: int = 0, num_layers_before_predictor: int = 0,
+                 use_dropout: bool = False, dropout_keep_prob: float = 0.8,
+                 apply_sigmoid_to_scores: bool = False, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.num_classes = num_classes
+        self.box_code_size = box_code_size
+        self.use_dropout = use_dropout
+        # flax's nn.Dropout(rate=1 - keep) keeps with probability 1 - rate
+        self.dropout_keep_prob = 1.0 - (1.0 - dropout_keep_prob)
+        self.apply_sigmoid_to_scores = apply_sigmoid_to_scores
+        self.dtype = dtype
+        a = num_anchors_per_location
+        depth = max(min(in_channels, max_depth), min_depth)
+        self.hidden = []
+        self.depth = c = in_channels
+        if depth > 0 and num_layers_before_predictor > 0:
+            for i in range(num_layers_before_predictor):
+                name = f"conv_{i}_1x1_{depth}"
+                self.add_module(name, Conv2d(c, depth, 1, compute_dtype=dtype))
+                self.hidden.append(name)
+                self.depth = c = depth
+        self.class_predictor = SameConv2d(c, a * (num_classes + 1), kernel_size,
+                                          compute_dtype=dtype)
+        self.box_encoder = SameConv2d(c, a * box_code_size, kernel_size, compute_dtype=dtype)
+
+    def forward(self, features: Tensor, dropout_uniforms: Tensor = None):
+        """dropout_uniforms: [B, H, W, depth] draws, needed in training
+        with use_dropout."""
+        b = features.shape[0]
+        x = features.to(self.dtype).permute(0, 3, 1, 2)
+        for name in self.hidden:
+            x = F.relu(getattr(self, name)(x))
+        cls_in = x
+        if self.use_dropout and self.training:
+            if dropout_uniforms is None:
+                raise ValueError("training with use_dropout needs the dropout draws")
+            keep = dropout_uniforms.permute(0, 3, 1, 2) < self.dropout_keep_prob
+            # divided by keep_prob in the compute type, as flax divides
+            keep_prob = torch.tensor(self.dropout_keep_prob, dtype=x.dtype, device=x.device)
+            cls_in = torch.where(keep, x / keep_prob, torch.zeros_like(x))
+        cls = self.class_predictor(cls_in).permute(0, 2, 3, 1).float()
+        cls = cls.reshape(b, -1, self.num_classes + 1)
+        if self.apply_sigmoid_to_scores:
+            cls = torch.sigmoid(cls)
+        box = self.box_encoder(x).permute(0, 2, 3, 1).float()
+        return cls, box.reshape(b, -1, self.box_code_size)

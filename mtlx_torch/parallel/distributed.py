@@ -16,6 +16,9 @@ device, launched by `torch.distributed.run`:
   * `Replicas.average_` is the psum that `jit` inserts for the sharded
     batch: one flat all-reduce of the gradients (and the step's metrics),
     divided by the world size.
+  * `Replicas.sums` is the psum inside the live batch norm's statistics
+    (`backbones/resnet.py` LiveBatchNorm): mtlx reduces a globally sharded
+    batch, so its batch statistics are the global batch's.
 
 mtlx's `create_hybrid_mesh` (a DCN x ICI mesh) has no counterpart yet:
 NCCL picks its own hierarchy inside a node, and across nodes the port has
@@ -27,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -82,6 +85,15 @@ class Replicas:
         flat.div_(self.world_size)
         parts = flat.split([t.numel() for t in tensors])
         torch._foreach_copy_(tensors, [p.view_as(t) for p, t in zip(parts, tensors)])
+
+    def sums(self, tensors: Sequence[Tensor]) -> List[Tensor]:
+        """Each float32 tensor's sum over the ranks (new tensors), with one
+        all-reduce of one flat buffer. The live batch norm's paired sums
+        go through it, forward and backward."""
+        tensors = list(tensors)
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat)
+        return [p.view_as(t) for p, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
     def sum(self, t: Tensor) -> Tensor:
         """The sum of `t` over the ranks (a new tensor)."""

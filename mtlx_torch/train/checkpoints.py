@@ -3,8 +3,12 @@ torch-native: no orbax.
 
 A checkpoint is one file, `<directory>/ckpt-<step>.pt`: a plain dict of
 tensors, ints and strings that `torch.load(..., weights_only=True)` reads
-(the step, the parameters, the batch-norm buffers and the momentum
-traces with their parameter names and count). It is written to a
+(the step, the parameters, the batch-norm buffers (a live batch norm's
+moving statistics among them), the optimizer's slots with their
+parameter names and count: the momentum trace, and RMSProp's or Adam's
+second moment, and the moving average of the parameters where the run
+keeps one). Eval and export read the moving average in place of the
+parameters when eval_config.use_moving_averages asks for it. It is written to a
 temporary name on a background thread and renamed into place, so a
 reader never sees half a file. Pruning keeps the newest `max_to_keep`;
 with `keep_every_n_hours`, an older checkpoint also survives when it was
@@ -54,6 +58,10 @@ def state_to_dict(state: TrainState) -> Dict:
         "opt_count": int(state.opt_state.count),
         "opt_names": list(state.opt_state.names),
         "opt_trace": [_host(t) for t in state.opt_state.trace],
+        **({"opt_nu": [_host(t) for t in state.opt_state.nu]}
+           if state.opt_state.nu is not None else {}),
+        **({"ema": {n: _host(t) for n, t in state.ema.items()}}
+           if state.ema is not None else {}),
     }
 
 
@@ -139,36 +147,50 @@ class CheckpointManager:
             os.remove(path)
 
     def restore(self, state: TrainState, step: Optional[int] = None,
-                params_only: bool = False) -> Optional[TrainState]:
+                params_only: bool = False, use_ema: bool = False) -> Optional[TrainState]:
         """The state with the checkpoint's weights loaded into its model (in
-        place) and, unless params_only, its step and optimizer state."""
+        place) and, unless params_only, its step, optimizer state and
+        moving average. With use_ema the model takes the checkpoint's
+        moving average of the parameters where it has one (mtlx's eval and
+        export with use_moving_averages)."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
         path = checkpoint_path(self.directory, step)
         ckpt = load_checkpoint(path)
-        _load_weights(state.model, {**ckpt["params"], **ckpt["buffers"]}, path)
+        params = ckpt["ema"] if use_ema and "ema" in ckpt else ckpt["params"]
+        _load_weights(state.model, {**params, **ckpt["buffers"]}, path)
         if params_only:
             return dataclasses.replace(state, step=int(ckpt["step"]))
         if list(ckpt["opt_names"]) != list(state.opt_state.names):
             raise ValueError(f"{path}: the optimizer state is of other parameters")
-        params = state.params
-        trace = [torch.empty_like(params[n]).copy_(t)
-                 for n, t in zip(ckpt["opt_names"], ckpt["opt_trace"])]
-        opt_state = OptState(int(ckpt["opt_count"]), list(ckpt["opt_names"]), trace)
-        return dataclasses.replace(state, step=int(ckpt["step"]), opt_state=opt_state)
+        if ("opt_nu" in ckpt) != (state.opt_state.nu is not None):
+            raise ValueError(f"{path}: the optimizer state is of another optimizer")
+        live = state.params
+
+        def slots(key):
+            return [torch.empty_like(live[n]).copy_(t)
+                    for n, t in zip(ckpt["opt_names"], ckpt[key])]
+
+        opt_state = OptState(int(ckpt["opt_count"]), list(ckpt["opt_names"]), slots("opt_trace"),
+                             slots("opt_nu") if "opt_nu" in ckpt else None)
+        ema = state.ema
+        if ema is not None:  # a checkpoint without one starts it at its weights
+            source = ckpt.get("ema", ckpt["params"])
+            ema = {n: torch.empty_like(live[n]).copy_(source[n]) for n in ema}
+        return dataclasses.replace(state, step=int(ckpt["step"]), opt_state=opt_state, ema=ema)
 
 
 def _npz_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """The port's tensors of an `.npz` of flax variables."""
     from mtlx_torch import bridge
 
-    known = bridge.INFERENCE_MODULES + bridge.TRAINING_ONLY_MODULES
     tree: Dict = {}
     with np.load(path) as data:
         for key in data.files:
             parts = key.split("/")
-            if len(parts) < 3 or parts[1] not in known:
+            if len(parts) < 3 or not (bridge.is_inference_module(parts[1])
+                                      or parts[1] in bridge.TRAINING_ONLY_MODULES):
                 continue  # no counterpart in the port: absent, so skipped
             node = tree
             for p in parts[:-1]:

@@ -49,13 +49,12 @@ import torch
 from torch import Tensor
 
 from mtlx_torch.data import preprocessor as prep
-from mtlx_torch.detector.faster_rcnn import FasterRCNN
 from mtlx_torch.train import train_step as ts
 
 
 def make_augmented_batch_fn(aug_options: List[Tuple[str, dict]]) -> Callable:
     """Returns augment(batch, draws) -> batch with the options applied;
-    draws[name] holds each option's per-image uniforms."""
+    draws[name] holds each option's per-image draws."""
 
     def augment(batch: Dict[str, Tensor], draws: Dict[str, Tensor]) -> Dict[str, Tensor]:
         if not aug_options:
@@ -74,16 +73,20 @@ def make_augmented_batch_fn(aug_options: List[Tuple[str, dict]]) -> Callable:
     return augment
 
 
-def make_step_fn(model: FasterRCNN, aug_options: List[Tuple[str, dict]],
+def make_step_fn(model, aug_options: List[Tuple[str, dict]],
                  regularization_fn: Optional[Callable] = None,
-                 bucket_multiple: int = 0, replicas=None) -> Callable:
+                 bucket_multiple: int = 0, replicas=None,
+                 ema_decay: Optional[float] = None) -> Callable:
     """Returns step_fn(state, batch, generator=None, draws=None) ->
-    (state, metrics): pad the batch to its bucket, augment it, take one
-    train step. Draws not given come from `generator`, in the order of
-    train_step.make_draws (the augmentations' first); with `replicas` they
-    are made for the global batch and the rank takes its rows."""
+    (state, metrics): pad the batch to its bucket (SSD: to its canvas),
+    augment it, take one train step. Draws not given come from
+    `generator`, in the order of train_step.make_draws (the
+    augmentations' first); with `replicas` they are made for the global
+    batch and the rank takes its rows. `ema_decay` keeps the state's
+    moving average of the parameters."""
     augment = make_augmented_batch_fn(aug_options)
-    raw_step = ts.make_train_step(model, regularization_fn, replicas=replicas)
+    raw_step = ts.make_train_step(model, regularization_fn, replicas=replicas,
+                                  ema_decay=ema_decay)
 
     def step_fn(state, batch, generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, Tensor]] = None):
@@ -254,15 +257,21 @@ def _train(args, device: torch.device, replicas) -> None:
         config_util.save_pipeline_config(
             config_util.create_pipeline_proto_from_configs(configs), args.train_dir)
 
-    tx, _, _ = optimizer_builder.build(train_config.optimizer, train_config)
+    tx, _, ema_decay = optimizer_builder.build(train_config.optimizer, train_config)
     aug_options = preprocessor_builder.build(train_config.data_augmentation_options)
+    resizer = model_builder.resizer_params(model_builder.image_resizer(configs["model"]))
+    crops = [name for name, _ in aug_options if name in preprocessor_builder.CROP_FAMILY]
+    if crops and resizer[0] == "keep_aspect":
+        raise NotImplementedError(
+            f"{crops[0]} with a keep_aspect_ratio_resizer crops on the host (mtlx's "
+            "host geometry), which is not ported: ROADMAP.md queue 1 item 11")
     reg_fn = ts.make_regularization_fn(model_builder.regularization_scopes(configs["model"]))
 
     input_config = configs["train_input_config"]
     dataset = DetectionDataset(
         list(input_config.tf_record_input_reader.input_path),
         canvas_size=model.cfg.canvas_size,
-        resizer=model_builder.resizer_params(model_builder.image_resizer(configs["model"])),
+        resizer=resizer,
         max_boxes=model.cfg.max_gt_boxes,
         process_index=0 if replicas is None else replicas.rank,
         process_count=1 if replicas is None else replicas.world_size,
@@ -277,7 +286,7 @@ def _train(args, device: torch.device, replicas) -> None:
     say(f"[train] {len(dataset)} examples, batch {batch_size}{ranks}, canvas "
         f"{model.cfg.canvas_size}, {num_steps} steps, device {device}", flush=True)
 
-    state = ts.create_train_state(model, tx)
+    state = ts.create_train_state(model, tx, keep_ema=ema_decay is not None)
     manager = ckpt_lib.CheckpointManager(
         args.train_dir, keep_every_n_hours=train_config.keep_checkpoint_every_n_hours)
     latest = manager.latest_step()
@@ -291,12 +300,15 @@ def _train(args, device: torch.device, replicas) -> None:
                 model, train_config.fine_tune_checkpoint,
                 train_config.from_detection_checkpoint)
             say(f"[train] warm start: {restored} restored, {skipped} skipped", flush=True)
+        # the moving average starts at the weights the run starts from
+        state = ts.create_train_state(model, tx, keep_ema=ema_decay is not None)
     if replicas is not None:  # every rank starts from rank 0's state
         replicas.broadcast_(list(model.modules.state_dict().values())
-                            + list(state.opt_state.trace))
+                            + list(state.opt_state.trace) + list(state.opt_state.nu or [])
+                            + list((state.ema or {}).values()))
 
     step_fn = make_step_fn(model, aug_options, reg_fn, bucket_multiple=multiple,
-                           replicas=replicas)
+                           replicas=replicas, ema_decay=ema_decay)
     generator = torch.Generator(device=device)
     shuffle = input_config.shuffle and not args.deterministic
     # input_reader.num_epochs: 0 repeats forever; otherwise the run ends

@@ -1,30 +1,43 @@
-"""The train step and the optimizer (port of mtlx/train/train_step.py).
+"""The train step and the optimizer (port of mtlx/train/train_step.py and
+the optimizers of mtlx/builders/optimizer_builder.py).
 
-One step: preprocess -> `predict_train` (both stages + aux heads) ->
-`loss` -> backward -> the optimizer's transforms -> in-place update of
-the float32 parameters. The optimizer is optax's chain as mtlx builds
-it, written out so the numbers match optax and not `torch.optim`:
+One step: preprocess -> `predict_train` -> `loss` -> backward -> the
+optimizer's transforms -> in-place update of the float32 parameters ->
+the live batch norms' statistics committed -> the moving average of the
+parameters. The optimizer is optax's chain as mtlx builds it, written
+out so the numbers match optax and not `torch.optim`:
   1. the bias gradient multiplier (train_config.bias_grad_multiplier)
   2. the freeze mask (train_config.freeze_variables regexes, matched
      against flax-style paths such as `backbone/conv1/kernel`)
   3. clip_by_global_norm: g if norm < max else g / norm * max, no epsilon
-  4. sgd with momentum: trace = g + momentum * trace, update = -lr * trace,
-     lr from a constant or a schedule (piecewise-constant, exponential or
-     warm-up + cosine) indexed by the optimizer's own count from 0
+  4. the optimizer, its learning rate a constant or a schedule
+     (piecewise-constant, exponential or warm-up + cosine) indexed by the
+     optimizer's own count from 0:
+     * momentum (optax.sgd): trace = g + momentum * trace, update = -lr * trace
+     * rmsprop (optax.rmsprop): nu = (1 - decay) * g^2 + decay * nu from 0,
+       u = g * rsqrt(nu + eps) (eps inside the root), then -lr * u, then
+       the momentum trace over that: trace = u + momentum * trace
+     * adam (optax.adam, its defaults b1 0.9, b2 0.999, eps 1e-8): mu and
+       nu as moving moments, bias-corrected by 1 - b ** count, update =
+       -lr * mu_hat / (sqrt(nu_hat) + eps)
 
-Every parameter of the detector trains (flax's `params` collection): the
-convolutions, dense layers, the frozen batch norms' scale and bias and
-the aux heads; the batch-norm statistics are buffers and never change.
+The exponential moving average of the parameters (use_moving_average)
+follows each update: ema = ema * decay + param * (1 - decay), in float32.
 
-Randomness: `make_draws` makes every uniform draw of a step from one
-`torch.Generator` on the step's device, in this order: one [B] per
-augmentation option (in option order), proposal_pos and proposal_neg
-[B, first_stage_max_proposals], anchor_pos and anchor_neg [B, A], and
-with mtl.window_sampling window_scale and window_offset [B, G, 2]. A
+Every parameter of the detector trains (flax's `params` collection). The
+batch-norm statistics are buffers: a frozen batch norm never changes
+them, and a live one (backbones/resnet.py LiveBatchNorm) folds the
+batch's statistics into them after the update, as mtlx's step writes its
+`updated_batch_stats`.
+
+Randomness: `make_draws` makes every draw of a step from one
+`torch.Generator` on the step's device, in this order: each
+augmentation option's draws (in option order; data/preprocessor.py
+`make_draws`), then for Faster R-CNN proposal_pos and proposal_neg [B,
+first_stage_max_proposals], anchor_pos and anchor_neg [B, A], and with
+mtl.window_sampling window_scale and window_offset [B, G, 2]; for SSD
+with use_dropout dropout_{i} [B, h, w, depth], each box predictor's. A
 caller may pass its own draws (a test passes JAX's).
-
-Exponential moving averages of the parameters (use_moving_average) are
-not ported: ROADMAP.md queue 1 item 12 (EMA).
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from mtlx_torch.data import preprocessor
 from mtlx_torch.detector.faster_rcnn import FasterRCNN
 from mtlx_torch.utils.bucketing import bucket_multiple
 
@@ -125,25 +139,38 @@ def flax_path(name: str) -> str:
 @dataclasses.dataclass
 class OptState:
     count: int
-    names: List[str]  # the parameters, in the order of `trace`
-    trace: List[Tensor]
+    names: List[str]  # the parameters, in the order of the slots
+    trace: List[Tensor]  # the momentum trace (momentum, rmsprop); Adam's mu
+    nu: Optional[List[Tensor]] = None  # the second moment (rmsprop, adam)
+
+
+OPTIMIZERS = ("momentum", "rmsprop", "adam")
+# optax.adam's defaults, which mtlx's builder takes
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 class Optimizer:
-    """The chain of make_optimizer over a dict of named parameters."""
+    """The chain of mtlx's optimizer over a dict of named parameters:
+    `kind` is momentum, rmsprop or adam (module docstring)."""
 
     def __init__(self, learning_rate=1e-3, momentum: float = 0.9,
                  gradient_clipping_by_norm: float = 10.0,
-                 bias_grad_multiplier: float = 0.0, freeze_variables: Sequence[str] = ()):
+                 bias_grad_multiplier: float = 0.0, freeze_variables: Sequence[str] = (),
+                 kind: str = "momentum", decay: float = 0.9, epsilon: float = 1e-10):
+        if kind not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {kind!r}")
+        self.kind = kind
         self.learning_rate = learning_rate
         self.momentum = momentum
+        self.decay, self.epsilon = decay, epsilon  # RMSProp's
         self.clip = gradient_clipping_by_norm if gradient_clipping_by_norm > 0 else 0.0
         self.bias_grad_multiplier = bias_grad_multiplier if bias_grad_multiplier > 0 else 0.0
         self.freeze = [re.compile(p) for p in freeze_variables if p]
 
     def init(self, params: Dict[str, Tensor]) -> OptState:
-        return OptState(0, list(params), [torch.zeros_like(p, memory_format=torch.preserve_format)
-                                          for p in params.values()])
+        zeros = lambda: [torch.zeros_like(p, memory_format=torch.preserve_format)
+                         for p in params.values()]
+        return OptState(0, list(params), zeros(), None if self.kind == "momentum" else zeros())
 
     def lr(self, count: int) -> np.float32:
         if callable(self.learning_rate):
@@ -165,10 +192,33 @@ class Optimizer:
             norm = global_norm(g)
             if not bool(norm < self.clip):  # one host sync per step
                 g = torch._foreach_mul(torch._foreach_div(g, norm), self.clip)
-        trace = torch._foreach_mul(state.trace, self.momentum)
-        torch._foreach_add_(trace, g)  # g + momentum * trace
-        updates = torch._foreach_mul(trace, float(-self.lr(state.count)))
-        return updates, OptState(state.count + 1, names, trace)
+        step_size = float(-self.lr(state.count))
+        nu = state.nu
+        if self.kind == "momentum":
+            trace = torch._foreach_mul(state.trace, self.momentum)
+            torch._foreach_add_(trace, g)  # g + momentum * trace
+            updates = torch._foreach_mul(trace, step_size)
+        elif self.kind == "rmsprop":
+            nu = torch._foreach_mul(torch._foreach_mul(g, g), 1 - self.decay)
+            torch._foreach_add_(nu, torch._foreach_mul(state.nu, self.decay))
+            scaled = torch._foreach_mul(torch._foreach_rsqrt(torch._foreach_add(nu, self.epsilon)), g)
+            scaled = torch._foreach_mul(scaled, step_size)
+            trace = torch._foreach_mul(state.trace, self.momentum)
+            torch._foreach_add_(trace, scaled)  # u + momentum * trace
+            updates = trace
+        else:  # adam
+            trace = torch._foreach_mul(g, 1 - ADAM_B1)
+            torch._foreach_add_(trace, torch._foreach_mul(state.trace, ADAM_B1))
+            nu = torch._foreach_mul(torch._foreach_mul(g, g), 1 - ADAM_B2)
+            torch._foreach_add_(nu, torch._foreach_mul(state.nu, ADAM_B2))
+            f, count = np.float32, np.float32(state.count + 1)
+            bc1 = float(f(1) - np.power(f(ADAM_B1), count))
+            bc2 = float(f(1) - np.power(f(ADAM_B2), count))
+            mu_hat = torch._foreach_div(trace, bc1)
+            nu_hat = torch._foreach_div(nu, bc2)
+            denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), ADAM_EPS)
+            updates = torch._foreach_mul(torch._foreach_div(mu_hat, denom), step_size)
+        return updates, OptState(state.count + 1, names, trace, nu)
 
 
 def global_norm(tensors: Sequence[Tensor]) -> Tensor:
@@ -187,23 +237,28 @@ def make_optimizer(learning_rate=1e-3, momentum: float = 0.9,
 
 @dataclasses.dataclass
 class TrainState:
-    """The step count, the model (its parameters are the trained state)
-    and the optimizer with its state."""
+    """The step count, the model (its parameters are the trained state),
+    the optimizer with its state, and the moving average of the
+    parameters (None when the config keeps none)."""
 
     step: int
     model: FasterRCNN
     tx: Optimizer
     opt_state: OptState
+    ema: Optional[Dict[str, Tensor]] = None
 
     @property
     def params(self) -> Dict[str, Tensor]:
         return dict(self.model.modules.named_parameters())
 
 
-def create_train_state(model: FasterRCNN, tx: Optimizer) -> TrainState:
+def create_train_state(model: FasterRCNN, tx: Optimizer, keep_ema: bool = False) -> TrainState:
     """A state at step 0 around a model whose weights are set
-    (`init_weights`, or a checkpoint through the bridge)."""
-    return TrainState(0, model, tx, tx.init(dict(model.modules.named_parameters())))
+    (`init_weights`, or a checkpoint through the bridge); with keep_ema the
+    moving average starts at the parameters."""
+    params = dict(model.modules.named_parameters())
+    ema = {n: p.detach().clone() for n, p in params.items()} if keep_ema else None
+    return TrainState(0, model, tx, tx.init(params), ema)
 
 
 def make_regularization_fn(scopes) -> Optional[Callable]:
@@ -253,22 +308,44 @@ def pad_batch_to_bucket(batch: Dict[str, Tensor], canvas, multiple: int = 0) -> 
     return out
 
 
-def pad_for_model(model: FasterRCNN, batch: Dict[str, Tensor], multiple: int = 0) -> Dict:
-    """Bucket padding (Faster R-CNN computes on any bucketed canvas)."""
-    return pad_batch_to_bucket(batch, model.cfg.canvas_size, multiple)
+def pad_batch_to_canvas(batch: Dict[str, Tensor], canvas) -> Dict:
+    """Pad a batch's images (bottom and right, zeros) to the whole canvas."""
+    ch, cw = canvas
+    img = batch["image"]
+    h, w = img.shape[1], img.shape[2]
+    if (h, w) == (ch, cw):
+        return batch
+    if h > ch or w > cw:
+        raise ValueError(f"image {tuple(img.shape)} exceeds canvas {canvas}")
+    return dict(batch, image=F.pad(img, (0, 0, 0, cw - w, 0, ch - h)))
 
 
-def make_draws(model: FasterRCNN, batch_size: int, canvas_hw: Tuple[int, int],
+def pad_for_model(model, batch: Dict[str, Tensor], multiple: int = 0) -> Dict:
+    """Bucket padding where the detector computes on any bucketed canvas
+    (Faster R-CNN, R-FCN), the whole canvas otherwise (SSD's anchors are
+    fixed to it), as mtlx's pad_for_model."""
+    if getattr(model, "supports_bucketed_compute", True):
+        return pad_batch_to_bucket(batch, model.cfg.canvas_size, multiple)
+    return pad_batch_to_canvas(batch, model.cfg.canvas_size)
+
+
+def make_draws(model, batch_size: int, canvas_hw: Tuple[int, int],
                generator: torch.Generator, aug_options=(), num_gt: int = 0) -> Dict[str, Tensor]:
-    """Every uniform draw of one step, in the documented order (module
+    """Every draw of one step, in the documented order (module
     docstring), from `generator` on its own device."""
-    c = model.cfg
-    num_anchors = model.anchors_for(canvas_hw).shape[0]
+    draws = {name: preprocessor.make_draws(name, kwargs, batch_size, generator)
+             for name, kwargs in aug_options}
 
     def u(*shape):
         return torch.rand(shape, generator=generator, device=generator.device)
 
-    draws = {name: u(batch_size) for name, _ in aug_options}
+    if not isinstance(model, FasterRCNN):  # SSD: its predictors' dropout
+        for i, shape in enumerate(model.dropout_shapes(batch_size)):
+            draws[f"dropout_{i}"] = u(*shape)
+        return draws
+    c = model.cfg
+    num_anchors = model.anchors_for(canvas_hw).shape[0]
+
     draws["proposal_pos"] = u(batch_size, c.first_stage_max_proposals)
     draws["proposal_neg"] = u(batch_size, c.first_stage_max_proposals)
     draws["anchor_pos"] = u(batch_size, num_anchors)
@@ -284,15 +361,17 @@ def global_rows(rows: int, replicas=None) -> int:
     return rows if replicas is None else rows * replicas.world_size
 
 
-def rank_rows(draws: Dict[str, Tensor], replicas=None) -> Dict[str, Tensor]:
-    """This rank's rows of draws made for the global batch."""
+def rank_rows(draws: Dict, replicas=None) -> Dict:
+    """This rank's rows of draws made for the global batch (an option's
+    draws may be a dict of tensors)."""
     if replicas is None:
         return draws
-    return {k: replicas.rows(v) for k, v in draws.items()}
+    return {k: rank_rows(v, replicas) if isinstance(v, dict) else replicas.rows(v)
+            for k, v in draws.items()}
 
 
-def make_train_step(model: FasterRCNN, regularization_fn: Optional[Callable] = None,
-                    replicas=None) -> Callable:
+def make_train_step(model, regularization_fn: Optional[Callable] = None,
+                    replicas=None, ema_decay: Optional[float] = None) -> Callable:
     """Returns step(state, batch, generator=None, draws=None) -> (state,
     metrics). batch: image [B, H, W, 3] (uint8 or float), true_shape
     [B, 2], gt_boxes [B, G, 4], gt_classes [B, G], gt_mask [B, G], all on
@@ -302,10 +381,19 @@ def make_train_step(model: FasterRCNN, regularization_fn: Optional[Callable] = N
 
     With `replicas` (parallel/distributed.py) the batch is this rank's
     rows of the global batch: draws made here are the global batch's,
-    of which the rank takes its rows; after the backward the gradients
-    and the loss terms are averaged over the ranks in one all-reduce, so
-    the clip sees the global norm of the averaged gradient (as optax does
-    under jit) and every rank takes the same update."""
+    of which the rank takes its rows; the live batch norms sum their
+    statistics over the ranks; after the backward the gradients and the
+    loss terms are averaged over the ranks in one all-reduce, so the clip
+    sees the global norm of the averaged gradient (as optax does under
+    jit) and every rank takes the same update.
+
+    `ema_decay` keeps the state's moving average of the parameters (the
+    state must carry one: create_train_state(keep_ema=True))."""
+    from mtlx_torch.backbones.resnet import live_batch_norms
+
+    norms = live_batch_norms(model.modules)
+    for norm in norms:
+        norm.replicas = replicas
 
     def step(state: TrainState, batch: Dict[str, Tensor],
              generator: Optional[torch.Generator] = None,
@@ -338,6 +426,15 @@ def make_train_step(model: FasterRCNN, regularization_fn: Optional[Callable] = N
         updates, opt_state = state.tx.update(grads, state.opt_state)
         with torch.no_grad():
             torch._foreach_add_([params[n] for n in opt_state.names], updates)
+            for norm in norms:
+                norm.commit()
+            if ema_decay is not None and state.ema is not None:
+                d = np.float32(ema_decay)
+                names = list(state.ema)
+                ema = torch._foreach_mul([state.ema[n] for n in names], float(d))
+                torch._foreach_add_(ema, torch._foreach_mul(
+                    [params[n].detach() for n in names], float(np.float32(1) - d)))
+                state = dataclasses.replace(state, ema=dict(zip(names, ema)))
         metrics["grad_norm"] = grad_norm
         return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
 

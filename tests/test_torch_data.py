@@ -391,7 +391,7 @@ def test_preprocessor_builder_equals_mtlx():
     ours = config_util.parse_pipeline_text(text).train_config.data_augmentation_options
     theirs = pb_text_format.Parse(text, pipeline_pb2.TrainEvalPipelineConfig())
     assert tprep.build(ours) == jprep.build(theirs.train_config.data_augmentation_options)
-    for step in ("random_vertical_flip {}", "random_crop_image {}", "ssd_random_crop {}"):
+    for step in ("random_vertical_flip {}", "random_crop_image {}", "ssd_random_crop_pad {}"):
         steps = config_util.parse_pipeline_text(
             f"train_config {{ data_augmentation_options {{ {step} }} }}"
         ).train_config.data_augmentation_options

@@ -17,6 +17,7 @@ against mtlx's `InferenceModel` and `export_inference_graph` on the CPU.
     export_metadata.json.
 """
 
+import dataclasses
 import io
 import json
 import os
@@ -235,11 +236,40 @@ def test_export_cli_matches_mtlx(tmp_path):
     with pytest.raises(NotImplementedError, match="jax2tf"):
         texporter.main(["--pipeline_config_path", pipeline, "--trained_checkpoint_dir", tdir,
                         "--output_directory", str(tmp_path / "sm"), "--saved_model"])
+    # eval_config.use_moving_averages exports the moving average where the
+    # checkpoint has one, the weights where it has none, as mtlx's export
+    from mtlx.export.exporter import _load_trained
+
     ema = str(tmp_path / "ema.config")
     with open(ema, "w") as f:
         f.write(_PIPELINE.replace("num_examples: 4", "num_examples: 4 use_moving_averages: true"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        texporter.export_inference_graph(ema, tdir, str(tmp_path / "ema"))
+    jema_dir, tema_dir = str(tmp_path / "jema"), str(tmp_path / "tema")
+    jstate = create_train_state(jmodel, jax.random.PRNGKey(0), make_optimizer(), keep_ema=True)
+    averaged = jax.tree_util.tree_map(np.asarray, jstate.ema_params)
+    averaged["box_predictor"]["class_logits"]["bias"] = np.full_like(
+        averaged["box_predictor"]["class_logits"]["bias"], 7.0)
+    manager = jckpt.CheckpointManager(jema_dir)
+    manager.save(9, jstate.replace(step=jnp.asarray(9, jnp.int32), ema_params=averaged))
+    manager._mgr.wait_until_finished()
+    tstate = ts.create_train_state(tmodel, ts.make_optimizer(), keep_ema=True)
+    tstate.ema["box_predictor.class_logits.bias"].fill_(7.0)
+    with torch.no_grad():
+        tmodel.modules.box_predictor.class_logits.bias.fill_(9)
+    tmanager = tckpt.CheckpointManager(tema_dir)
+    tmanager.save(9, dataclasses.replace(tstate, step=9))
+    tmanager.wait()
+    for jsrc, tsrc, want in ((jema_dir, tema_dir, 7.0), (jdir, tdir, None)):
+        _, _, restored = _load_trained(ema, jsrc)
+        jbias = np.asarray(restored.params["box_predictor"]["class_logits"]["bias"])
+        tout = texporter.export_inference_graph(ema, tsrc, str(tmp_path / f"e{want}"))
+        bias = texporter.InferenceModel.load(tout, device="cpu", dtype=torch.float32
+                                             ).model.modules.box_predictor.class_logits.bias
+        if want is None:  # no moving average: both export the weights
+            assert np.array_equal(jbias, np.zeros_like(jbias))  # mtlx's init bias
+            assert torch.equal(bias, torch.full_like(bias, steps[-1]))
+        else:
+            assert np.array_equal(jbias, np.full_like(jbias, want))
+            assert torch.equal(bias, torch.full_like(bias, want))
     # two checkpoint dirs and four bundles of a full-width R50 (about a
     # GiB): pytest keeps each run's tmp_path
     shutil.rmtree(tmp_path)

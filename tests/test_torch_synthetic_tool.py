@@ -3,7 +3,7 @@ against mtlx's (`tools/synthetic_e2e_check.py`) on the CPU, and the event
 files its train and eval CLI runs write.
 
   * The dataset: the same 48 JPEG records (equal Examples, the same JPEG
-    bytes), and the same CONFIG text.
+    bytes), and the same CONFIG and SSD_CONFIG texts.
   * A short run end to end with `--device cpu --require_map 0`: 31 steps,
     the fewest the tool's schedule allows (its warm-up is 30 steps, and
     optax, so mtlx's tool too, refuses a cosine decay of total_steps <=
@@ -65,10 +65,17 @@ def test_dataset_and_config_equal_mtlx(tmp_path):
 
 
 def test_unported_model_and_short_schedule_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ttool.main(["--model", "ssd", "--device", "cpu"])
-    with pytest.raises(ValueError, match="decay_steps > warmup_steps"):
-        ttool.main(["--steps", "2", "--device", "cpu", "--workdir", str(tmp_path)])
+    # both models are ported: the SSD mode's config is mtlx's, an unknown
+    # model is refused, and each mode's short schedule raises
+    assert ttool.SSD_CONFIG == jtool.SSD_CONFIG
+    with pytest.raises(SystemExit):
+        ttool.parse_args(["--model", "yolo"])
+    assert ttool.parse_args(["--model", "ssd"]).require_map == 0.3
+    assert ttool.parse_args([]).require_map == 0.5
+    for model in ("frcnn", "ssd"):
+        with pytest.raises(ValueError, match="decay_steps > warmup_steps"):
+            ttool.main(["--model", model, "--steps", "2", "--device", "cpu",
+                        "--workdir", str(tmp_path / model)])
 
 
 def test_short_run_end_to_end_writes_event_files(tmp_path, capsys):
@@ -109,3 +116,29 @@ def test_short_run_end_to_end_writes_event_files(tmp_path, capsys):
     for key, value in metrics.items():
         if np.isfinite(value):
             assert got[key] == np.float32(value), key
+
+
+def test_short_ssd_run_end_to_end(tmp_path, capsys):
+    """`--model ssd`: SSD MobileNet-v1 x 0.5 with live batch norm on the
+    128x128 canvas through the train and eval CLIs, 31 steps."""
+    from mtlx_torch.train import checkpoints as ckpt_lib
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        metrics = ttool.main(["--model", "ssd", "--steps", "31", "--device", "cpu",
+                              "--require_map", "0", "--workdir", str(tmp_path)])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "[train] done at step 31" in out and "[synthetic-e2e] PASSED" in out
+    assert "canvas (128, 128)" in out
+    assert np.isfinite(metrics["Precision/mAP@0.5IOU"])
+    lines = [json.loads(ln[len("[train] "):]) for ln in out.splitlines()
+             if ln.startswith("[train] {")]
+    assert set(lines[0]) >= {"Loss/classification_loss", "Loss/localization_loss"}
+    ckpt = ckpt_lib.load_checkpoint(os.path.join(tmp_path, "train", "ckpt-31.pt"))
+    # the live batch norms moved their statistics; no moving average kept
+    assert any(float(v.abs().sum()) > 0 for k, v in ckpt["buffers"].items()
+               if k.endswith(".mean"))
+    assert "ema" not in ckpt
