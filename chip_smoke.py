@@ -9,7 +9,9 @@ train, evaluate and serve the R101 3-task MTL on COCO-sized records
 through `torch.distributed.run` with the COCO and OpenImages metrics, and
 train, evaluate, export and serve R-FCN R101 and the Inception-v2 and
 Inception-ResNet-v2 MTL Faster R-CNNs through the CLIs, and SSD
-MobileNet-v1 and SSD Inception-v2 (300x300, VOC) through them too.
+MobileNet-v1 and SSD Inception-v2 (300x300, VOC) through them too, and
+the train CLI's input pipeline: host crop / pad geometry, the worker
+loader, the bucket bound, the warm-up and the device-side SSD crops.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --data_parallel 4    # on a machine with 4 cards
@@ -167,6 +169,24 @@ Phases (any failure exits non-zero):
      on a global batch of 4 (loss and sum of |parameter| within 1e-4
      relative). Phase 9 also runs the tool's SSD mode (MobileNet x 0.5,
      128x128, 300 steps, mAP@0.5 >= 0.3)
+ 13. the train CLI's input pipeline: the flagship pipeline (full width,
+     batch 16, keep-aspect 600/1024) on 48 noise JPEGs at VOC's sizes with
+     the flip, random_crop_image, random_pad_image, random_distort_color
+     and random_black_patches, its paths the only other change (the crop
+     and pad drawn on the host, the pixels resampled by
+     batch_apply_host_window on the card, timed); the worker loader (4
+     processes) against the in-process loader on the CLI's arguments for
+     two epochs, every batch equal to the bit; the train CLI, each run in a
+     process of its own, for 8 steps with --max_bucket_variants 4 alone and
+     again with --grain_workers 4 --max_bucket_variants 4
+     --precompile_buckets: the warm-up's shapes and seconds, step 1 and the
+     steady steps, the loader wait share, peak memory, the crop launched
+     once a step, and the first three steps' losses (from the event files) of the two runs
+     within 1e-4 relative; then SSD MobileNet-v1 (300x300, batch 32) with
+     the flip, ssd_random_crop_pad and ssd_random_crop_fixed_aspect_ratio
+     through the train CLI for 2 steps (the crop launched twice and the
+     IoU once a step), and one recorded step's kernel calls held to their
+     plain versions, its crops timed
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -1229,12 +1249,9 @@ def kernel_counts():
 
 
 def reset_kernel_counts():
-    from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
+    from mtlx_torch.train.train import set_kernel_launches
 
-    nms_cuda.non_max_suppression.launches = 0
-    roi_cuda.crop_and_resize.launches = 0
-    roi_cuda.crop_and_resize_backward.launches = 0
-    iou_cuda.iou_matrix.launches = 0
+    set_kernel_launches(dict.fromkeys(kernel_counts(), 0))
 
 
 def profile_train_step(step_fn, state, batch, gen):
@@ -1504,16 +1521,19 @@ def write_records(path: str, rs, n: int, fmt: str, sizes) -> str:
     return path
 
 
-def cli_pipeline(record: str, label_map: str, fine_tune: str) -> str:
+def cli_pipeline(record: str, label_map: str, fine_tune: str, save_every: int = 3) -> str:
     """The flagship pipeline text with its input paths, label map,
-    fine_tune_checkpoint and checkpoint interval replaced."""
+    fine_tune_checkpoint and (unless save_every is None) checkpoint
+    interval replaced."""
     with open(FLAGSHIP_CONFIG) as f:
         text = f.read()
-    for old, new in (('"/data/voc/pascal_train_voc0712.record"', json.dumps(record)),
-                     ('"/data/voc/pascal_test_voc07.record"', json.dumps(record)),
-                     ('"/data/voc/pascal_label_map.pbtxt"', json.dumps(label_map)),
-                     ('fine_tune_checkpoint: ""', f"fine_tune_checkpoint: {json.dumps(fine_tune)}"),
-                     ("save_checkpoints_steps: 2000", "save_checkpoints_steps: 3")):
+    replace = [('"/data/voc/pascal_train_voc0712.record"', json.dumps(record)),
+               ('"/data/voc/pascal_test_voc07.record"', json.dumps(record)),
+               ('"/data/voc/pascal_label_map.pbtxt"', json.dumps(label_map)),
+               ('fine_tune_checkpoint: ""', f"fine_tune_checkpoint: {json.dumps(fine_tune)}")]
+    if save_every is not None:
+        replace.append(("save_checkpoints_steps: 2000", f"save_checkpoints_steps: {save_every}"))
+    for old, new in replace:
         if old not in text:
             raise AssertionError(f"{FLAGSHIP_CONFIG} no longer holds {old}")
         text = text.replace(old, new)
@@ -3334,6 +3354,312 @@ def phase_ssd(seed: int, results):
     results["ssd"] = out
 
 
+# ---------------------------------------------------------------- phase 13
+
+# the flagship's options in phase 13: the crop / pad chain its keep-aspect
+# resizer moves to the host, and the photometric options on the card
+PIPELINE_OPTIONS = ("random_horizontal_flip", "random_crop_image", "random_pad_image",
+                    "random_distort_color", "random_black_patches")
+PIPELINE_FLAGS = ["--grain_workers", "4", "--max_bucket_variants", "4", "--precompile_buckets"]
+PIPELINE_STEPS = 8
+# two runs of one step on the card (phases 7 and 10): 1e-4 relative
+PIPELINE_LOSS_TOL = 1e-4
+SSD_PIPELINE_OPTIONS = ("random_horizontal_flip", "ssd_random_crop_pad",
+                        "ssd_random_crop_fixed_aspect_ratio")
+
+
+def with_options(text: str, old: str, options) -> str:
+    """A pipeline text with its augmentation block `old` replaced by the
+    named options, each with its proto defaults."""
+    if old not in text:
+        raise AssertionError(f"the pipeline no longer holds {old!r}")
+    return text.replace(old, "".join(f"  data_augmentation_options {{ {n} {{}} }}\n"
+                                     for n in options))
+
+
+def calibrated_warm_start(pipeline: str, record: str, fine_tune: str, seed: int) -> None:
+    """The pipeline's fine_tune_checkpoint: the CLI's own init (same seed)
+    with batch norm calibrated on one batch of the records."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.data.loader import DetectionDataset, batches
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train_step as ts
+
+    configs = config_util.get_configs_from_pipeline_file(pipeline)
+    model = model_builder.build(configs["model"], is_training=True, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(seed))
+    dataset = DetectionDataset([record], model.cfg.canvas_size, model_builder.resizer_params(
+        model_builder.image_resizer(configs["model"])))
+    first = next(batches(dataset, configs["train_config"].batch_size, seed=seed,
+                         pack_images=True))
+    dataset.close()
+    calibrate_batch_norm_on(model, torch.from_numpy(first["image"]).cuda(),
+                            torch.from_numpy(first["true_shape"]).cuda())
+    manager = ckpt_lib.CheckpointManager(fine_tune)
+    manager.save(0, ts.create_train_state(model, ts.make_optimizer()))
+    manager.wait()
+    del model, manager
+    torch.cuda.empty_cache()
+
+
+def train_scalars(train_dir: str):
+    """{(step, tag): value} of the train CLI's event files, as written (the
+    printed lines round to four decimals)."""
+    from mtlx_torch.utils.summary_writer import read_events
+
+    out = {}
+    for name in sorted(os.listdir(train_dir)):
+        if "tfevents" in name:
+            for event in read_events(os.path.join(train_dir, name)):
+                for tag, value in event.get("values", []):
+                    out[(event["step"], tag)] = value
+    return out
+
+
+def check_worker_loader(pipeline: str, seed: int):
+    """The worker loader (4 processes) against the in-process loader on
+    the CLI's arguments for two epochs: every batch equal to the bit.
+    Returns the seconds a batch of each and the first batch."""
+    from mtlx_torch.builders import model_builder, preprocessor_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.data.grain_loader import make_grain_loader
+    from mtlx_torch.data.host_geometry import HostGeometry, split_host_geometry
+    from mtlx_torch.data.loader import DetectionDataset, batches
+    from mtlx_torch.utils.bucketing import resolve_bucketing
+
+    configs = config_util.get_configs_from_pipeline_file(pipeline)
+    resizer = model_builder.resizer_params(model_builder.image_resizer(configs["model"]))
+    canvas = model_builder.build_config(configs["model"], is_training=True).canvas_size
+    host_ops, _ = split_host_geometry(preprocessor_builder.build(
+        configs["train_config"].data_augmentation_options), resizer)
+    multiple, _ = resolve_bucketing(configs["bucketing"])
+    dataset = DetectionDataset(list(configs["train_input_config"].tf_record_input_reader
+                                    .input_path), canvas, resizer)
+    kw = dict(shuffle=True, seed=seed, pack_images=True, bucket_multiple=multiple,
+              host_geometry=HostGeometry(host_ops, resizer[1]["min_dimension"],
+                                         resizer[1]["max_dimension"], canvas),
+              max_bucket_variants=4, decode_threads=2)
+    bs = configs["train_config"].batch_size
+    try:
+        t0 = time.perf_counter()
+        want = list(batches(dataset, bs, epochs=2, **kw))
+        t1 = time.perf_counter()
+        loader = make_grain_loader(dataset, bs, worker_count=4, num_epochs=2, **kw)
+        got = list(loader)
+        t2 = time.perf_counter()
+        loader.close()
+    finally:
+        dataset.close()
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"the worker loader gave {len(got)} batches, in-process {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if sorted(g) != sorted(w):
+            raise AssertionError(f"batch {i}: fields {sorted(g)} vs {sorted(w)}")
+        for k, v in w.items():
+            same = g[k] == v if k == "source_id" else (g[k].dtype == v.dtype
+                                                        and np.array_equal(g[k], v))
+            if not same:
+                raise AssertionError(f"batch {i}: the worker loader's {k} differs")
+    shapes = sorted({tuple(b["image"].shape[1:3]) for b in want})
+    log(f"[pipeline] the worker loader's {len(got)} batches (2 epochs) equal the in-process "
+        f"loader's to the bit; in-process {(t1 - t0) / len(want):.3f} s a batch of {bs}, 4 "
+        f"workers {(t2 - t1) / len(got):.3f} s a batch with their start; buckets {shapes}")
+    return dict(batches=len(got), in_process_s=(t1 - t0) / len(want),
+                workers_s=(t2 - t1) / len(got), buckets=shapes), want[0]
+
+
+def time_host_window(batch):
+    """batch_apply_host_window on one loader batch on the card, timed."""
+    from mtlx_torch.data import preprocessor as prep
+
+    t = {k: torch.from_numpy(batch[k]).cuda() for k in
+         ("image", "true_shape", "aug_window", "aug_src_shape", "aug_pad_color", "aug_content")}
+    image = t["image"].float()
+    args = (t["true_shape"], t["aug_window"], t["aug_src_shape"], t["aug_pad_color"],
+            t["aug_content"])
+    out = prep.batch_apply_host_window(image, *args)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("batch_apply_host_window gave non-finite pixels")
+    ms = cuda_ms(lambda: prep.batch_apply_host_window(image, *args), 20)
+    t_bound, by = bound_ms(nbytes=2 * image.numel() * 4, ops=image.numel() * 4 * 3)
+    shape = "x".join(map(str, image.shape))
+    log(f"[pipeline] batch_apply_host_window at {shape} float32 (plain PyTorch): {ms:.4f} ms, "
+        f"bound {t_bound:.4f} ms ({by})")
+    return dict(shape=shape, ms=ms, bound_ms=t_bound, bound_by=by)
+
+
+def run_pipeline_cli(pipeline: str, train_dir: str, flags, seed: int, steps: int,
+                     own_process: bool = False):
+    """One train CLI run: its lines, launches, peak memory, event-file
+    scalars and output. In this process (launches counted from 0 before
+    it), or with own_process in a process of its own, as a user runs it
+    (cuDNN and the allocator start cold; launches and peak memory from its
+    `[train] summary` line)."""
+    from mtlx_torch.train import train as train_cli
+
+    argv = ["--pipeline_config_path", pipeline, "--train_dir", train_dir, "--num_steps",
+            str(steps), "--log_every", "1", "--seed", str(seed)] + list(flags)
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if own_process:
+        run = subprocess.run([sys.executable, "-m", "mtlx_torch.train.train"] + argv,
+                             capture_output=True, text=True, timeout=600, cwd=REPO,
+                             env=repo_env())
+        out = run.stdout
+        for line in out.splitlines():
+            log(f"  | {line}")
+        if run.returncode != 0:
+            raise AssertionError(f"the train CLI exited {run.returncode}:\n{run.stderr[-4000:]}")
+        summary = json.loads(out.split("[train] summary ", 1)[1].splitlines()[0])
+        counts, peak = summary["kernel_launches"], summary["peak_memory_gib"] * 2**30
+    else:
+        out, _ = run_cli(train_cli.main, argv)
+        counts, peak = kernel_counts(), torch.cuda.max_memory_allocated()
+    lines = train_log_lines(out)
+    if [ln["step"] for ln in lines] != list(range(1, steps + 1)):
+        raise AssertionError(f"the train CLI logged steps {[ln['step'] for ln in lines]}")
+    for line in lines:
+        bad = [k for k, v in line.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite train metrics at step {line['step']}: {bad}")
+    return dict(out=out, lines=lines, counts=counts, wall=time.perf_counter() - t0, peak=peak,
+                scalars=train_scalars(train_dir))
+
+
+def step_ms(line, batch_size: int):
+    """(wall ms of a logged step, its ms outside the loader wait)."""
+    wall = batch_size / line["images_per_sec"] * 1e3
+    return wall, wall * (1.0 - line["loader_wait_share"])
+
+
+def pipeline_flagship(work: str, seed: int):
+    """The flagship at full width through the train CLI with the crop / pad
+    chain on the host and the photometric options on the card: with
+    --grain_workers 4 --max_bucket_variants 4 --precompile_buckets, and
+    with the in-process loader and no warm-up; their first three steps'
+    losses must agree, and the worker loader's batches equal the
+    in-process loader's."""
+    import re
+
+    record = write_records(os.path.join(work, "voc_noise.record"),
+                           np.random.RandomState(seed + 30), 48, "jpeg", VOC_SIZES)
+    label_map = os.path.join(work, "label_map.pbtxt")
+    with open(label_map, "w") as f:
+        f.writelines(f"item {{ id: {i + 1} name: '{n}' }}\n" for i, n in enumerate(VOC_NAMES))
+    fine_tune = os.path.join(work, "warm_start")
+    pipeline = os.path.join(work, "pipeline.config")
+    with open(pipeline, "w") as f:
+        f.write(with_options(cli_pipeline(record, label_map, fine_tune, save_every=None),
+                             "  data_augmentation_options { random_horizontal_flip {} }\n",
+                             PIPELINE_OPTIONS))
+    calibrated_warm_start(pipeline, record, fine_tune, seed)
+    loader, first = check_worker_loader(pipeline, seed)
+    window = time_host_window(first)
+
+    runs = {}
+    for tag, flags in (("plain", ["--max_bucket_variants", "4"]), ("flags", PIPELINE_FLAGS)):
+        runs[tag] = run_pipeline_cli(pipeline, os.path.join(work, tag), flags, seed,
+                                     PIPELINE_STEPS, own_process=True)
+    flagged, plain = runs["flags"], runs["plain"]
+    if "host-side crop / pad geometry: ['random_crop_image', 'random_pad_image']" \
+            not in flagged["out"]:
+        raise AssertionError("the train CLI did not move the crop / pad chain to the host")
+    warm = re.search(r"warmed up (\d+) bucket shapes (\[.*\]) in ([0-9.]+) s", flagged["out"])
+    if warm is None:
+        raise AssertionError("the train CLI printed no warm-up line")
+    warm_shapes, warm_s = warm.group(2), float(warm.group(3))
+    # the first three steps with and without the warm-up
+    diffs = {}
+    for (step, tag), value in plain["scalars"].items():
+        if step <= 3 and (tag.startswith("Loss/") or tag == "total_loss"):
+            other = flagged["scalars"][(step, tag)]
+            diffs[(step, tag)] = abs(other - value) / max(abs(value), 1e-30)
+    worst = max(diffs.items(), key=lambda kv: kv[1])
+    log(f"[pipeline] flagship losses of steps 1-3 with and without the warm-up: largest "
+        f"relative difference {worst[1]:.3g} ({worst[0][1]} at step {worst[0][0]}), "
+        f"tolerance {PIPELINE_LOSS_TOL}")
+    if worst[1] > PIPELINE_LOSS_TOL:
+        raise AssertionError(f"the warm-up moved {worst[0]} by {worst[1]} relative")
+    bs = 16
+    summary = {}
+    for tag, run in runs.items():
+        per_step = {k: v / PIPELINE_STEPS for k, v in run["counts"].items()}
+        times = [step_ms(ln, bs) for ln in run["lines"]]
+        summary[tag] = dict(
+            step1_wall_ms=times[0][0], step1_ms_without_wait=times[0][1],
+            steady_ms=[t for t, _ in times[1:]],
+            loader_wait_share=[ln["loader_wait_share"] for ln in run["lines"][1:]],
+            peak_memory_gib=run["peak"] / 2**30, launches_per_step=per_step,
+            cli_wall_s=run["wall"])
+        log(f"[pipeline] flagship {tag} ({' '.join(PIPELINE_FLAGS) if tag == 'flags' else '--max_bucket_variants 4'}): "
+            f"step 1 {times[0][0]:.1f} ms ({times[0][1]:.1f} outside the loader wait); steps "
+            f"2-{PIPELINE_STEPS} {[round(t, 2) for t, _ in times[1:]]} ms, loader wait share "
+            f"{summary[tag]['loader_wait_share']}; peak {run['peak'] / 2**30:.2f} GiB; launches "
+            f"a step {per_step}; CLI wall {run['wall']:.2f} s")
+        if per_step["roi_crop"] != 1:
+            raise AssertionError(f"flagship {tag}: crop launches a step {per_step}")
+    log(f"[pipeline] the warm-up: {warm.group(1)} shapes {warm_shapes} in {warm_s:.2f} s")
+    return dict(loader=loader, host_window=window, warm_up_shapes=warm_shapes,
+                warm_up_s=warm_s, loss_max_rel_diff=worst[1], runs=summary)
+
+
+def pipeline_ssd(work: str, seed: int):
+    """SSD MobileNet-v1 (300x300, batch 32) with ssd_random_crop_pad and
+    ssd_random_crop_fixed_aspect_ratio on the card: the train CLI for two
+    steps (the crop launched once an option a step), then one recorded
+    step's kernel calls held to their plain versions, the crops timed."""
+    record = write_records(os.path.join(work, "ssd_noise.record"),
+                           np.random.RandomState(seed + 31), 32, "jpeg", VOC_SIZES)
+    label_map = os.path.join(work, "voc_label_map.pbtxt")
+    with open(label_map, "w") as f:
+        f.writelines(f"item {{ id: {i + 1} name: '{v}' }}\n" for i, v in enumerate(VOC_NAMES))
+    pipeline = os.path.join(work, "ssd.config")
+    text = ssd_pipeline("ssd_mobilenet_v1_voc", record, label_map)
+    text = with_options(text, "  data_augmentation_options { random_horizontal_flip {} }\n"
+                              "  data_augmentation_options {\n    ssd_random_crop { }\n  }\n",
+                        SSD_PIPELINE_OPTIONS)
+    with open(pipeline, "w") as f:
+        f.write(text)
+    train_dir = os.path.join(work, "ssd_train")
+    run = run_pipeline_cli(pipeline, train_dir, [], seed, 2)
+    per_step = {k: v / 2 for k, v in run["counts"].items()}
+    want = {"nms": 0, "roi_crop": 2, "roi_crop_backward": 0, "iou": 1}
+    if per_step != want:
+        raise AssertionError(f"SSD with the two crops: launches a step {per_step}, want {want}")
+    calls, *_ = train_step_calls(pipeline, train_dir, seed)
+    shapes = check_kernels_on(calls, "SSD step with ssd_random_crop_pad and "
+                                     "ssd_random_crop_fixed_aspect_ratio")
+    timed = [time_crop(f, b, int(cs[0]), f"SSD {name}", plain_reps=3)
+             for ((f, b, cs), _), name in zip(calls["roi_crop"], SSD_PIPELINE_OPTIONS[1:])]
+    times = [step_ms(ln, 32)[0] for ln in run["lines"]]
+    log(f"[pipeline] SSD MobileNet-v1 with {SSD_PIPELINE_OPTIONS[1:]}: steps {[round(t, 2) for t in times]} "
+        f"ms at batch 32, peak {run['peak'] / 2**30:.2f} GiB, launches a step {per_step}")
+    return dict(launches_per_step=per_step, shapes=shapes, timed=timed, step_ms=times,
+                peak_memory_gib=run["peak"] / 2**30)
+
+
+def phase_pipeline(seed: int, results):
+    """The train CLI's input pipeline: the flagship's host crop / pad
+    geometry, worker loader, bucket bound and warm-up; SSD's device-side
+    crop-and-pad and fixed-aspect crops."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="mtlx_pipeline_")
+    t0 = time.perf_counter()
+    try:
+        out = {"flagship": pipeline_flagship(work, seed)}
+        torch.cuda.empty_cache()
+        out["ssd"] = pipeline_ssd(work, seed)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[pipeline] phase 13: {out['wall_s']:.1f} s")
+    results["pipeline"] = out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3382,6 +3708,7 @@ def main(argv=None) -> int:
     phase_coco(args.seed, results)
     phase_two_stage(args.seed, results)
     phase_ssd(args.seed, results)
+    phase_pipeline(args.seed, results)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -3463,6 +3790,13 @@ def main(argv=None) -> int:
             k.setdefault("ssd_shapes", {})[name] = {
                 part: r["shapes"][part].get(k["name"], []) for part in ("train", "eval")}
             k.setdefault("ssd_timed", {})[name] = r["timed"].get(k["name"], [])
+    pipeline = results["pipeline"]
+    for k in kernels:
+        k["pipeline_train_launches_per_step"] = {
+            "flagship": pipeline["flagship"]["runs"]["flags"]["launches_per_step"][k["name"]],
+            "ssd_mobilenet_v1_voc": pipeline["ssd"]["launches_per_step"][k["name"]]}
+        k["pipeline_ssd_shapes"] = pipeline["ssd"]["shapes"].get(k["name"], [])
+    kernels[1]["pipeline_ssd_timed"] = pipeline["ssd"]["timed"]
     kernels[0]["coco_postprocess"] = coco["postprocess_nms"]
     library = coco["library"]
     if library is not None:

@@ -1,21 +1,25 @@
 """Host input pipeline: TFRecord -> decoded, canvas-shaped batches (port of
-the parts of mtlx/data/loader.py that the flagship's CLIs run).
+mtlx/data/loader.py).
 
 The host decodes each record's image (data/imgcodec.py: libjpeg for
 JPEG, numpy + zlib for PNG) onto its resizer target and pads it onto
 the static canvas; augmentation, labels and target assignment run on
-the device inside the train step. `batches` gives the same record order
-as mtlx's for the same seed (the same numpy generator calls), and
+the device inside the train step. `batches` gives the same batches as
+mtlx's for the same arguments and seed (the same numpy generator calls):
+the record order, the crop / pad geometry drawn on the host for each
+record visit (data/host_geometry.py) and the bucket each batch ships
+at, bounded by `max_bucket_variants` (`BucketCoalescer`).
 `device_prefetch` moves each batch to the device on a side CUDA stream
-from pinned memory while the step runs.
+from pinned memory while the step runs; data/grain_loader.py runs
+`batches`' work in worker processes.
 
-Not ported, each raising where it is asked for: host geometry (the
-crop/pad family of augmentations), the grain loader, bucket coalescing
-(`max_bucket_variants > 0`), instance masks and keypoints.
+Not ported, each raising where it is asked for: instance masks and
+keypoints (ROADMAP.md queue 1 item 16).
 """
 
 from __future__ import annotations
 
+import logging
 import mmap
 import queue as queue_lib
 import struct
@@ -89,6 +93,18 @@ class DetectionDataset:
         self._maps: Dict[str, mmap.mmap] = {}
         self._map_lock = threading.Lock()
 
+    def __getstate__(self) -> Dict:
+        """What a loader worker process gets: the record index, not the
+        maps (it maps the files anew)."""
+        state = dict(self.__dict__)
+        del state["_maps"], state["_map_lock"]
+        return state
+
+    def __setstate__(self, state: Dict) -> None:
+        self.__dict__.update(state)
+        self._maps = {}
+        self._map_lock = threading.Lock()
+
     def __len__(self) -> int:
         return len(self._files)
 
@@ -135,6 +151,30 @@ class DetectionDataset:
         h0, w0 = imgcodec.image_dims(ex[InputDataFields.image_encoded],
                                      ex.get(InputDataFields.image_format, b"jpeg"))
         return keep_aspect_target(h0, w0, **params)
+
+    def peek_geometry_sample(self, i: int) -> Dict[str, np.ndarray]:
+        """Record i's true_shape, original_shape, gt_boxes and gt_mask from
+        the Example and the image header, no pixels: what
+        host_geometry.HostGeometry reads."""
+        ex = self._parse(i)
+        h0, w0 = imgcodec.image_dims(ex[InputDataFields.image_encoded],
+                                     ex.get(InputDataFields.image_format, b"jpeg"))
+        th, tw = self._target(h0, w0)
+        ch, cw = self.canvas_size
+        th, tw = min(th, ch), min(tw, cw)
+        boxes_norm = ex[InputDataFields.groundtruth_boxes]
+        difficult = ex[InputDataFields.groundtruth_difficult]
+        if not self.keep_difficult and len(difficult) == len(boxes_norm):
+            boxes_norm = boxes_norm[difficult == 0]
+        boxes_abs = boxes_norm * np.asarray([th, tw, th, tw], np.float32)
+        mask = np.zeros((self.max_boxes,), bool)
+        mask[: min(len(boxes_abs), self.max_boxes)] = True
+        return {
+            "true_shape": np.asarray([th, tw], np.int32),
+            "original_shape": np.asarray([h0, w0], np.int32),
+            "gt_boxes": pad_or_clip(boxes_abs.astype(np.float32), self.max_boxes),
+            "gt_mask": mask,
+        }
 
     def get(self, i: int) -> Dict[str, np.ndarray]:
         """One canvas-shaped sample (numpy)."""
@@ -205,25 +245,31 @@ class DetectionDataset:
         }
 
 
-def _bucket(true_shapes: np.ndarray, canvas_hw, bucket_multiple: int) -> Tuple[int, int]:
+def _bucket(true_shapes: np.ndarray, canvas_hw, bucket_multiple: int,
+            coalescer: Optional["BucketCoalescer"] = None) -> Tuple[int, int]:
     """The compute bucket of a batch: its largest true extents rounded up
-    to the granularity, capped at the canvas."""
+    to the granularity, capped at the canvas, and with a coalescer its
+    kept superset."""
     mult = _bucket_multiple(bucket_multiple)
-    return (bucket_extent(true_shapes[:, 0].max(), canvas_hw[0], mult),
-            bucket_extent(true_shapes[:, 1].max(), canvas_hw[1], mult))
+    hb = bucket_extent(true_shapes[:, 0].max(), canvas_hw[0], mult)
+    wb = bucket_extent(true_shapes[:, 1].max(), canvas_hw[1], mult)
+    if coalescer is not None:
+        hb, wb = coalescer.map((hb, wb))
+        hb, wb = min(canvas_hw[0], hb), min(canvas_hw[1], wb)
+    return hb, wb
 
 
-def pack_batch_images(images: np.ndarray, true_shapes: np.ndarray,
-                      bucket_multiple: int = 0) -> np.ndarray:
+def pack_batch_images(images: np.ndarray, true_shapes: np.ndarray, bucket_multiple: int = 0,
+                      coalescer: Optional["BucketCoalescer"] = None) -> np.ndarray:
     """Crop a canvas-shaped image batch to its bucketed true region: the
     canvas padding is zeros, so it need not cross to the device (the step
     pads back to its bucket)."""
-    hb, wb = _bucket(true_shapes, images.shape[1:3], bucket_multiple)
+    hb, wb = _bucket(true_shapes, images.shape[1:3], bucket_multiple, coalescer)
     return np.ascontiguousarray(images[:, :hb, :wb])
 
 
-def _collate(samples: List[Dict], pack_images: bool = False,
-             bucket_multiple: int = 0) -> Dict[str, np.ndarray]:
+def _collate(samples: List[Dict], pack_images: bool = False, bucket_multiple: int = 0,
+             coalescer: Optional["BucketCoalescer"] = None) -> Dict[str, np.ndarray]:
     out = {}
     for key in samples[0]:
         if key == "source_id":
@@ -231,12 +277,160 @@ def _collate(samples: List[Dict], pack_images: bool = False,
         elif key != "image" or not pack_images:
             out[key] = np.stack([s[key] for s in samples])
     if pack_images:
-        # pack_batch_images of the stacked canvases, without stacking them
-        hb, wb = _bucket(out["true_shape"], samples[0]["image"].shape[:2], bucket_multiple)
+        # pack_batch_images of the stacked canvases, without stacking them;
+        # with host geometry the pixels shipped cover the resample's reads
+        # and its output region (pack_shape)
+        extents = out.get("pack_shape", out["true_shape"])
+        hb, wb = _bucket(extents, samples[0]["image"].shape[:2], bucket_multiple, coalescer)
         out["image"] = np.empty((len(samples), hb, wb, 3), np.uint8)
         for j, s in enumerate(samples):
             out["image"][j] = s["image"][:hb, :wb]
+    out.pop("pack_shape", None)
     return out
+
+
+def achievable_bucket_shapes(dataset: "DetectionDataset", batch_size: int,
+                             max_records: Optional[int] = None, host_geometry=None,
+                             max_bucket_variants: int = 0,
+                             bucket_multiple: int = 0) -> List[Tuple[int, int]]:
+    """Every (h, w) compute bucket the batches of this dataset can take,
+    from the image headers only (the train CLI's --precompile_buckets
+    warms each up before step 1).
+
+    A batch's bucket is the componentwise max of its records' buckets, so
+    at batch_size > 1 the set is the pairwise max-closure of the distinct
+    record buckets. With host geometry a sample ships at pack_shape =
+    max(post-crop shape, the crop window's read extent), so its bucket can
+    be any multiple between the smallest post-crop bucket and the per-axis
+    max: the whole grid over that range. With max_bucket_variants every
+    batch packs through the coalescer, so the kept set is the answer."""
+    mult = _bucket_multiple(bucket_multiple)
+    per_record = set(record_bucket_keys(dataset, max_records, bucket_multiple=mult))
+    if max_bucket_variants:
+        co = build_bucket_coalescer(dataset, max_bucket_variants, host_geometry=host_geometry,
+                                    bucket_multiple=mult)
+        return list(co.kept)
+    if host_geometry is not None:
+        both = per_record | set(host_geometry.achievable_post_buckets(mult))
+        lo_h, lo_w = min(h for h, _ in both), min(w for _, w in both)
+        hi_h, hi_w = max(h for h, _ in both), max(w for _, w in both)
+        return [(h, w) for h in range(lo_h, hi_h + 1, mult) for w in range(lo_w, hi_w + 1, mult)]
+    shapes = set(per_record)
+    if batch_size > 1:
+        for h1, w1 in per_record:
+            for h2, w2 in per_record:
+                shapes.add((max(h1, h2), max(w1, w2)))
+    return sorted(shapes)
+
+
+class BucketCoalescer:
+    """Bounds the compute-bucket variants (the train CLI's
+    --max_bucket_variants): keeps the whole canvas (a superset of every
+    bucket) and the `max_variants - 1` most frequent other ranking
+    buckets, and maps every other bucket, seen or not, to its
+    smallest-area kept superset. While the distinct ranking buckets and
+    the canvas fit the bound, seen buckets map to themselves; buckets
+    that only appear at run time (host-geometry shapes, mixed tail
+    batches) still land in the kept set.
+
+    `runtime_stats` counts the map() calls after construction by outcome
+    (exact, padded, canvas), so a caller can tell a kept set ranked from
+    shapes that do not ship (maybe_warn_misranked)."""
+
+    def __init__(self, keys: List[Tuple[int, int]], max_variants: int,
+                 canvas: Tuple[int, int]):
+        from collections import Counter
+
+        if max_variants < 1:
+            raise ValueError(f"max_variants must be >= 1, got {max_variants}")
+        self.canvas = (int(canvas[0]), int(canvas[1]))
+        counts = Counter(tuple(int(a) for a in k) for k in keys)
+        # active: some ranking bucket was dropped from the kept set
+        self.active = len(set(counts) | {self.canvas}) > max_variants
+        if not self.active:
+            kept = set(counts) | {self.canvas}
+        else:
+            # frequency, then shape; one slot is the canvas's
+            by_freq = sorted(counts, key=lambda k: (-counts[k], k))
+            kept = set([k for k in by_freq if k != self.canvas][: max_variants - 1])
+            kept.add(self.canvas)
+        self.kept = sorted(kept)
+        self._map: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self._warned = False
+        for k in counts:
+            self.map(k)
+        self.runtime_stats = Counter()
+
+    def map(self, key: Tuple[int, int]) -> Tuple[int, int]:
+        """The kept bucket this bucket computes at (a key beyond the canvas
+        is clamped to it first)."""
+        key = (min(int(key[0]), self.canvas[0]), min(int(key[1]), self.canvas[1]))
+        hit = self._map.get(key)
+        if hit is None:
+            supers = [s for s in self.kept if s[0] >= key[0] and s[1] >= key[1]]
+            hit = min(supers, key=lambda s: (s[0] * s[1], s))
+            self._map[key] = hit
+        stats = getattr(self, "runtime_stats", None)
+        if stats is not None:
+            stats["exact" if hit == key else "canvas" if hit == self.canvas else "padded"] += 1
+        return hit
+
+    def maybe_warn_misranked(self, min_calls: int = 64, canvas_fraction: float = 0.5) -> bool:
+        """Warn once when most run-time buckets fall through to the canvas:
+        the kept set was ranked from shapes that do not ship."""
+        stats = self.runtime_stats
+        total = sum(stats.values())
+        if self._warned or total < min_calls or stats["canvas"] / total <= canvas_fraction:
+            return False
+        self._warned = True
+        logging.getLogger(__name__).warning(
+            "max_bucket_variants: %d/%d run-time buckets mapped to the whole canvas %s; the "
+            "kept set %s does not match the shapes that ship", stats["canvas"], total,
+            self.canvas, self.kept)
+        return True
+
+
+# the post-geometry bucket ranking's own seed and sample size: batches()
+# and achievable_bucket_shapes() build the same kept set whatever the
+# training seed
+_GEOMETRY_RANK_SEED = 0x6B75
+_GEOMETRY_RANK_RECORDS = 512
+
+
+def sampled_post_geometry_keys(dataset: "DetectionDataset", host_geometry,
+                               max_records: int = _GEOMETRY_RANK_RECORDS,
+                               bucket_multiple: int = 0) -> List[Tuple[int, int]]:
+    """The pack-shape buckets of one geometry draw on each of up to
+    max_records records spread over the dataset (a fixed seed, headers
+    only): with host geometry these are the shapes that ship, not the
+    records' own buckets."""
+    mult = _bucket_multiple(bucket_multiple)
+    ch, cw = dataset.canvas_size
+    n = len(dataset)
+    idx = sorted(set(np.linspace(0, n - 1, min(n, max_records)).astype(int).tolist()))
+    out = []
+    for i in idx:
+        post = host_geometry(dataset.peek_geometry_sample(int(i)),
+                             np.random.default_rng([_GEOMETRY_RANK_SEED, int(i)]))
+        ph, pw = post["pack_shape"]
+        out.append((bucket_extent(int(ph), ch, mult), bucket_extent(int(pw), cw, mult)))
+    return out
+
+
+def build_bucket_coalescer(dataset: "DetectionDataset", max_variants: int, host_geometry=None,
+                           record_keys: Optional[List[Tuple[int, int]]] = None,
+                           bucket_multiple: int = 0) -> BucketCoalescer:
+    """The one construction of the --max_bucket_variants coalescer
+    (batches, the worker loader, achievable_bucket_shapes), so every
+    consumer keeps the same set: ranked from the sampled post-geometry
+    pack buckets with host geometry, from the record buckets otherwise."""
+    if host_geometry is not None:
+        keys = sampled_post_geometry_keys(dataset, host_geometry,
+                                          bucket_multiple=bucket_multiple)
+    else:
+        keys = record_keys if record_keys is not None else record_bucket_keys(
+            dataset, bucket_multiple=bucket_multiple)
+    return BucketCoalescer(keys, max_variants, dataset.canvas_size)
 
 
 def record_bucket_keys(dataset: DetectionDataset, max_records: Optional[int] = None,
@@ -288,20 +482,91 @@ def _grouped_epoch_order(keys: List[Tuple[int, int]], batch_size: int,
     return out
 
 
+class BatchPlan:
+    """What `batches` decides before reading a pixel: whether batches
+    group by bucket, the grouping keys, and the coalescer
+    (max_bucket_variants > 0 with pack_images). `epochs` yields each
+    batch's (epoch, record indices) in `batches`' order."""
+
+    def __init__(self, dataset: DetectionDataset, batch_size: int, pack_images: bool = False,
+                 aspect_grouping: Optional[bool] = None, bucket_multiple: int = 0,
+                 host_geometry=None, max_bucket_variants: int = 0):
+        if aspect_grouping is None:
+            aspect_grouping = pack_images
+        self.batch_size = batch_size
+        self.aspect_grouping = aspect_grouping and batch_size > 1
+        self.n = len(dataset)
+        self.keys = record_bucket_keys(dataset, bucket_multiple=bucket_multiple) \
+            if self.aspect_grouping else None
+        self.coalescer = None
+        # the bound holds wherever images pack (at batch 1 too)
+        if max_bucket_variants and pack_images:
+            self.coalescer = build_bucket_coalescer(dataset, max_bucket_variants,
+                                                    host_geometry=host_geometry,
+                                                    record_keys=self.keys,
+                                                    bucket_multiple=bucket_multiple)
+            # records sharing a kept bucket group together; under host
+            # geometry the record buckets are only a grouping heuristic
+            if self.keys is not None and host_geometry is None:
+                self.keys = [self.coalescer.map(k) for k in self.keys]
+
+    def epochs(self, shuffle: bool = True, seed: int = 0, epochs: Optional[int] = None,
+               drop_remainder: bool = True) -> Iterator[Tuple[int, np.ndarray]]:
+        rng = np.random.RandomState(seed)
+        epoch = 0
+        bs, n = self.batch_size, self.n
+        while epochs is None or epoch < epochs:
+            if self.aspect_grouping:
+                epoch_batches = _grouped_epoch_order(self.keys, bs, rng, shuffle)
+                order = np.concatenate(epoch_batches) if epoch_batches else np.arange(n)
+            else:
+                order = rng.permutation(n) if shuffle else np.arange(n)
+                epoch_batches = [order[s : s + bs] for s in range(0, n, bs)]
+            for idx in epoch_batches:
+                if len(idx) < bs:
+                    if drop_remainder:
+                        continue
+                    idx = np.concatenate([idx, order[: bs - len(idx)]])
+                yield epoch, idx
+            epoch += 1
+
+    def per_epoch(self) -> int:
+        """Batches an epoch with drop_remainder: with grouping, each
+        group's full batches and the full batches of the leftovers."""
+        bs = self.batch_size
+        if not self.aspect_grouping:
+            return self.n // bs
+        counts: Dict[Tuple[int, int], int] = {}
+        for k in self.keys:
+            counts[k] = counts.get(k, 0) + 1
+        return (sum(c // bs for c in counts.values())
+                + sum(c % bs for c in counts.values()) // bs)
+
+
+def load_batch(dataset: DetectionDataset, idx: np.ndarray, epoch: int, seed: int = 0,
+               decode_threads: int = 0, host_geometry=None, pack_images: bool = False,
+               bucket_multiple: int = 0,
+               coalescer: Optional[BucketCoalescer] = None) -> Dict[str, np.ndarray]:
+    """One batch of `batches`: decode records idx, draw each one's host
+    geometry from np.random.default_rng([seed, epoch, record]) (so a
+    record visit's draws depend on nothing else), collate and pack."""
+    if decode_threads > 0:
+        samples = dataset.get_batch(idx, decode_threads)
+    else:
+        samples = [dataset.get(int(i)) for i in idx]
+    if host_geometry is not None:
+        samples = [host_geometry(s, np.random.default_rng([seed, epoch, int(i)]))
+                   for s, i in zip(samples, idx)]
+    return _collate(samples, pack_images, bucket_multiple, coalescer)
+
+
 def batches_per_epoch(dataset: DetectionDataset, batch_size: int, pack_images: bool = False,
-                      aspect_grouping: Optional[bool] = None, bucket_multiple: int = 0) -> int:
+                      aspect_grouping: Optional[bool] = None, bucket_multiple: int = 0,
+                      host_geometry=None, max_bucket_variants: int = 0) -> int:
     """How many batches `batches` yields an epoch with drop_remainder (the
-    same arguments): with aspect grouping, each bucket's full batches and
-    the full batches of the leftovers."""
-    if aspect_grouping is None:
-        aspect_grouping = pack_images
-    if not (aspect_grouping and batch_size > 1):
-        return len(dataset) // batch_size
-    counts: Dict[Tuple[int, int], int] = {}
-    for k in record_bucket_keys(dataset, bucket_multiple=bucket_multiple):
-        counts[k] = counts.get(k, 0) + 1
-    return (sum(c // batch_size for c in counts.values())
-            + sum(c % batch_size for c in counts.values()) // batch_size)
+    same arguments)."""
+    return BatchPlan(dataset, batch_size, pack_images, aspect_grouping, bucket_multiple,
+                     host_geometry, max_bucket_variants).per_epoch()
 
 
 def batches(
@@ -318,42 +583,22 @@ def batches(
     host_geometry=None,
     max_bucket_variants: int = 0,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Host batch iterator, shuffled each epoch from `seed` (the record
-    order of mtlx's `batches` for the same arguments). decode_threads > 0
+    """Host batch iterator, shuffled each epoch from `seed` (the batches
+    of mtlx's `batches` for the same arguments). decode_threads > 0
     decodes each batch's JPEGs on the codec's thread pool; pack_images
     ships bucketed true-shape images; aspect_grouping (default: on when
-    pack_images is) batches records by shared compute bucket."""
-    if host_geometry is not None:
-        raise NotImplementedError(f"host geometry (crop/pad augmentations) {_NOT_PORTED} item 11")
-    if max_bucket_variants:
-        raise NotImplementedError(f"max_bucket_variants {_NOT_PORTED} item 10")
-    if aspect_grouping is None:
-        aspect_grouping = pack_images
-    aspect_grouping = aspect_grouping and batch_size > 1
-    rng = np.random.RandomState(seed)
-    epoch = 0
-    n = len(dataset)
-    keys = record_bucket_keys(dataset, bucket_multiple=bucket_multiple) if aspect_grouping \
-        else None
-    while epochs is None or epoch < epochs:
-        if aspect_grouping:
-            epoch_batches = _grouped_epoch_order(keys, batch_size, rng, shuffle)
-            order = np.concatenate(epoch_batches) if epoch_batches else np.arange(n)
-        else:
-            order = rng.permutation(n) if shuffle else np.arange(n)
-            epoch_batches = [order[s : s + batch_size]
-                             for s in range(0, n, batch_size)]
-        for idx in epoch_batches:
-            if len(idx) < batch_size:
-                if drop_remainder:
-                    continue
-                idx = np.concatenate([idx, order[: batch_size - len(idx)]])
-            if decode_threads > 0:
-                samples = dataset.get_batch(idx, decode_threads)
-            else:
-                samples = [dataset.get(int(i)) for i in idx]
-            yield _collate(samples, pack_images, bucket_multiple)
-        epoch += 1
+    pack_images is) batches records by shared compute bucket;
+    host_geometry (a host_geometry.HostGeometry) draws each record
+    visit's crop / pad geometry; max_bucket_variants > 0 bounds the
+    compute buckets (BucketCoalescer): rarer ones pad up to a kept
+    superset."""
+    plan = BatchPlan(dataset, batch_size, pack_images, aspect_grouping, bucket_multiple,
+                     host_geometry, max_bucket_variants)
+    for epoch, idx in plan.epochs(shuffle, seed, epochs, drop_remainder):
+        yield load_batch(dataset, idx, epoch, seed, decode_threads, host_geometry,
+                         pack_images, bucket_multiple, plan.coalescer)
+        if plan.coalescer is not None:
+            plan.coalescer.maybe_warn_misranked()
 
 
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device,

@@ -57,7 +57,9 @@ def parse_args(argv=None):
     p.add_argument("--bucket_multiple", type=bucket_multiple_arg, default=0,
                    help="compute bucket granularity in pixels (a multiple of 32); "
                         "overrides the pipeline's `bucketing {}` block; default 128")
-    p.add_argument("--max_bucket_variants", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--max_bucket_variants", type=int, default=0,
+                   help="bound the compute buckets to N shapes, as the train CLI's flag; "
+                        "0 = the pipeline's `bucketing {}` block, else no bound")
     p.add_argument("--device", default=None, help="'cuda' (the default) or 'cpu'")
     return p.parse_args(argv)
 
@@ -105,10 +107,13 @@ def detect(model, images: np.ndarray, true_shapes: np.ndarray,
 
 
 def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
-                        batch_size: int = 1, bucket_multiple: int = 0) -> Dict[str, float]:
+                        batch_size: int = 1, bucket_multiple: int = 0,
+                        max_bucket_variants: int = 0) -> Dict[str, float]:
     """One evaluation pass of the model's current weights; returns the
-    metrics dict."""
-    from mtlx_torch.data.loader import pack_batch_images, record_bucket_keys
+    metrics dict. max_bucket_variants > 0 bounds the compute buckets as
+    training does (data/loader.py BucketCoalescer; the metrics do not
+    depend on the padding)."""
+    from mtlx_torch.data.loader import BucketCoalescer, pack_batch_images, record_bucket_keys
 
     if eval_config.eval_instance_masks:
         raise NotImplementedError("eval_instance_masks is not ported: ROADMAP.md queue 1, "
@@ -120,9 +125,14 @@ def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
     # bucket-major order: a batch of mixed buckets computes on the largest
     # one (metrics are per image, so the order does not change them)
     order = list(range(num))
-    if batch_size > 1:
+    coalescer = None
+    if batch_size > 1 or max_bucket_variants:
         keys = record_bucket_keys(dataset, max_records=num, bucket_multiple=bucket_multiple)
-        order.sort(key=lambda i: (keys[i], i))
+        if max_bucket_variants:
+            coalescer = BucketCoalescer(keys, max_bucket_variants, dataset.canvas_size)
+            keys = [coalescer.map(k) for k in keys]
+        if batch_size > 1:
+            order.sort(key=lambda i: (keys[i], i))
     t0 = time.perf_counter()
     done = 0
     for start in range(0, num, batch_size):
@@ -130,7 +140,7 @@ def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
         samples = dataset.get_batch(idx, decode_threads=2)
         true_shapes = np.stack([s["true_shape"] for s in samples])
         images = pack_batch_images(np.stack([s["image"] for s in samples]), true_shapes,
-                                   bucket_multiple)
+                                   bucket_multiple, coalescer)
         if len(idx) < batch_size:  # pad the tail batch
             pad = batch_size - len(idx)
             images = np.concatenate([images, np.repeat(images[-1:], pad, 0)])
@@ -187,8 +197,8 @@ def main(argv=None):
     configs = config_util.get_configs_from_pipeline_file(args.pipeline_config_path)
     for note in config_util.compatibility_notes(configs):
         print(f"[eval] note: {note}", flush=True)
-    multiple = resolve_bucketing(configs["bucketing"], args.bucket_multiple,
-                                 args.max_bucket_variants)
+    multiple, max_variants = resolve_bucketing(configs["bucketing"], args.bucket_multiple,
+                                               args.max_bucket_variants)
     eval_config = configs["eval_config"]
     input_config = (configs["train_input_config"] if args.eval_training_data
                     else configs["eval_input_config"])
@@ -223,7 +233,8 @@ def main(argv=None):
                                 use_ema=eval_config.use_moving_averages)
                 metrics = evaluate_checkpoint(model, dataset, eval_config, categories,
                                               batch_size=args.eval_batch_size,
-                                              bucket_multiple=multiple)
+                                              bucket_multiple=multiple,
+                                              max_bucket_variants=max_variants)
                 rounded = {k: round(float(v), 4) for k, v in metrics.items()}
                 print(f"[eval] step {step}: " + json.dumps(rounded), flush=True)
                 with open(os.path.join(args.eval_dir, "metrics.jsonl"), "a") as f:

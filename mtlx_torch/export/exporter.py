@@ -214,8 +214,10 @@ def export_inference_graph(pipeline_config_path: str, trained_checkpoint_dir: st
     from mtlx_torch.utils.bucketing import resolve_bucketing
 
     configs = config_util.get_configs_from_pipeline_file(pipeline_config_path)
+    # serving computes every bucket it meets: the bound on the variants is
+    # the train and eval CLIs' (mtlx's exporter ignores it too)
     configs["bucketing"].bucket_multiple = resolve_bucketing(configs["bucketing"],
-                                                             bucket_multiple)
+                                                             bucket_multiple)[0]
     # the export only copies weights from the checkpoint into the bundle:
     # it computes nothing, so it needs no card and holds the detector in
     # host memory; `InferenceModel.load` puts the bundle on the card

@@ -1,5 +1,6 @@
-"""Numpy box geometry for the evaluator (port of area, intersection, iou
-and ioa of mtlx/geometry/np_box_ops.py).
+"""Numpy box geometry for the evaluator and the host geometry (port of
+area, intersection, iou, ioa and clip_to_window of
+mtlx/geometry/np_box_ops.py).
 
 Boxes are float arrays of shape [N, 4] in [ymin, xmin, ymax, xmax] order.
 """
@@ -35,3 +36,10 @@ def ioa(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
     inter = intersection(boxes1, boxes2)
     a2 = area(boxes2)
     return np.where(a2[None, :] > 0, inter / np.maximum(a2[None, :], 1e-30), 0.0)
+
+
+def clip_to_window(boxes: np.ndarray, window: np.ndarray) -> np.ndarray:
+    """Clip boxes to a window [ymin, xmin, ymax, xmax]."""
+    wy0, wx0, wy1, wx1 = window
+    return np.stack([np.clip(boxes[:, 0], wy0, wy1), np.clip(boxes[:, 1], wx0, wx1),
+                     np.clip(boxes[:, 2], wy0, wy1), np.clip(boxes[:, 3], wx0, wx1)], axis=1)

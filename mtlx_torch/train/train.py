@@ -22,6 +22,15 @@ N+`--profile_steps` with `torch.profiler` into `<train_dir>/profile`.
 The random draws of step s come from a generator seeded by (seed, s), so
 a resumed run takes the same draws as one that never stopped.
 
+With a keep_aspect_ratio_resizer the crop / pad augmentations draw their
+geometry on the host (data/host_geometry.py) and the step resamples the
+pixels; the rest augment on the device. `--grain_workers N` loads the
+batches in N worker processes (data/grain_loader.py: `batches`' batches
+in `batches`' order, not grain's); `--max_bucket_variants N` bounds the
+compute buckets (data/loader.py BucketCoalescer); `--precompile_buckets`
+runs one forward and backward at every bucket shape before step 1 and
+commits nothing (`warm_up_buckets`), so a run with it equals one without.
+
 `--distributed` trains data-parallel over torch.distributed, one rank a
 process, launched by `python -m torch.distributed.run --nproc_per_node=N
 -m mtlx_torch.train.train --distributed ...` (NCCL on the cards, gloo
@@ -53,10 +62,22 @@ from mtlx_torch.train import train_step as ts
 
 
 def make_augmented_batch_fn(aug_options: List[Tuple[str, dict]]) -> Callable:
-    """Returns augment(batch, draws) -> batch with the options applied;
-    draws[name] holds each option's per-image draws."""
+    """Returns augment(batch, draws) -> batch: a batch that carries host
+    geometry (the `aug_*` fields of data/host_geometry.py) has its pixels
+    resampled through its window first; then the options apply, the one at
+    position i with draws[preprocessor.draw_key(i)]."""
 
     def augment(batch: Dict[str, Tensor], draws: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        if "aug_window" in batch:
+            # host-drawn crop / pad geometry: the boxes and true_shape were
+            # rewritten on the host, only the pixels move
+            batch = dict(batch)
+            window = batch.pop("aug_window")
+            src_shape = batch.pop("aug_src_shape")
+            content = batch.pop("aug_content", None)
+            batch["image"] = prep.batch_apply_host_window(
+                batch["image"].float(), batch["true_shape"], window, src_shape,
+                batch.pop("aug_pad_color"), content)
         if not aug_options:
             return batch
         sample = {
@@ -83,23 +104,34 @@ def make_step_fn(model, aug_options: List[Tuple[str, dict]],
     `generator`, in the order of train_step.make_draws (the
     augmentations' first); with `replicas` they are made for the global
     batch and the rank takes its rows. `ema_decay` keeps the state's
-    moving average of the parameters."""
+    moving average of the parameters. `step_fn.warm_up(state, batch,
+    generator)` takes the same path to one forward and backward that
+    commits nothing (train_step.make_train_step)."""
     augment = make_augmented_batch_fn(aug_options)
     raw_step = ts.make_train_step(model, regularization_fn, replicas=replicas,
                                   ema_decay=ema_decay)
 
-    def step_fn(state, batch, generator: Optional[torch.Generator] = None,
-                draws: Optional[Dict[str, Tensor]] = None):
+    def prepare(batch, generator, draws, ranks):
         batch = ts.pad_for_model(model, batch, bucket_multiple)
         draws = dict(draws or {})
         if generator is not None:
             img = batch["image"]
-            made = ts.make_draws(model, ts.global_rows(img.shape[0], replicas),
+            made = ts.make_draws(model, ts.global_rows(img.shape[0], ranks),
                                  tuple(img.shape[1:3]), generator, aug_options,
                                  num_gt=batch["gt_boxes"].shape[1])
-            draws = {**ts.rank_rows(made, replicas), **draws}
-        return raw_step(state, augment(batch, draws), draws=draws)
+            draws = {**ts.rank_rows(made, ranks), **draws}
+        return augment(batch, draws), draws
 
+    def step_fn(state, batch, generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, Tensor]] = None):
+        batch, draws = prepare(batch, generator, draws, replicas)
+        return raw_step(state, batch, draws=draws)
+
+    def warm_up(state, batch, generator: Optional[torch.Generator] = None) -> None:
+        batch, draws = prepare(batch, generator, None, None)
+        raw_step.warm_up(state, batch, draws=draws)
+
+    step_fn.warm_up = warm_up
     return step_fn
 
 
@@ -129,12 +161,6 @@ def step_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
 
 
-# flags of mtlx's CLI whose machinery is not ported: set, each raises
-_NOT_PORTED_FLAGS = (
-    ("grain_workers", 0, "the grain loader (ROADMAP.md queue 1 item 8)"),
-    ("max_bucket_variants", 0, "bucket coalescing (ROADMAP.md queue 1 item 10)"),
-    ("precompile_buckets", False, "bucket precompilation (ROADMAP.md queue 1 item 9)"),
-)
 # reference TF1 cluster flags: accepted, noted and ignored
 _TF1_FLAGS = (("master", ""), ("task", 0), ("num_clones", 1), ("clone_on_cpu", False),
               ("worker_replicas", 1), ("ps_tasks", 0), ("worker_job_name", "lonely_worker"))
@@ -168,9 +194,18 @@ def parse_args(argv=None):
                         "overrides the pipeline's `bucketing {}` block; default 128")
     p.add_argument("--device", default=None,
                    help="'cuda' (the default) or 'cpu'")
-    p.add_argument("--grain_workers", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--max_bucket_variants", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--precompile_buckets", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--grain_workers", type=int, default=0,
+                   help=">0 loads batches in this many worker processes "
+                        "(data/grain_loader.py), the same batches in the same order")
+    p.add_argument("--max_bucket_variants", type=int, default=0,
+                   help="bound the compute buckets to N shapes (with --pack_transfer): the "
+                        "N - 1 most frequent and the canvas; rarer buckets pad up to a kept "
+                        "superset. 0 = the pipeline's `bucketing {}` block, else no bound")
+    p.add_argument("--precompile_buckets", action="store_true",
+                   help="before step 1, run one forward and backward of the train step at "
+                        "every bucket shape the data can give (cuDNN's choices, the "
+                        "allocator), committing nothing (with --pack_transfer and a "
+                        "bucketed-compute model)")
     p.add_argument("--distributed", action="store_true",
                    help="data-parallel over torch.distributed: launch with python -m "
                         "torch.distributed.run; every rank runs this command on its shard")
@@ -184,14 +219,52 @@ def parse_args(argv=None):
             "default": default, "type": type(default)}
         p.add_argument(f"--{flag}", help=argparse.SUPPRESS, **kw)
     args = p.parse_args(argv)
-    for flag, default, what in _NOT_PORTED_FLAGS:
-        if getattr(args, flag) != default:
-            raise NotImplementedError(f"--{flag}: {what} is not ported to mtlx_torch")
     for flag, default in _TF1_FLAGS[:-1]:
         if getattr(args, flag) != default:
             print(f"[train] note: --{flag} is a TF1 cluster knob; this program has no "
                   "clones or parameter servers (ignored)", flush=True)
     return args
+
+
+def warm_up_buckets(model, step_fn, state, dataset, batch_size: int, host_geometry,
+                    max_variants: int, multiple: int, device: torch.device,
+                    pack_transfer: bool, say=print) -> List[Tuple[int, int]]:
+    """--precompile_buckets: one forward and backward of the train step
+    (`step_fn.warm_up`, which commits nothing) at every compute bucket the
+    data can give (loader.achievable_bucket_shapes), on record 0 (through
+    the host geometry with default_rng(0)) repeated to the batch. It fixes
+    cuDNN's choices and grows the allocator before step 1, draws from its
+    own generator, and leaves the kernels' launch counts as it found them.
+    Skipped, with a note, without --pack_transfer or for a model that
+    computes on its whole canvas (SSD), as mtlx skips."""
+    from mtlx_torch.data.loader import achievable_bucket_shapes
+
+    if not (pack_transfer and getattr(model, "supports_bucketed_compute", True)):
+        say("[train] note: --precompile_buckets needs --pack_transfer and a bucketed-compute "
+            "model; skipped", flush=True)
+        return []
+    t0 = time.perf_counter()
+    shapes = achievable_bucket_shapes(dataset, batch_size, host_geometry=host_geometry,
+                                      max_bucket_variants=max_variants,
+                                      bucket_multiple=multiple)
+    sample = dataset.get(0)
+    if host_geometry is not None:
+        sample = host_geometry(sample, np.random.default_rng(0))
+    drop = {"gt_difficult", "gt_group_of", "original_shape", "source_id", "pack_shape"}
+    template = {k: torch.from_numpy(np.stack([np.asarray(v)] * batch_size)).to(device)
+                for k, v in sample.items() if k not in drop}
+    counts = kernel_launches()
+    generator = torch.Generator(device=device)
+    for hb, wb in shapes:
+        generator.manual_seed(0)
+        image = template["image"][:, :hb, :wb].contiguous()
+        step_fn.warm_up(state, dict(template, image=image), generator)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    set_kernel_launches(counts)
+    say(f"[train] warmed up {len(shapes)} bucket shapes {shapes} in "
+        f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return shapes
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -202,6 +275,16 @@ def kernel_launches() -> Dict[str, int]:
             "roi_crop": roi_cuda.crop_and_resize.launches,
             "roi_crop_backward": roi_cuda.crop_and_resize_backward.launches,
             "iou": iou_cuda.iou_matrix.launches}
+
+
+def set_kernel_launches(counts: Dict[str, int]) -> None:
+    """Set each hand-written kernel's launch count (kernel_launches' keys)."""
+    from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
+
+    nms_cuda.non_max_suppression.launches = counts["nms"]
+    roi_cuda.crop_and_resize.launches = counts["roi_crop"]
+    roi_cuda.crop_and_resize_backward.launches = counts["roi_crop_backward"]
+    iou_cuda.iou_matrix.launches = counts["iou"]
 
 
 def main(argv=None) -> None:
@@ -228,6 +311,7 @@ def main(argv=None) -> None:
 def _train(args, device: torch.device, replicas) -> None:
     from mtlx_torch.builders import model_builder, optimizer_builder, preprocessor_builder
     from mtlx_torch.config import config_util
+    from mtlx_torch.data.host_geometry import HostGeometry, split_host_geometry
     from mtlx_torch.data.loader import (DetectionDataset, batches, batches_per_epoch,
                                         device_prefetch)
     from mtlx_torch.train import checkpoints as ckpt_lib
@@ -239,11 +323,12 @@ def _train(args, device: torch.device, replicas) -> None:
     configs = config_util.get_configs_from_pipeline_file(args.pipeline_config_path)
     for note in config_util.compatibility_notes(configs):
         say(f"[train] note: {note}", flush=True)
-    multiple = resolve_bucketing(configs["bucketing"], args.bucket_multiple,
-                                 args.max_bucket_variants)
-    # the pipeline.config saved into train_dir carries the granularity, so
-    # eval and serving of this model compute at it without the flag
+    multiple, max_variants = resolve_bucketing(configs["bucketing"], args.bucket_multiple,
+                                               args.max_bucket_variants)
+    # the pipeline.config saved into train_dir carries the granularity and
+    # the bound, so eval and serving of this model use them without the flags
     configs["bucketing"].bucket_multiple = multiple
+    configs["bucketing"].max_bucket_variants = max_variants
     train_config = configs["train_config"]
     model = model_builder.build(configs["model"], is_training=True,
                                 max_gt_boxes=train_config.max_number_of_boxes or 100,
@@ -260,11 +345,15 @@ def _train(args, device: torch.device, replicas) -> None:
     tx, _, ema_decay = optimizer_builder.build(train_config.optimizer, train_config)
     aug_options = preprocessor_builder.build(train_config.data_augmentation_options)
     resizer = model_builder.resizer_params(model_builder.image_resizer(configs["model"]))
-    crops = [name for name, _ in aug_options if name in preprocessor_builder.CROP_FAMILY]
-    if crops and resizer[0] == "keep_aspect":
-        raise NotImplementedError(
-            f"{crops[0]} with a keep_aspect_ratio_resizer crops on the host (mtlx's "
-            "host geometry), which is not ported: ROADMAP.md queue 1 item 11")
+    # with a keep-aspect resizer the crop / pad family changes the final
+    # shape: its geometry is drawn on the host and the batch computes at
+    # the post-crop bucket (data/host_geometry.py)
+    host_ops, aug_options = split_host_geometry(aug_options, resizer)
+    host_geometry = None
+    if host_ops:
+        host_geometry = HostGeometry(host_ops, resizer[1]["min_dimension"],
+                                     resizer[1]["max_dimension"], model.cfg.canvas_size)
+        say(f"[train] host-side crop / pad geometry: {[n for n, _ in host_ops]}", flush=True)
     reg_fn = ts.make_regularization_fn(model_builder.regularization_scopes(configs["model"]))
 
     input_config = configs["train_input_config"]
@@ -318,13 +407,23 @@ def _train(args, device: torch.device, replicas) -> None:
         # the ranks' shards may give unequal batch counts: stop all of them
         # with the shortest, or one would wait forever in an all-reduce
         per_epoch = batches_per_epoch(dataset, local_batch, bool(args.pack_transfer),
-                                      bool(args.aspect_grouping), multiple)
+                                      bool(args.aspect_grouping), multiple, host_geometry,
+                                      max_variants)
         num_steps = min(num_steps, state.step + replicas.min_int(epochs * per_epoch))
-    host_iter = batches(dataset, local_batch, shuffle=shuffle, seed=args.seed,
-                        decode_threads=args.decode_threads, epochs=epochs,
-                        pack_images=bool(args.pack_transfer),
-                        aspect_grouping=bool(args.aspect_grouping),
-                        bucket_multiple=multiple)
+    if args.precompile_buckets:
+        warm_up_buckets(model, step_fn, state, dataset, local_batch, host_geometry,
+                        max_variants, multiple, device, bool(args.pack_transfer), say)
+    loader_args = dict(shuffle=shuffle, seed=args.seed, decode_threads=args.decode_threads,
+                       pack_images=bool(args.pack_transfer),
+                       aspect_grouping=bool(args.aspect_grouping), bucket_multiple=multiple,
+                       host_geometry=host_geometry, max_bucket_variants=max_variants)
+    if args.grain_workers > 0:
+        from mtlx_torch.data.grain_loader import make_grain_loader
+
+        host_iter = make_grain_loader(dataset, local_batch, worker_count=args.grain_workers,
+                                      num_epochs=epochs, **loader_args)
+    else:
+        host_iter = batches(dataset, local_batch, epochs=epochs, **loader_args)
     stalls: list = []  # seconds the loop waited for each batch
     save_every = train_config.save_checkpoints_steps or 1000
     saved = latest
@@ -377,6 +476,8 @@ def _train(args, device: torch.device, replicas) -> None:
         if profiler is not None:
             stop_profiler(profiler, args.train_dir, cur)
         data_iter.close()
+        if args.grain_workers > 0:
+            host_iter.close()
         dataset.close()
         if writer is not None:
             writer.close()

@@ -32,8 +32,8 @@ batch's statistics into them after the update, as mtlx's step writes its
 
 Randomness: `make_draws` makes every draw of a step from one
 `torch.Generator` on the step's device, in this order: each
-augmentation option's draws (in option order; data/preprocessor.py
-`make_draws`), then for Faster R-CNN proposal_pos and proposal_neg [B,
+augmentation option's draws (in option order, keyed by the option's
+position; data/preprocessor.py `make_draws` and `draw_key`), then for Faster R-CNN proposal_pos and proposal_neg [B,
 first_stage_max_proposals], anchor_pos and anchor_neg [B, A], and with
 mtl.window_sampling window_scale and window_offset [B, G, 2]; for SSD
 with use_dropout dropout_{i} [B, h, w, depth], each box predictor's. A
@@ -333,8 +333,9 @@ def make_draws(model, batch_size: int, canvas_hw: Tuple[int, int],
                generator: torch.Generator, aug_options=(), num_gt: int = 0) -> Dict[str, Tensor]:
     """Every draw of one step, in the documented order (module
     docstring), from `generator` on its own device."""
-    draws = {name: preprocessor.make_draws(name, kwargs, batch_size, generator)
-             for name, kwargs in aug_options}
+    draws = {preprocessor.draw_key(i): preprocessor.make_draws(
+        name, kwargs, batch_size, canvas_hw, num_gt, generator)
+        for i, (name, kwargs) in enumerate(aug_options)}
 
     def u(*shape):
         return torch.rand(shape, generator=generator, device=generator.device)
@@ -388,35 +389,65 @@ def make_train_step(model, regularization_fn: Optional[Callable] = None,
     jit) and every rank takes the same update.
 
     `ema_decay` keeps the state's moving average of the parameters (the
-    state must carry one: create_train_state(keep_ema=True))."""
+    state must carry one: create_train_state(keep_ema=True)).
+
+    `step.warm_up(state, batch, generator=None, draws=None)` runs the
+    step's forward and backward at the batch's shape and commits nothing
+    (the train CLI's --precompile_buckets)."""
     from mtlx_torch.backbones.resnet import live_batch_norms
 
     norms = live_batch_norms(model.modules)
     for norm in norms:
         norm.replicas = replicas
 
-    def step(state: TrainState, batch: Dict[str, Tensor],
-             generator: Optional[torch.Generator] = None,
-             draws: Optional[Dict[str, Tensor]] = None):
+    def forward_backward(state: TrainState, batch: Dict[str, Tensor],
+                         generator: Optional[torch.Generator], draws: Optional[Dict],
+                         ranks) -> Dict[str, Tensor]:
+        """The losses of the batch, their gradients left in the parameters'
+        .grad (cleared first)."""
         m = state.model
         images = m.preprocess(batch["image"].float())
         gt = {"boxes": batch["gt_boxes"].float(), "classes": batch["gt_classes"].long(),
               "mask": batch["gt_mask"].bool()}
         draws = dict(draws or {})
         if generator is not None:
-            made = make_draws(m, global_rows(images.shape[0], replicas),
+            made = make_draws(m, global_rows(images.shape[0], ranks),
                               tuple(images.shape[1:3]), generator, num_gt=gt["boxes"].shape[1])
-            draws = {**rank_rows(made, replicas), **draws}
-        params = state.params
-        for p in params.values():
+            draws = {**rank_rows(made, ranks), **draws}
+        for p in state.params.values():
             p.grad = None
         pred = m.predict_train(images, batch["true_shape"], gt, draws)
-        losses = dict(m.loss(pred, gt, draws, replicas=replicas))
+        losses = dict(m.loss(pred, gt, draws, replicas=ranks))
         if regularization_fn is not None:
-            reg = regularization_fn(params)
+            reg = regularization_fn(state.params)
             losses["Loss/regularization_loss"] = reg
             losses["total_loss"] = losses["total_loss"] + reg
         losses["total_loss"].backward()
+        return losses
+
+    def warm_up(state: TrainState, batch: Dict[str, Tensor],
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, Tensor]] = None) -> None:
+        """One forward and backward at the batch's shape that commits
+        nothing: the gradients and the live batch norms' statistics are
+        dropped, the optimizer, the moving average and the step count are
+        not touched, and no other rank takes part."""
+        for norm in norms:
+            norm.replicas = None
+        try:
+            forward_backward(state, batch, generator, draws, None)
+        finally:
+            for p in state.params.values():
+                p.grad = None
+            for norm in norms:
+                norm.batch_stats = None
+                norm.replicas = replicas
+
+    def step(state: TrainState, batch: Dict[str, Tensor],
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, Tensor]] = None):
+        params = state.params
+        losses = forward_backward(state, batch, generator, draws, replicas)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
         metrics = {k: v.detach() for k, v in losses.items()}
@@ -438,4 +469,5 @@ def make_train_step(model, regularization_fn: Optional[Callable] = None,
         metrics["grad_norm"] = grad_norm
         return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
 
+    step.warm_up = warm_up
     return step

@@ -6,6 +6,8 @@ multiple of the bucket granularity (128 by default, the pipeline proto's
 is passed explicitly: the port keeps no process-wide setting.
 """
 
+from typing import Tuple
+
 DEFAULT_BUCKET_MULTIPLE = 128
 
 
@@ -39,15 +41,13 @@ def bucket_multiple_arg(value: str) -> int:
 
 
 def resolve_bucketing(bucketing_config=None, bucket_multiple_flag: int = 0,
-                      max_bucket_variants_flag: int = 0) -> int:
-    """The bucket granularity of one CLI run: the flag, else the
-    pipeline's `bucketing {}` block, else the default. A bound on the
-    bucket variants (max_bucket_variants > 0) is not ported and raises."""
+                      max_bucket_variants_flag: int = 0) -> Tuple[int, int]:
+    """(bucket granularity, bound on the bucket variants) of one CLI run:
+    each the flag, else the pipeline's `bucketing {}` block, else the
+    default (128; no bound)."""
     cfg_mult = cfg_variants = 0
     if bucketing_config is not None:
         cfg_mult = int(bucketing_config.bucket_multiple)
         cfg_variants = int(bucketing_config.max_bucket_variants)
-    if int(max_bucket_variants_flag) or cfg_variants:
-        raise NotImplementedError("max_bucket_variants (bucket coalescing) is not ported: "
-                                  "ROADMAP.md queue 1 item 10")
-    return bucket_multiple(int(bucket_multiple_flag) or cfg_mult)
+    return (bucket_multiple(int(bucket_multiple_flag) or cfg_mult),
+            int(max_bucket_variants_flag) or cfg_variants)

@@ -28,6 +28,16 @@ from mtlx_torch.geometry import box_ops as tbox
 from mtlx_torch.kernels import iou_cuda
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

@@ -16,6 +16,17 @@ from mtlx.heads import aux_heads as jaux
 from mtlx_torch.bridge import flax_to_state_dict
 from mtlx_torch.heads import aux_heads as taux
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

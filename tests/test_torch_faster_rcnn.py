@@ -33,6 +33,17 @@ from mtlx_torch.config import config_util as tconfig
 from mtlx_torch.detector.faster_rcnn import FasterRCNN, FasterRCNNConfig
 from mtlx_torch.export.exporter import InferenceModel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 BOX_TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -50,6 +50,17 @@ from mtlx_torch.backbones import inception_v2 as tiv2
 from mtlx_torch.bridge import flax_to_state_dict
 from test_torch_rfcn import _jax_draws, run_cli_chain, seeded_variables, write_cli_workdir
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ("faster_rcnn_inception_v2_voc07", "faster_rcnn_inception_resnet_v2_mtl_coco",
            "rfcn_resnet101_voc07")

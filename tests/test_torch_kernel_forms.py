@@ -26,6 +26,17 @@ from mtlx.ops import roi as jroi
 from mtlx_torch.kernels import iou_cuda, roi_cuda
 from test_torch_roi import _pallas_fwd
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32 = np.float32
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,16 @@ from mtlx_torch.kernels import nms_cuda
 from mtlx_torch.ops import nms as tnms
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _problem(seed, n, ties=True):
     """Clustered boxes (heavy overlap), scores on a coarse grid (ties), a
     few zero-area rows and ~15% invalid rows."""

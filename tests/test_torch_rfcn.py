@@ -38,6 +38,17 @@ from mtlx_torch.bridge import flax_to_state_dict
 from mtlx_torch.kernels import roi_cuda
 from mtlx_torch.ops import roi as troi
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 0.01
 

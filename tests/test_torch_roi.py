@@ -18,6 +18,17 @@ from mtlx.ops import roi as jroi
 from mtlx_torch.kernels import roi_cuda
 from mtlx_torch.ops import roi as troi
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-5
 
 

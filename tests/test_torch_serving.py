@@ -37,6 +37,17 @@ from mtlx_torch.data.example_decoder import build_example, decode_example
 from mtlx_torch.detector.faster_rcnn import FasterRCNN, FasterRCNNConfig
 from mtlx_torch.export import exporter as texporter
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 RESIZER = ("keep_aspect", {"min_dimension": 48, "max_dimension": 64})
 
 
@@ -171,7 +182,30 @@ eval_config { num_examples: 4 }
 """
 
 
-def test_export_cli_matches_mtlx(tmp_path):
+@pytest.fixture
+def _mtlx_init_once(monkeypatch):
+    """mtlx's FasterRCNN.init_variables once per model config and key: the
+    test, mtlx's export and its restore flax-init the same full-width R50
+    six times (about 10 s each on the CPU), and every call returns the
+    same variables, which the checkpoints then overwrite."""
+    from mtlx.detector.faster_rcnn import FasterRCNN as JFasterRCNN
+
+    made = {}
+    init = JFasterRCNN.init_variables
+
+    def once(self, rng, batch_size: int = 1):
+        key = (repr(self.cfg), np.asarray(jax.random.key_data(rng)
+                                          if jnp.issubdtype(rng.dtype, jax.dtypes.prng_key)
+                                          else rng).tobytes())
+        if key not in made:
+            made[key] = init(self, rng, batch_size)
+        return made[key]
+
+    monkeypatch.setattr(JFasterRCNN, "init_variables", once)
+    return made
+
+
+def test_export_cli_matches_mtlx(tmp_path, _mtlx_init_once):
     from google.protobuf import text_format
 
     from mtlx.builders import model_builder as jbuilder
@@ -270,6 +304,7 @@ def test_export_cli_matches_mtlx(tmp_path):
         else:
             assert np.array_equal(jbias, np.full_like(jbias, want))
             assert torch.equal(bias, torch.full_like(bias, want))
+    assert len(_mtlx_init_once) == 1  # one config, one key: one init
     # two checkpoint dirs and four bundles of a full-width R50 (about a
     # GiB): pytest keeps each run's tmp_path
     shutil.rmtree(tmp_path)

@@ -47,6 +47,17 @@ from mtlx_torch.bridge import flax_to_state_dict
 from test_torch_live_bn import TINY_SSD, ssd_batch
 from test_torch_rfcn import run_cli_chain, seeded_variables, write_cli_workdir
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ("ssd_mobilenet_v1_voc", "ssd_inception_v2_voc")
 

@@ -34,6 +34,17 @@ from mtlx_torch.bridge import flax_to_state_dict
 from mtlx_torch.detector.faster_rcnn import FasterRCNN, FasterRCNNConfig, MTLConfig
 from mtlx_torch.train import train_step as tts
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: on a loaded CPU, torch's default (one a core)
+    spends several times the CPU for the same wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 LR = 0.01
 
 
