@@ -11,7 +11,9 @@ train, evaluate, export and serve R-FCN R101 and the Inception-v2 and
 Inception-ResNet-v2 MTL Faster R-CNNs through the CLIs, and SSD
 MobileNet-v1 and SSD Inception-v2 (300x300, VOC) through them too, and
 the train CLI's input pipeline: host crop / pad geometry, the worker
-loader, the bucket bound, the warm-up and the device-side SSD crops.
+loader, the bucket bound, the warm-up and the device-side SSD crops,
+and the paper's MTL refine path with live batch norm, dropout and the
+hard example miner through the CLIs.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --data_parallel 4    # on a machine with 4 cards
@@ -187,6 +189,27 @@ Phases (any failure exits non-zero):
      through the train CLI for 2 steps (the crop launched twice and the
      IoU once a step), and one recorded step's kernel calls held to their
      plain versions, its crops timed
+
+ 14. the paper's MTL refine path: the flagship pipeline with `refine: true`
+     (full width, batch 16, keep-aspect 600/1024, bf16 compute) on 32
+     noise JPEGs at VOC's sizes from a calibrated warm start: the train
+     CLI for 6 steps and a restart to 8 (launches a step as the
+     flagship's: NMS 1, crop 1, crop backward 1, IoU 3), step ms, img/s
+     and peak memory beside phase 8's flagship without refine; the eval
+     CLI on 16 records (NMS 2 and crop 1 a batch of 8) with its 10
+     `Detections_Left_Groundtruth_Right/<i>` image summaries and the
+     equal `export-8-<i>.png` files; every kernel call of one refine
+     train step and one refine eval batch against its plain version; the
+     export CLI (the bundle holds the aux heads and `refine: true`) and a
+     600x800 request as pixels, PNG / JPEG bytes and a tf.Example, its ms
+     beside the flagship without refine; the same pipeline with live batch
+     norm, dropout (keep 0.5) and the hard example miner (64, IoU 0.7,
+     both losses) through the train CLI for 4 steps without a negatives
+     cap (the miner's walk one more NMS launch a step) and with 3 (one
+     more IoU launch), one recorded step of each held to the plain
+     versions and the moving statistics' change after it; one refine
+     request and one refine train step of a resnet10 model in float32
+     (TF32 off) on the card against the CPU (phases 5 and 7's tolerances)
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -1277,7 +1300,8 @@ def profile_train_step(step_fn, state, batch, gen):
     for ms, count, key in rows[:15]:
         log(f"[train-profile]   {ms:8.3f} ms  x{count:<5d} {key[:100]}")
     return state, dict(wall_ms=wall_ms, busy_ms=busy, operations=sum(r[1] for r in rows),
-                       top=[(key[:80], ms, count) for ms, count, key in rows[:5]])
+                       top=[(key[:80], ms, count) for ms, count, key in rows[:5]],
+                       by_kernel={key: (ms, count) for ms, count, key in rows})
 
 
 def phase_train(seed: int, results):
@@ -1358,7 +1382,9 @@ def phase_train(seed: int, results):
 # ---------------------------------------------------------------- phase 7
 
 
-def phase_train_card_vs_cpu(seed: int):
+def phase_train_card_vs_cpu(seed: int, refine: bool = False):
+    """One resnet10 train step of the MTL model (with `refine`, on the MTL
+    refine path) on the card and on the CPU."""
     import dataclasses
 
     from mtlx_torch.detector.faster_rcnn import FasterRCNN, flagship_train_config
@@ -1366,8 +1392,9 @@ def phase_train_card_vs_cpu(seed: int):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(flagship_train_config(torch.float32), backbone="resnet10",
-                              canvas_size=(128, 128))
+    cfg = flagship_train_config(torch.float32)
+    cfg = dataclasses.replace(cfg, backbone="resnet10", canvas_size=(128, 128),
+                              mtl=dataclasses.replace(cfg.mtl, refine=refine))
     cpu = FasterRCNN(cfg, device="cpu")
     cpu.init_weights(torch.Generator().manual_seed(seed))
     batch = train_batch(np.random.RandomState(seed + 1), 2, canvas=(128, 128), max_gt=8,
@@ -1391,6 +1418,17 @@ def phase_train_card_vs_cpu(seed: int):
     cpu._proposals = cpu_proposals
     gpu._proposals = lambda *args, **kwargs: tuple(t.cuda() for t in taken["out"])
 
+    # on the refine path the multi-object and closeness heads' ReLUs see
+    # every proposal: their inputs on both devices are kept, to find those
+    # within float32 rounding of 0 that switch sides between the devices
+    heads = ("mo_head", "cl_head") if refine else ()
+    hidden = {}
+    for name, model in (("cpu", cpu), ("card", gpu)):
+        for head in heads:
+            getattr(model.modules, head).fc.register_forward_hook(
+                lambda mod, args, y, key=(name, head): hidden.setdefault(key, []).append(
+                    y.detach().float().cpu().reshape(-1, y.shape[-1])))
+
     out = {}
     for name, model, b, d in (("cpu", cpu, batch_cpu, draws),
                               ("card", gpu, batch, {k: v.cuda() for k, v in draws.items()})):
@@ -1402,6 +1440,27 @@ def phase_train_card_vs_cpu(seed: int):
                      {n: p.detach().cpu() for n, p in model.modules.named_parameters()})
     (m_c, g_c, u_c, p_c), (m_g, g_g, u_g, p_g) = out["cpu"], out["card"]
     loss_rel = max(abs(m_g[k] - v) / max(abs(v), 1e-30) for k, v in m_c.items())
+    # a hidden unit whose ReLU input switches sides on some row routes that
+    # row's gradient on one device only: its fc row and bias element are
+    # left out of the elementwise checks (not of the L2 ones)
+    kinks = {}
+    for head in heads:
+        z_c, z_g = torch.cat(hidden[("cpu", head)]), torch.cat(hidden[("card", head)])
+        flips = ((z_c > 0) != (z_g > 0)).nonzero().tolist()
+        if flips:
+            kinks[head] = sorted({j for _, j in flips})
+            log(f"[train-card-vs-cpu] {head} ReLU inputs that switch sides between the devices "
+                f"(row, unit, CPU, card): "
+                f"{[(r, j, float(z_c[r, j]), float(z_g[r, j])) for r, j in flips]}")
+        if any(abs(float(z_c[r, j])) > 1e-5 for r, j in flips):
+            raise AssertionError(f"{head}: a ReLU input away from 0 switches sides: {flips}")
+
+    def elementwise(diff, n):
+        head = n.split(".")[0]
+        if head in kinks and n.startswith(f"{head}.fc."):
+            diff = diff.clone()
+            diff[kinks[head]] = 0.0
+        return diff
 
     def worst(card, cpu_side, metric):
         return max((metric(card[n] - t, t), n) for n, t in cpu_side.items())
@@ -1409,9 +1468,11 @@ def phase_train_card_vs_cpu(seed: int):
     l2 = lambda d, t: float(d.norm() / t.norm().clamp_min(1e-30))
     peak = lambda d, t: float(d.abs().max() / t.abs().max().clamp_min(1e-30))
     grad_l2, grad_l2_at = worst(g_g, g_c, l2)
-    grad_peak, grad_peak_at = worst(g_g, g_c, peak)
+    grad_peak, grad_peak_at = max((peak(elementwise(g_g[n] - t, n), t), n)
+                                  for n, t in g_c.items())
     upd_l2, upd_l2_at = worst(u_g, u_c, l2)
-    par_peak, par_peak_at = worst(p_g, p_c, peak)
+    par_peak, par_peak_at = max((peak(elementwise(p_g[n] - t, n), t), n)
+                                for n, t in p_c.items())
     # float32 sums taken in another order (cuDNN's algorithms, the crop
     # backward's per-pixel gather) err relative to the magnitudes of their terms, so
     # a gradient element that cancels can differ by more than its own size
@@ -1426,7 +1487,8 @@ def phase_train_card_vs_cpu(seed: int):
               # so its elements take the gradients' tolerance
               (f"parameters after the step, max diff over the largest magnitude "
                f"(worst {par_peak_at})", par_peak, 1e-2)]
-    log(f"[train-card-vs-cpu] resnet10, float32, 128x128, TF32 off; card total_loss "
+    log(f"[train-card-vs-cpu] resnet10{' refine' if refine else ''}, float32, 128x128, TF32 "
+        f"off; card total_loss "
         f"{m_g['total_loss']:.6g}, cpu {m_c['total_loss']:.6g}")
     failed = []
     for name, value, tol in checks:
@@ -2440,12 +2502,6 @@ def coco_workdir(work: str, seed: int, n: int, sizes=COCO_SIZES) -> str:
     and its fine_tune_checkpoint: the CLI's own init (same seed) with
     batch norm calibrated on one batch of the records. Returns the
     pipeline's path."""
-    from mtlx_torch.builders import model_builder
-    from mtlx_torch.config import config_util
-    from mtlx_torch.data.loader import DetectionDataset, batches
-    from mtlx_torch.train import checkpoints as ckpt_lib
-    from mtlx_torch.train import train_step as ts
-
     t0 = time.perf_counter()
     record = write_coco_records(os.path.join(work, "coco_noise.record"),
                                 np.random.RandomState(seed + 11), n, sizes)
@@ -2456,21 +2512,7 @@ def coco_workdir(work: str, seed: int, n: int, sizes=COCO_SIZES) -> str:
     log(f"[coco] wrote {n} JPEG records at {sizes} "
         f"({os.path.getsize(record) / 2**20:.1f} MiB) and the R101 COCO pipeline in "
         f"{time.perf_counter() - t0:.2f} s")
-    configs = config_util.get_configs_from_pipeline_file(pipeline)
-    model = model_builder.build(configs["model"], is_training=True, device="cuda")
-    model.init_weights(torch.Generator().manual_seed(seed))
-    dataset = DetectionDataset([record], model.cfg.canvas_size,
-                               model_builder.resizer_params(
-                                   model_builder.image_resizer(configs["model"])))
-    first = next(batches(dataset, 16, seed=seed, pack_images=True))
-    dataset.close()
-    calibrate_batch_norm_on(model, torch.from_numpy(first["image"]).cuda(),
-                            torch.from_numpy(first["true_shape"]).cuda())
-    manager = ckpt_lib.CheckpointManager(fine_tune)
-    manager.save(0, ts.create_train_state(model, ts.make_optimizer()))
-    manager.wait()
-    del model, manager
-    torch.cuda.empty_cache()
+    write_warm_start(pipeline, record, fine_tune, seed)  # the config's batch: 16
     return pipeline
 
 
@@ -2669,12 +2711,6 @@ def two_stage_workdir(work: str, name: str, data: str, seed: int, n: int = 32) -
     and its fine_tune_checkpoint: the CLI's own init (same seed) with
     batch norm calibrated on one batch of the records. Returns the
     pipeline's path."""
-    from mtlx_torch.builders import model_builder
-    from mtlx_torch.config import config_util
-    from mtlx_torch.data.loader import DetectionDataset, batches
-    from mtlx_torch.train import checkpoints as ckpt_lib
-    from mtlx_torch.train import train_step as ts
-
     rs = np.random.RandomState(seed + 15)
     record = os.path.join(work, f"{data}_noise.record")
     if data == "voc":
@@ -2689,6 +2725,20 @@ def two_stage_workdir(work: str, name: str, data: str, seed: int, n: int = 32) -
     pipeline = os.path.join(work, "pipeline.config")
     with open(pipeline, "w") as f:
         f.write(two_stage_pipeline(name, record, label_map, fine_tune))
+    write_warm_start(pipeline, record, fine_tune, seed)
+    return pipeline
+
+
+def write_warm_start(pipeline: str, record: str, fine_tune: str, seed: int) -> None:
+    """The pipeline's fine_tune_checkpoint: the train CLI's own init (same
+    seed) with batch norm calibrated on one batch of the records, as step 0
+    of a port checkpoint directory."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.data.loader import DetectionDataset, batches
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train_step as ts
+
     configs = config_util.get_configs_from_pipeline_file(pipeline)
     model = model_builder.build(configs["model"], is_training=True, device="cuda")
     model.init_weights(torch.Generator().manual_seed(seed))
@@ -2703,7 +2753,6 @@ def two_stage_workdir(work: str, name: str, data: str, seed: int, n: int = 32) -
     manager.wait()
     del model, manager
     torch.cuda.empty_cache()
-    return pipeline
 
 
 def trunk_card_vs_cpu(name: str, seed: int):
@@ -3663,6 +3712,396 @@ def phase_pipeline(seed: int, results):
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phase 14
+
+# the refine flagship's launches (a train step, an eval batch of 8): the
+# flagship's, refine adds none
+REFINE_LAUNCHES = ({"nms": 1, "roi_crop": 1, "roi_crop_backward": 1, "iou": 3},
+                   {"nms": 2, "roi_crop": 1, "roi_crop_backward": 0, "iou": 0})
+REFINE_STEPS = (6, 8)  # the first run, then the restart to step 8
+# the training options' launches a step by the miner's negatives cap: its
+# walk is one NMS launch without a cap, one IoU launch with one
+OPTION_LAUNCHES = {0: {"nms": 2, "roi_crop": 1, "roi_crop_backward": 1, "iou": 3},
+                   3: {"nms": 1, "roi_crop": 1, "roi_crop_backward": 1, "iou": 4}}
+OPTION_STEPS = 4
+
+
+def refine_pipeline(record: str, label_map: str, fine_tune: str, viz_dir: str,
+                    cap=None) -> str:
+    """The flagship pipeline with `refine: true` in its mtl block, its
+    paths replaced, eval on 16 records with its visualizations exported to
+    viz_dir; with `cap` (the miner's max_negatives_per_positive, 0 for
+    none) also live batch norm, second-stage dropout (keep 0.5) and the
+    hard example miner (64 examples, IoU 0.7, both losses)."""
+    text = cli_pipeline(record, label_map, fine_tune)
+    reps = [("      edgemask_loss_weight: 0.5\n",
+             "      edgemask_loss_weight: 0.5\n      refine: true\n"),
+            ("  num_examples: 4952\n",
+             f"  num_examples: 16\n  visualization_export_dir: {json.dumps(viz_dir)}\n")]
+    if cap is not None:
+        miner = ("    hard_example_miner {\n      num_hard_examples: 64\n      iou_threshold: 0.7\n"
+                 "      loss_type: BOTH\n"
+                 + (f"      max_negatives_per_positive: {cap}\n" if cap else "") + "    }\n")
+        reps += [("      first_stage_features_stride: 16\n",
+                  "      first_stage_features_stride: 16\n      batch_norm_trainable: true\n"),
+                 ("        use_dropout: false\n        dropout_keep_probability: 1.0\n",
+                  "        use_dropout: true\n        dropout_keep_probability: 0.5\n"),
+                 ("    second_stage_localization_loss_weight: 2.0\n",
+                  "    second_stage_localization_loss_weight: 2.0\n" + miner)]
+    for old, new in reps:
+        if old not in text:
+            raise AssertionError(f"{FLAGSHIP_CONFIG} no longer holds {old!r}")
+        text = text.replace(old, new, 1)
+    return text
+
+
+def train_cli_runs(pipeline: str, train_dir: str, steps_list, seed: int, tag: str, want):
+    """The train CLI in this process for each step count in turn, each run's
+    launches a step held to `want`; returns the runs (output, wall, counts,
+    peak memory, [train] lines)."""
+    from mtlx_torch.train import train as train_cli
+
+    runs, done = [], 0
+    for steps in steps_list:
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, _ = run_cli(train_cli.main, ["--pipeline_config_path", pipeline, "--train_dir",
+                                          train_dir, "--num_steps", str(steps), "--log_every",
+                                          "1", "--seed", str(seed)])
+        run = dict(out=out, wall=time.perf_counter() - t0, counts=kernel_counts(),
+                   peak=torch.cuda.max_memory_allocated(), lines=train_log_lines(out))
+        per_step = {k: v / (steps - done) for k, v in run["counts"].items()}
+        if per_step != want:
+            raise AssertionError(f"{tag}: train launches a step {per_step}, want {want}")
+        for line in run["lines"]:
+            bad = [k for k, v in line.items() if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{tag}: non-finite train metrics at step {line['step']}: "
+                                     f"{bad}")
+        if f"[train] done at step {steps}" not in out:
+            raise AssertionError(f"{tag}: the train CLI did not finish at step {steps}")
+        runs.append(run)
+        done = steps
+    if "warm start: " not in runs[0]["out"]:
+        raise AssertionError(f"{tag}: the first train run did not warm-start")
+    return runs
+
+
+def check_visualizations(eval_dir: str, viz_dir: str, step: int, n: int = 10):
+    """The eval CLI's `Detections_Left_Groundtruth_Right/<i>` image
+    summaries (n of them, at step) and the equal `export-<step>-<i>.png`
+    files; returns their shapes."""
+    import glob
+
+    from mtlx_torch.data import imgcodec
+    from mtlx_torch.utils.summary_writer import read_events
+
+    images = {}
+    for path in sorted(glob.glob(os.path.join(eval_dir, "events.out.tfevents.*"))):
+        for event in read_events(path):
+            for tag, value in event.get("values", []):
+                if isinstance(value, tuple):
+                    images[tag] = (event["step"], imgcodec.decode_png(value[2]))
+    want = [f"Detections_Left_Groundtruth_Right/{i}" for i in range(n)]
+    if sorted(images) != sorted(want) or any(s != step for s, _ in images.values()):
+        raise AssertionError(f"the eval event file holds image summaries {sorted(images)}, want "
+                             f"{want} at step {step}")
+    names = sorted(os.listdir(viz_dir))
+    if names != sorted(f"export-{step}-{i}.png" for i in range(n)):
+        raise AssertionError(f"visualization_export_dir holds {names}")
+    shapes = []
+    for i in range(n):
+        with open(os.path.join(viz_dir, f"export-{step}-{i}.png"), "rb") as f:
+            png = imgcodec.decode_png(f.read())
+        if not np.array_equal(png, images[want[i]][1]):
+            raise AssertionError(f"export-{step}-{i}.png differs from its image summary")
+        shapes.append(tuple(png.shape))
+    log(f"[refine] the eval CLI wrote {n} image summaries Detections_Left_Groundtruth_Right/<i> "
+        f"at step {step} and {n} equal PNGs (detections left, groundtruth right): {shapes}")
+    return shapes
+
+
+def serve_ms(served, image, reps: int = 10):
+    """Host ms of one request of `image` (after one warm-up), each ending
+    in the copy to the host: the sorted samples."""
+    served.predict_images([image])
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        served.predict_images([image])
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)
+
+
+def moving_stats_change(model, warm_start: str):
+    """How far one training step moved the live batch norms' moving
+    statistics from the warm start: the largest change over the largest
+    value, per trunk, and how many of the trunk's buffers moved."""
+    from mtlx_torch.train import checkpoints as ckpt_lib
+
+    before = ckpt_lib.load_checkpoint(ckpt_lib.checkpoint_path(warm_start, 0))["buffers"]
+    out = {}
+    for trunk in ("backbone.", "classifier_backbone."):
+        rel, moved, total = 0.0, 0, 0
+        for name, buf in model.modules.named_buffers():
+            if name.startswith(trunk) and name.endswith((".mean", ".var")):
+                b = before[name].to(buf.device)
+                total += 1
+                moved += not torch.equal(buf, b)
+                rel = max(rel, float((buf - b).abs().max() / b.abs().max().clamp_min(1e-30)))
+        out[trunk[:-1]] = dict(max_rel_change=rel, moved=moved, buffers=total)
+    return out
+
+
+def profile_refine_against_flagship(work: str, record: str, label_map: str, pipeline: str,
+                                    fine_tune: str, seed: int):
+    """One profiled train step of the refine pipeline and one of the same
+    pipeline without refine (its own calibrated warm start), on the same
+    first batch, each after an unprofiled step at that shape; prints the
+    kernels whose device time refine changes most."""
+    plain, plain_warm = os.path.join(work, "pipeline_plain.config"), os.path.join(work, "warm_plain")
+    with open(plain, "w") as f:
+        f.write(cli_pipeline(record, label_map, plain_warm))
+    write_warm_start(plain, record, plain_warm, seed)
+    profiles = {}
+    for tag, (pipe, ckpt) in (("refine", (pipeline, fine_tune)),
+                              ("without refine", (plain, plain_warm))):
+        _, step_fn, state, batch, gen = train_step_calls(pipe, ckpt, seed)
+        _, profiles[tag] = profile_train_step(step_fn, state, batch, gen)
+        del step_fn, state, batch
+        torch.cuda.empty_cache()
+    a, b = profiles["refine"]["by_kernel"], profiles["without refine"]["by_kernel"]
+    delta = sorted(((a.get(k, (0.0, 0))[0] - b.get(k, (0.0, 0))[0], k) for k in set(a) | set(b)),
+                   reverse=True)
+    log(f"[refine] one profiled step on the same batch: refine kernels busy "
+        f"{profiles['refine']['busy_ms']:.2f} ms of {profiles['refine']['wall_ms']:.2f} ms, "
+        f"without refine {profiles['without refine']['busy_ms']:.2f} of "
+        f"{profiles['without refine']['wall_ms']:.2f} ms; the kernels refine adds most to "
+        f"(ms, launches with / without): " + "; ".join(
+            f"{k[:70]} {d:+.3f} ({a.get(k, (0, 0))[1]}/{b.get(k, (0, 0))[1]})"
+            for d, k in delta[:8]))
+    return profiles
+
+
+def time_miner(calls, config, cap: int, seed: int, tag: str):
+    """The miner's one launch in a recorded step (the NMS of 16 problems of
+    64 without a negatives cap, the IoU of 16 x 64 x 64 with one), timed
+    beside its plain version and bound, and the whole
+    hard_example_mining_mask on those boxes with uniform losses."""
+    from mtlx_torch.losses import losses as loss_lib
+
+    if cap == 0:
+        args = next(a for a, _ in calls["nms"] if a[1].shape[1] == config.num_hard_examples)
+        boxes, launch = args[0], time_recorded_nms(args, f"{tag} miner")
+    else:
+        b1, b2 = next(a for a, _ in calls["iou"] if a[0].shape[1] == a[1].shape[1] == 64)
+        boxes, launch = b1, time_iou(b1, b2, f"{tag} miner")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cls, loc = torch.rand((2,) + boxes.shape[:2], generator=gen, device="cuda")
+    match = torch.where(torch.rand(boxes.shape[:2], generator=gen, device="cuda") < 0.25, 0, -1)
+    ms = cuda_ms(lambda: loss_lib.hard_example_mining_mask(cls, loc, boxes, match, config), 20)
+    log(f"[refine] {tag}: hard_example_mining_mask of {boxes.shape[0]} x {boxes.shape[1]} ROIs "
+        f"{ms:.4f} ms a call (CUDA events over a host loop)")
+    return dict(launch=launch, mask_ms=ms)
+
+
+def refine_card_vs_cpu(seed: int):
+    """One refine request and one refine train step of a resnet10 model in
+    float32 (TF32 off) on the card and on the CPU, with phases 5 and 7's
+    tolerances."""
+    import dataclasses
+
+    from mtlx_torch.detector.faster_rcnn import FasterRCNN, MTLConfig, flagship_config
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(flagship_config(torch.float32), backbone="resnet10",
+                              canvas_size=(128, 128),
+                              mtl=MTLConfig(multiobject=True, closeness=True, refine=True))
+    cpu = FasterRCNN(cfg, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(seed))
+    batch = train_batch(np.random.RandomState(seed + 2), 2, canvas=(128, 128), max_gt=8,
+                        sizes=((96, 128), (100, 128)))
+    x, ts = batch["image"].float().cpu(), batch["true_shape"].cpu()
+    calibrate_batch_norm_on(cpu, x, ts)
+    gpu = FasterRCNN(cfg, device="cuda")
+    gpu.modules.load_state_dict(cpu.modules.state_dict())
+    pc = cpu.predict(cpu.preprocess(x), ts)
+    pg = gpu.predict(gpu.preprocess(x.cuda()), ts.cuda())
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    # the second stage (the refine vectors of the 300 proposals joined on)
+    # on the CPU's proposals, as phase 5 takes them
+    cls_g, box_g = gpu._predict_second_stage(pg["rpn_features"], pc["proposal_boxes"].cuda(),
+                                             (128, 128))
+    checks = [("refine rpn_features max rel diff", rel(pg["rpn_features"], pc["rpn_features"]),
+               1e-3),
+              ("refine class_predictions (CPU proposals) max rel diff",
+               rel(cls_g, pc["class_predictions"]), 1e-3),
+              ("refine box refinements (CPU proposals) max rel diff",
+               rel(box_g, pc["refined_box_encodings"]), 1e-3)]
+    failed = []
+    for name, value, tol in checks:
+        ok = value <= tol
+        log(f"[refine-card-vs-cpu] {name}: {value:.3g} (tolerance {tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"card and CPU disagree on the refine request: {failed}")
+    phase_train_card_vs_cpu(seed, refine=True)
+
+
+def phase_refine(seed: int, results):
+    """The paper's MTL refine path on the flagship at full width through
+    the CLIs (train, restart, eval with its visualizations, export, a
+    request beside the flagship without refine), the training options
+    (live batch norm, dropout, the hard example miner without and with a
+    negatives cap) through the train CLI, every kernel call of a recorded
+    refine step, refine eval batch and options step held to the plain
+    versions, and a resnet10 refine model on the card against the CPU."""
+    import shutil
+    import tempfile
+
+    from mtlx_torch.config import config_util
+    from mtlx_torch.detector.faster_rcnn import FasterRCNN, flagship_config
+    from mtlx_torch.eval import eval as eval_cli
+    from mtlx_torch.export import exporter
+    from mtlx_torch.export.exporter import InferenceModel
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mtlx_refine_")
+    try:
+        record = write_records(os.path.join(work, "voc_noise.record"),
+                               np.random.RandomState(seed + 21), 32, "jpeg", VOC_SIZES)
+        label_map = os.path.join(work, "label_map.pbtxt")
+        with open(label_map, "w") as f:
+            f.writelines(f"item {{ id: {i + 1} name: '{n}' }}\n" for i, n in enumerate(VOC_NAMES))
+        fine_tune, viz_dir = os.path.join(work, "warm_start"), os.path.join(work, "viz")
+        pipelines = {}
+        for cap in (None, 0, 3):
+            pipelines[cap] = os.path.join(work, f"pipeline_{cap}.config")
+            with open(pipelines[cap], "w") as f:
+                f.write(refine_pipeline(record, label_map, fine_tune, viz_dir, cap))
+        pipeline = pipelines[None]
+        write_warm_start(pipeline, record, fine_tune, seed)
+        setup_s = time.perf_counter() - t_phase
+
+        # the refine flagship: train, restart, eval, export, serve
+        train_dir = os.path.join(work, "train")
+        runs = train_cli_runs(pipeline, train_dir, REFINE_STEPS, seed, "refine",
+                              REFINE_LAUNCHES[0])
+        if f"resumed from step {REFINE_STEPS[0]}" not in runs[1]["out"]:
+            raise AssertionError("refine: the restart did not resume")
+        lines = runs[0]["lines"] + runs[1]["lines"]
+        step_ms = [16 / ln["images_per_sec"] * 1e3 for ln in lines]
+        peak_gib = max(r["peak"] for r in runs) / 2**30
+        log(f"[refine] train {REFINE_STEPS[0]} steps + restart to {REFINE_STEPS[1]} at batch 16 "
+            f"({runs[0]['wall']:.2f} + {runs[1]['wall']:.2f} s CLI wall); step ms "
+            f"{[round(t, 2) for t in step_ms]}; img/s "
+            f"{[round(ln['images_per_sec'], 2) for ln in lines]}; peak {peak_gib:.2f} GiB; "
+            f"launches a step {REFINE_LAUNCHES[0]}; total_loss "
+            f"{[round(ln['total_loss'], 5) for ln in lines]}")
+        flagship = results.get("cli")
+        if flagship is not None:
+            log(f"[refine] beside it, the same pipeline without refine (phase 8, this run, 64 "
+                f"records): step ms {[round(t, 2) for t in flagship['train_step_ms']]}; img/s "
+                f"{[round(v, 2) for v in flagship['train_img_per_s']]}; peak "
+                f"{flagship['train_peak_bytes'] / 2**30:.2f} GiB; eval "
+                f"{flagship['eval_img_per_s']:.2f} img/s")
+
+        eval_dir = os.path.join(work, "eval")
+        reset_kernel_counts()
+        out, metrics = run_cli(eval_cli.main, ["--pipeline_config_path", pipeline,
+                                               "--checkpoint_dir", train_dir,
+                                               "--eval_dir", eval_dir, "--run_once"])
+        eval_per_batch = {k: v / 2 for k, v in kernel_counts().items()}
+        mean_ap, eval_ips = metrics["Precision/mAP@0.5IOU"], metrics["eval/images_per_sec"]
+        log(f"[refine] eval at step {REFINE_STEPS[1]} on 16 records: mAP@0.5 {mean_ap:.6g}, "
+            f"{eval_ips:.2f} img/s, launches a batch of 8 {eval_per_batch}")
+        if not np.isfinite(mean_ap) or eval_per_batch != REFINE_LAUNCHES[1]:
+            raise AssertionError(f"refine eval: mAP {mean_ap}, launches {eval_per_batch}")
+        viz_shapes = check_visualizations(eval_dir, viz_dir, REFINE_STEPS[1])
+
+        calls = train_step_calls(pipeline, train_dir, seed)[0]
+        shapes = {"train": check_kernels_on(calls, "refine train step"),
+                  "eval": check_kernels_on(eval_batch_calls(pipeline, train_dir),
+                                           "refine eval batch")}
+        del calls
+        torch.cuda.empty_cache()
+        profiles = profile_refine_against_flagship(work, record, label_map, pipeline, fine_tune,
+                                                   seed)
+
+        export_dir = os.path.join(work, "export")
+        run_cli(exporter.main, ["--pipeline_config_path", pipeline, "--trained_checkpoint_dir",
+                                train_dir, "--output_directory", export_dir])
+        served = InferenceModel.load(export_dir)
+        state = served.model.modules.state_dict()
+        heads = sorted({k.split(".")[0] for k in state if k.split(".")[0].endswith("_head")})
+        width = served.model.modules.box_predictor.in_features
+        refine_text = config_util.parse_pipeline_text(served.pipeline_text).model.faster_rcnn.mtl
+        if not (served.model.modules.refines and refine_text.refine and width == 4096
+                and heads == ["cl_head", "fg_head", "mo_head"]):
+            raise AssertionError(f"the refine bundle: refines {served.model.modules.refines}, "
+                                 f"pipeline refine {refine_text.refine}, heads {heads}, "
+                                 f"predictor width {width}")
+        image = request_picture(np.random.RandomState(seed + 22), 600, 800)
+        det = served.predict_images([image])
+        check_outputs(det, 1)
+        serving = check_serving_inputs(served, image, det)
+        plain = FasterRCNN(flagship_config(), device="cuda")
+        plain.init_weights(torch.Generator().manual_seed(seed))
+        calibrate_batch_norm(plain, image)
+        plain = InferenceModel(plain, served.resizer, device="cuda")
+        request = {"refine": serve_ms(served, image), "without refine": serve_ms(plain, image)}
+        del plain
+        log(f"[refine] one 600x800 request through the refine bundle (heads {heads}, box "
+            f"predictor {width} wide): {int(det['num_detections'][0])} detections; ms a request "
+            f"(10, sorted) with refine {[round(t, 2) for t in request['refine']]}, the flagship "
+            f"without refine {[round(t, 2) for t in request['without refine']]}")
+
+        # the training options
+        options = {}
+        for cap in (0, 3):
+            tag = f"options cap {cap}"
+            orun = train_cli_runs(pipelines[cap], os.path.join(work, f"train_{cap}"),
+                                  (OPTION_STEPS,), seed, tag, OPTION_LAUNCHES[cap])[0]
+            ocalls, _, ostate, _, _ = train_step_calls(pipelines[cap], fine_tune, seed)
+            oshapes = check_kernels_on(ocalls, f"{tag} step")
+            stats = moving_stats_change(ostate.model, fine_tune)
+            miner = time_miner(ocalls, ostate.model.cfg.hard_example_miner, cap, seed, tag)
+            del ocalls, ostate
+            torch.cuda.empty_cache()
+            if not all(v["moved"] for v in stats.values()):
+                raise AssertionError(f"{tag}: a trunk's live batch norms did not move: {stats}")
+            oms = [16 / ln["images_per_sec"] * 1e3 for ln in orun["lines"]]
+            log(f"[refine] {tag} (live batch norm, dropout 0.5, the miner): {OPTION_STEPS} steps "
+                f"({orun['wall']:.2f} s CLI wall); step ms {[round(t, 2) for t in oms]}; peak "
+                f"{orun['peak'] / 2**30:.2f} GiB; launches a step {OPTION_LAUNCHES[cap]}; "
+                f"moving statistics after one step from the warm start {stats}")
+            options[cap] = dict(step_ms=oms, peak_memory_gib=orun["peak"] / 2**30,
+                                launches_per_step=OPTION_LAUNCHES[cap], shapes=oshapes,
+                                moving_stats=stats, miner=miner)
+
+        t0 = time.perf_counter()
+        refine_card_vs_cpu(seed)
+        cvc_s = time.perf_counter() - t0
+        wall = time.perf_counter() - t_phase
+        log(f"[refine] phase 14: {wall:.1f} s (setup {setup_s:.1f} s, card vs CPU {cvc_s:.1f} s)")
+        results["refine"] = dict(
+            step_ms=step_ms, img_per_s=[ln["images_per_sec"] for ln in lines],
+            peak_memory_gib=peak_gib, train_launches_per_step=REFINE_LAUNCHES[0],
+            eval_map=mean_ap, eval_img_per_s=eval_ips, eval_launches_per_batch=eval_per_batch,
+            visualizations=viz_shapes, shapes=shapes, request_ms=request, serving=serving,
+            profiles={k: {f: v for f, v in p.items() if f != "by_kernel"}
+                      for k, p in profiles.items()},
+            options=options, wall_s=wall)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3709,6 +4148,7 @@ def main(argv=None) -> int:
     phase_two_stage(args.seed, results)
     phase_ssd(args.seed, results)
     phase_pipeline(args.seed, results)
+    phase_refine(args.seed, results)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -3797,6 +4237,17 @@ def main(argv=None) -> int:
             "ssd_mobilenet_v1_voc": pipeline["ssd"]["launches_per_step"][k["name"]]}
         k["pipeline_ssd_shapes"] = pipeline["ssd"]["shapes"].get(k["name"], [])
     kernels[1]["pipeline_ssd_timed"] = pipeline["ssd"]["timed"]
+    refine = results["refine"]
+    for k in kernels:
+        k["refine_train_launches_per_step"] = refine["train_launches_per_step"][k["name"]]
+        k["refine_eval_launches_per_batch"] = refine["eval_launches_per_batch"][k["name"]]
+        k["refine_options_launches_per_step"] = {
+            f"miner cap {cap}": r["launches_per_step"][k["name"]]
+            for cap, r in refine["options"].items()}
+        k["refine_shapes"] = {part: refine["shapes"][part].get(k["name"], [])
+                              for part in ("train", "eval")}
+        k["refine_options_shapes"] = {f"miner cap {cap}": r["shapes"].get(k["name"], [])
+                                      for cap, r in refine["options"].items()}
     kernels[0]["coco_postprocess"] = coco["postprocess_nms"]
     library = coco["library"]
     if library is not None:

@@ -16,9 +16,13 @@ MobileNet alike (mtlx names every module), so the map is path to path:
     (batch_stats) -> its buffers
   * LayerNorm `scale`/`bias` (the aux heads) -> the same names
 
-The MTL auxiliary heads (`fg_head`, `mo_head`, `cl_head`) exist only in
-a training model: they are mapped with `training_heads=True` and skipped
-otherwise, so an MTL checkpoint also loads into a serving model. Any
+The MTL auxiliary heads (`fg_head`, `mo_head`, `cl_head`) exist in a
+training model, and in a serving model on the MTL refine path (mtlx's
+builder keeps them at eval when `mtl.refine` is set): they are mapped
+with `training_heads=True` and skipped otherwise, so an MTL checkpoint
+also loads into a serving model without refine. The box predictor's
+kernels map at whatever width they have (wider on the refine path), and
+a live batch norm's `batch_stats` as a frozen one's, in both trunks. Any
 other leaf raises, so a variable tree the port cannot hold never loads
 half-mapped.
 """
@@ -42,7 +46,8 @@ _SSD_PREDICTOR = re.compile(r"^box_predictor_\d+$")
 def is_inference_module(top: str) -> bool:
     """Whether `top` is a top-level flax module of a serving model."""
     return top in INFERENCE_MODULES or bool(_SSD_PREDICTOR.match(top))
-# top-level flax modules of a training model only (the MTL auxiliary heads)
+# top-level flax modules of a training model and of a refining serving
+# model (the MTL auxiliary heads)
 TRAINING_ONLY_MODULES = ("fg_head", "mo_head", "cl_head")
 
 
@@ -57,7 +62,9 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
 def flax_to_state_dict(variables: Mapping, training_heads: bool = False
                        ) -> Dict[str, torch.Tensor]:
     """Map flax variables to the port's state_dict (float32 CPU tensors);
-    the aux heads' leaves only with training_heads."""
+    the aux heads' leaves only with training_heads (a training model, or
+    a serving model whose config refines: `cfg.mtl.any` tells whether the
+    port's model holds them)."""
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         if collection not in ("params", "batch_stats"):

@@ -2,7 +2,9 @@
 mtlx/builders/model_builder.py): Faster R-CNN with the
 mask_rcnn_box_predictor, R-FCN with the rfcn_box_predictor, or SSD
 (builders/ssd_builder.py). At is_training=True the MTL heads are on as
-the proto asks; Faster R-CNN's hard example miner raises."""
+the proto asks, and at eval too when mtl.refine fuses them into the
+second stage. Faster R-CNN's hard example miner takes the second stage's
+loss weights; R-FCN refuses one in training (mtlx's R-FCN ignores it)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from mtlx_torch.detector.faster_rcnn import FasterRCNN, FasterRCNNConfig, MTLCon
 from mtlx_torch.detector.rfcn import RFCN, RFCNConfig
 from mtlx_torch.detector.ssd import SSD, SSDConfig
 from mtlx_torch.device import DeviceLike
+from mtlx_torch.losses.losses import HardExampleMinerConfig
 
 FEATURE_EXTRACTORS = {
     "faster_rcnn_resnet50": "resnet50",
@@ -106,10 +109,22 @@ def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
 
     sp = fr.second_stage_box_predictor
     predictor_kind = sp.WhichOneof("box_predictor_oneof")
-    if is_training and fr.HasField("hard_example_miner"):
-        raise NotImplementedError(
-            "the hard example miner is not ported: ROADMAP.md queue 1 item 12 "
-            "(the hard example miner)"
+    miner = None
+    if fr.HasField("hard_example_miner"):
+        if predictor_kind == "rfcn_box_predictor" and is_training:
+            raise ValueError("hard_example_miner is not applied by the R-FCN meta-arch "
+                             "(mtlx's R-FCN ignores it); remove it or use faster_rcnn")
+        # the miner ranks ROIs by the weighted loss training minimizes
+        # (the reference passes the second stage's loss weights)
+        m = fr.hard_example_miner
+        miner = HardExampleMinerConfig(
+            num_hard_examples=m.num_hard_examples,
+            iou_threshold=m.iou_threshold,
+            loss_type={0: "both", 1: "cls", 2: "loc"}[m.loss_type],
+            cls_loss_weight=fr.second_stage_classification_loss_weight,
+            loc_loss_weight=fr.second_stage_localization_loss_weight,
+            max_negatives_per_positive=float(m.max_negatives_per_positive),
+            min_negatives_per_image=m.min_negatives_per_image,
         )
     use_dropout, keep_prob, fc_init = False, 1.0, None
     predict_masks, mask_depth = False, 256
@@ -199,6 +214,7 @@ def build_config(model_proto, is_training: bool, max_gt_boxes: int = 100,
         predict_instance_masks=predict_masks,
         mask_prediction_conv_depth=mask_depth,
         second_stage_mask_prediction_loss_weight=fr.second_stage_mask_prediction_loss_weight,
+        hard_example_miner=miner,
         number_of_stages=fr.number_of_stages,
         # eval drops the training-only aux heads unless the refine path
         # fuses them into inference features

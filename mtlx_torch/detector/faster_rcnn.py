@@ -19,6 +19,20 @@ stop-gradients: the RPN outputs enter the proposal selection detached,
 so NMS is never differentiated, and proposals, ground-truth windows,
 labels and targets are constants.
 
+The MTL refine path (mtl.refine with the multi-object or closeness
+task): the aux heads also run on every proposal's window, mean-pooled
+7x7 from the stride-16 map, and their hidden activations are
+concatenated to the pooled box classifier features before the box
+predictor, in serving and in training. It adds no kernel launch (the
+mean pool is two contractions).
+
+Training options: live batch norm (batch_norm_trainable) runs both
+trunks on the batch's statistics, the second on the B x P ROI crops;
+second-stage dropout drops the box predictor's input; the hard example
+miner (losses.hard_example_mining_mask) keeps the hardest sampled ROIs
+of each image in the second-stage loss, one more NMS launch a step
+without a negatives cap, one more IoU launch with one.
+
 Randomness: mtlx draws `jax.random.uniform` inside the step. The port
 takes the draws as a dict of tensors (`mtlx_torch.train.train_step
 .make_draws` makes them; a test can inject JAX's):
@@ -27,6 +41,8 @@ takes the draws as a dict of tensors (`mtlx_torch.train.train_step
   * "anchor_pos", "anchor_neg": [B, A], the RPN minibatch sampler
   * "window_scale", "window_offset": [B, G, 2], only with
     mtl.window_sampling
+  * "dropout": [B * second_stage_batch_size, D], the box predictor's
+    dropout, only with second_stage_dropout (D: `dropout_shape`)
 """
 
 from __future__ import annotations
@@ -73,6 +89,12 @@ class MTLConfig:
     @property
     def any(self) -> bool:
         return self.multiobject or self.closeness or self.foreground
+
+    @property
+    def refines(self) -> bool:
+        """Whether the refine path runs: it fuses the multi-object and
+        closeness heads' hidden activations, so it needs one of them."""
+        return self.refine and (self.multiobject or self.closeness)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,7 +275,9 @@ class FasterRCNNModules(nn.Module):
     backbone, classifier_backbone, rpn, box_predictor, and the MTL heads
     fg_head, mo_head, cl_head when their tasks are on. The RPN and the
     aux heads read the backbone's stride-16 map, the box predictor the
-    pooled box classifier features: their widths are the trunk's."""
+    pooled box classifier features: their widths are the trunk's. On the
+    refine path the box predictor's input also holds the multi-object and
+    closeness heads' hidden activations (1024 each)."""
 
     def __init__(self, cfg: FasterRCNNConfig):
         super().__init__()
@@ -261,18 +285,16 @@ class FasterRCNNModules(nn.Module):
             raise NotImplementedError(
                 "the mask head is not ported: ROADMAP.md queue 1 item 16 (masks and keypoints)"
             )
-        if cfg.mtl.refine and (cfg.mtl.multiobject or cfg.mtl.closeness):
-            raise NotImplementedError(
-                "the MTL refine path (aux hidden features fused into the box "
-                "predictor) is not ported: ROADMAP.md queue 1 item 12 (the MTL refine path)"
-            )
+        self.refines = cfg.mtl.refines
         self.backbone, self.classifier_backbone = make_trunk(cfg)
         width = self.backbone.out_channels
         self.rpn = box_predictors.RPNHead(
             width, len(cfg.anchor_scales) * len(cfg.anchor_aspect_ratios),
             cfg.rpn_depth, cfg.rpn_kernel_size, cfg.rpn_atrous_rate, cfg.dtype,
         )
-        self._second_stage_head(cfg, self.classifier_backbone.out_channels)
+        aux_width = aux_heads.HIDDEN * (cfg.mtl.multiobject + cfg.mtl.closeness)
+        self._second_stage_head(
+            cfg, self.classifier_backbone.out_channels + (aux_width if self.refines else 0))
         # the aux heads read the stride-16 map and windows mean-pooled from it
         if cfg.mtl.foreground:
             self.fg_head = aux_heads.ForegroundHead(width, dtype=cfg.dtype)
@@ -283,14 +305,32 @@ class FasterRCNNModules(nn.Module):
 
     def _second_stage_head(self, cfg: FasterRCNNConfig, width: int) -> None:
         self.box_predictor = box_predictors.MaskRCNNBoxPredictor(
-            width, cfg.num_classes, cfg.dtype
+            width, cfg.num_classes, cfg.dtype, cfg.second_stage_dropout,
+            cfg.second_stage_dropout_keep_prob,
         )
 
-    def classify_rois(self, roi_crops: Tensor):
+    def classify_rois(self, roi_crops: Tensor, aux_hidden: Optional[Tensor] = None,
+                      dropout: Optional[Tensor] = None):
         """[N, h, w, C] ROI crops -> box classifier features -> mean pool
-        -> (class logits [N, K+1], box refinements [N, K, 4])."""
+        (-> the refine path's aux_hidden [N, D] concatenated) -> (class
+        logits [N, K+1], box refinements [N, K, 4]). dropout: the box
+        predictor's draws, in training with second_stage_dropout."""
         x = self.classifier_backbone(roi_crops)
-        return self.box_predictor(x.float().mean(dim=(1, 2)))
+        pooled = x.float().mean(dim=(1, 2))
+        if aux_hidden is not None:
+            pooled = torch.cat([pooled, aux_hidden], dim=-1)
+        return self.box_predictor(pooled, dropout)
+
+    def aux_hidden_for_rois(self, pooled_rpn: Tensor) -> Tensor:
+        """The refine vector of each ROI: the multi-object and closeness
+        heads' hidden activations on its pooled window of the stride-16 map
+        [N, C], in float32 and concatenated in that order -> [N, D]."""
+        hiddens = []
+        if hasattr(self, "mo_head"):
+            hiddens.append(self.mo_head.hidden(pooled_rpn).float())
+        if hasattr(self, "cl_head"):
+            hiddens.append(self.cl_head.hidden(pooled_rpn).float())
+        return torch.cat(hiddens, dim=-1)
 
 
 def _init_(t: Tensor, spec, fan_in: int, fan_out: int, gen: torch.Generator) -> None:
@@ -409,6 +449,7 @@ class FasterRCNN:
                 "predict_train(images, true_shapes, groundtruth, draws)"
             )
         c = self.cfg
+        self.modules.eval()
         canvas_hw = (int(images.shape[1]), int(images.shape[2]))
         anchors = self.anchors_for(canvas_hw)
         feats = self.modules.backbone(images)
@@ -439,18 +480,11 @@ class FasterRCNN:
         on second_stage_batch_size proposals sampled against the ground
         truth, and the MTL aux heads. groundtruth: boxes [B, G, 4] canvas
         px, classes [B, G] (0-based), mask [B, G] bool; draws: see the
-        module docstring."""
+        module docstring. The modules run in training mode: a live batch
+        norm normalizes by the batch and keeps its statistics for the
+        train step to commit, and dropout drops."""
         c = self.cfg
-        if c.batch_norm_trainable:
-            raise NotImplementedError(
-                "live batch norm in a two-stage detector's training is not ported: ROADMAP.md "
-                "queue 1 item 12 (live batch norm in Faster R-CNN)"
-            )
-        if c.second_stage_dropout:
-            raise NotImplementedError(
-                "second-stage dropout in training is not ported: ROADMAP.md "
-                "queue 1 item 12 (the box predictor's dropout)"
-            )
+        self.modules.train()
         canvas_hw = (int(images.shape[1]), int(images.shape[2]))
         anchors = self.anchors_for(canvas_hw)
         feats = self.modules.backbone(images)
@@ -473,7 +507,8 @@ class FasterRCNN:
         }
         if c.number_of_stages == 1:
             return pred
-        cls_logits, box_refine = self._second_stage(feats, proposals, canvas_hw)
+        cls_logits, box_refine = self._second_stage(
+            feats, proposals, canvas_hw, draws.get("dropout") if c.second_stage_dropout else None)
         pred["class_predictions"] = cls_logits
         pred["refined_box_encodings"] = box_refine
         if c.mtl.any:
@@ -486,24 +521,38 @@ class FasterRCNN:
         canvas = torch.tensor([ch, cw, ch, cw], dtype=torch.float32, device=proposals.device)
         return (proposals / canvas).contiguous()
 
+    def dropout_shape(self, batch_size: int) -> Tuple[int, int]:
+        """The shape of the box predictor's dropout draws in a training
+        step of `batch_size` images: [B * second_stage_batch_size, D]."""
+        return (batch_size * self.cfg.second_stage_batch_size,
+                self.modules.box_predictor.in_features)
+
     def _second_stage(self, feats: Tensor, proposals: Tensor,
-                      canvas_hw: Optional[Tuple[int, int]] = None):
-        """ROI crop -> maxpool -> box classifier features -> FC heads.
-        Returns (class_predictions [B, P, K+1], refined_box_encodings
+                      canvas_hw: Optional[Tuple[int, int]] = None,
+                      dropout: Optional[Tensor] = None):
+        """ROI crop -> maxpool -> box classifier features (-> the refine
+        vector of each proposal joined on) -> FC heads. Returns
+        (class_predictions [B, P, K+1], refined_box_encodings
         [B, P, K, 4]). A 1x1 / stride-1 maxpool is the identity and is
-        skipped."""
+        skipped. dropout: the box predictor's draws [B * P, D]."""
         c = self.cfg
         b, p = proposals.shape[:2]
+        norm_proposals = self._normalized(proposals, canvas_hw)
         crops = roi_lib.batch_crop_and_resize(
-            feats.contiguous(), self._normalized(proposals, canvas_hw),
-            (c.initial_crop_size, c.initial_crop_size)
+            feats.contiguous(), norm_proposals, (c.initial_crop_size, c.initial_crop_size)
         )  # [B, P, cs, cs, C]
         crops = crops.reshape((b * p,) + crops.shape[2:])
         if c.maxpool_kernel_size > 1 or c.maxpool_stride > 1:
             crops = F.max_pool2d(
                 crops.permute(0, 3, 1, 2), c.maxpool_kernel_size, c.maxpool_stride
             ).permute(0, 2, 3, 1)
-        cls_logits, box_refine = self.modules.classify_rois(crops)
+        aux_hidden = None
+        if self.modules.refines:
+            # each proposal's window mean-pooled 7x7 from the stride-16
+            # map in the map's compute type, as the aux heads' windows are
+            pooled_rpn = roi_lib.mean_pooled_crop(feats, norm_proposals, (7, 7)).float()
+            aux_hidden = self.modules.aux_hidden_for_rois(pooled_rpn.reshape(b * p, -1))
+        cls_logits, box_refine = self.modules.classify_rois(crops, aux_hidden, dropout)
         return cls_logits.reshape(b, p, -1), box_refine.reshape(b, p, -1, 4)
 
     @torch.inference_mode()
@@ -610,11 +659,6 @@ class FasterRCNN:
         whole batch, divide by the count summed over the ranks and are
         multiplied by the world size."""
         c = self.cfg
-        if c.hard_example_miner is not None:
-            raise NotImplementedError(
-                "the hard example miner is not ported: ROADMAP.md queue 1 item 12 "
-                "(the hard example miner)"
-            )
         out: Dict[str, Tensor] = {}
         out.update(self._first_stage_loss(pred, gt, (draws["anchor_pos"], draws["anchor_neg"])))
         if c.number_of_stages > 1:
@@ -675,6 +719,15 @@ class FasterRCNN:
                                    dim=2)[..., 0, :]
         loc_loss = loss_lib.weighted_smooth_l1_loss(enc, res.reg_targets, res.reg_weights * w)
         normalizer = torch.clamp_min(w.sum(-1), 1.0)
+        if c.hard_example_miner is not None:
+            # mtlx's normalisation: the kept ROIs' losses are summed and
+            # divided by the proposal count, not averaged over the kept
+            with torch.no_grad():
+                keep = loss_lib.hard_example_mining_mask(
+                    cls_loss.detach(), loc_loss.detach(), pred["proposal_boxes"], res.match,
+                    c.hard_example_miner)
+            keep = keep.float() * w
+            cls_loss, loc_loss = cls_loss * keep, loc_loss * keep
         return {
             "Loss/BoxClassifierLoss/classification_loss": (cls_loss.sum(-1) / normalizer).mean()
             * c.second_stage_classification_loss_weight,

@@ -61,8 +61,10 @@ class RFCN(FasterRCNN):
         super().__init__(cfg, device)
 
     def _second_stage(self, feats: Tensor, proposals: Tensor,
-                      canvas_hw: Optional[Tuple[int, int]] = None):
+                      canvas_hw: Optional[Tuple[int, int]] = None,
+                      dropout: Optional[Tensor] = None):
         """Position-sensitive second stage, for training and (through
         `_predict_second_stage`) serving: (class_predictions [B, P, K+1],
-        refined_box_encodings [B, P, K, 4]), float32."""
+        refined_box_encodings [B, P, K, 4]), float32. R-FCN has no
+        dropout (its config never sets second_stage_dropout)."""
         return self.modules.rfcn_predictions(feats, self._normalized(proposals, canvas_hw))

@@ -15,8 +15,14 @@ evaluation's metrics are also appended
 to `<eval_dir>/metrics.jsonl` and written, where finite, as scalars to a
 TensorBoard event file in eval_dir (`utils/summary_writer.py`).
 `--run_once` evaluates the latest checkpoint and exits. It runs on the
-CUDA device unless `--device cpu` is passed. Visualizations are not
-drawn.
+CUDA device unless `--device cpu` is passed.
+
+The first eval_config.num_visualizations images of each evaluation are
+drawn as mtlx draws them (utils/visualization_utils.py): the detections
+scoring 0.3 or more on the left, the groundtruth on the right, written
+as the image summaries `Detections_Left_Groundtruth_Right/<i>` of the
+event file and, with eval_config.visualization_export_dir, as
+`export-<step>-<i>.png` files there.
 """
 
 from __future__ import annotations
@@ -108,12 +114,19 @@ def detect(model, images: np.ndarray, true_shapes: np.ndarray,
 
 def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
                         batch_size: int = 1, bucket_multiple: int = 0,
-                        max_bucket_variants: int = 0) -> Dict[str, float]:
+                        max_bucket_variants: int = 0, writer=None,
+                        step: int = 0) -> Dict[str, float]:
     """One evaluation pass of the model's current weights; returns the
     metrics dict. max_bucket_variants > 0 bounds the compute buckets as
     training does (data/loader.py BucketCoalescer; the metrics do not
-    depend on the padding)."""
+    depend on the padding). The first num_visualizations images, in the
+    order evaluated, are drawn into `writer`'s image summaries and, with
+    visualization_export_dir, into PNG files, both at `step` (module
+    docstring)."""
+    from mtlx_torch.data.imgcodec import encode_png
     from mtlx_torch.data.loader import BucketCoalescer, pack_batch_images, record_bucket_keys
+    from mtlx_torch.utils import visualization_utils as viz
+    from mtlx_torch.utils.label_map_util import create_category_index
 
     if eval_config.eval_instance_masks:
         raise NotImplementedError("eval_instance_masks is not ported: ROADMAP.md queue 1, "
@@ -121,6 +134,11 @@ def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
     evaluators = [] if eval_config.ignore_groundtruth else build_evaluators(eval_config,
                                                                             categories)
     detections_export = [] if eval_config.export_path else None
+    category_index = create_category_index(categories)
+    viz_dir = eval_config.visualization_export_dir
+    num_viz = eval_config.num_visualizations if (writer is not None or viz_dir) else 0
+    if viz_dir:
+        os.makedirs(viz_dir, exist_ok=True)
     num = min(eval_config.num_examples or len(dataset), len(dataset))
     # bucket-major order: a batch of mixed buckets computes on the largest
     # one (metrics are per image, so the order does not change them)
@@ -157,9 +175,10 @@ def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
                 "groundtruth_group_of": s["gt_group_of"][:gt_n].astype(bool),
             }
             n_det = int(det["num_detections"][j])
+            boxes_norm = det["detection_boxes"][j][:n_det]
             scale = np.asarray([th, tw, th, tw], np.float32)
             det_info = {
-                "detection_boxes": det["detection_boxes"][j][:n_det] * scale,
+                "detection_boxes": boxes_norm * scale,
                 "detection_scores": det["detection_scores"][j][:n_det],
                 "detection_classes": det["detection_classes"][j][:n_det] + 1,
             }
@@ -169,6 +188,22 @@ def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
             if detections_export is not None:
                 detections_export.append({"source_id": s["source_id"],
                                           **{k: v.tolist() for k, v in det_info.items()}})
+            if done < num_viz:
+                # left: the detections scoring 0.3 or more; right: the groundtruth
+                image = np.array(s["image"][:th, :tw], np.uint8, copy=True)
+                viz.visualize_boxes_and_labels_on_image_array(
+                    image, boxes_norm, det_info["detection_classes"],
+                    det_info["detection_scores"], category_index, min_score_thresh=0.3)
+                gt_image = np.array(s["image"][:th, :tw], np.uint8, copy=True)
+                viz.visualize_boxes_and_labels_on_image_array(
+                    gt_image, gt_info["groundtruth_boxes"] / scale,
+                    gt_info["groundtruth_classes"], None, category_index, min_score_thresh=0.0)
+                image = np.concatenate([image, gt_image], axis=1)
+                if writer is not None:
+                    writer.image(f"Detections_Left_Groundtruth_Right/{done}", image, step)
+                if viz_dir:
+                    with open(os.path.join(viz_dir, f"export-{step}-{done}.png"), "wb") as f:
+                        f.write(encode_png(image))
             done += 1
     if detections_export is not None:
         with open(eval_config.export_path, "w") as f:
@@ -234,7 +269,8 @@ def main(argv=None):
                 metrics = evaluate_checkpoint(model, dataset, eval_config, categories,
                                               batch_size=args.eval_batch_size,
                                               bucket_multiple=multiple,
-                                              max_bucket_variants=max_variants)
+                                              max_bucket_variants=max_variants,
+                                              writer=writer, step=step)
                 rounded = {k: round(float(v), 4) for k, v in metrics.items()}
                 print(f"[eval] step {step}: " + json.dumps(rounded), flush=True)
                 with open(os.path.join(args.eval_dir, "metrics.jsonl"), "a") as f:

@@ -205,8 +205,9 @@ def export_inference_graph(pipeline_config_path: str, trained_checkpoint_dir: st
     resolved (the flag over the pipeline's `bucketing {}` block, else the
     default) and written into the bundle's pipeline.config;
     export_metadata.json holds the checkpoint's step. The weights are the
-    eval-mode detector's `state_dict`, without the training-only aux
-    heads."""
+    eval-mode detector's `state_dict`: without the MTL aux heads, unless
+    the pipeline's `mtl.refine` keeps them in serving (then the bundle
+    holds them and its pipeline.config says `refine: true`)."""
     from mtlx_torch.builders import model_builder
     from mtlx_torch.config import config_util, text_format
     from mtlx_torch.train.checkpoints import CheckpointManager

@@ -5,7 +5,8 @@ flax's names so the weight bridge maps them path to path:
     -> per-pixel foreground logits [B, H, W]
   * MultiObjectHead / ClosenessHead: LayerNorm (flax's, in float32) on
     pooled window features -> Dense(1024) + ReLU -> Dense(num_classes);
-    return (logits float32, hidden activations)
+    return (logits float32, hidden activations); the hidden activations
+    also feed the box predictor on the MTL refine path
 
 Parameters are float32; the convs and dense layers compute in `dtype`.
 """
@@ -34,8 +35,12 @@ class ForegroundHead(nn.Module):
         return self.logits(x).float()[:, 0]
 
 
+# the pooled heads' hidden width (mtlx's default, which its detector keeps)
+HIDDEN = 1024
+
+
 class _PooledHead(nn.Module):
-    def __init__(self, in_features: int, num_classes: int, hidden: int = 1024,
+    def __init__(self, in_features: int, num_classes: int, hidden: int = HIDDEN,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
@@ -43,8 +48,13 @@ class _PooledHead(nn.Module):
         self.fc = Linear(in_features, hidden, compute_dtype=dtype)
         self.logits = Linear(hidden, num_classes, compute_dtype=dtype)
 
+    def hidden(self, pooled: Tensor) -> Tensor:
+        """The hidden activations alone (the refine path fuses these into
+        the box predictor's input and needs no logits)."""
+        return F.relu(self.fc(self.ln(pooled.float()).to(self.dtype)))
+
     def forward(self, pooled: Tensor):
-        x = F.relu(self.fc(self.ln(pooled.float()).to(self.dtype)))
+        x = self.hidden(pooled)
         return self.logits(x).float(), x
 
 

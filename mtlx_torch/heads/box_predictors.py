@@ -18,6 +18,23 @@ from mtlx_torch.layers import Conv2d, Linear
 from mtlx_torch.ops import roi as roi_ops
 
 
+def flax_dropout(x: Tensor, uniforms: Tensor, keep_prob: float) -> Tensor:
+    """flax's training nn.Dropout(rate=1 - keep_prob) with its draws given:
+    an element stays, divided by keep_prob in x's type, where its uniform
+    is below keep_prob (jax.random.bernoulli's rule), and is 0 elsewhere;
+    the identity at keep_prob 1 and zeros at keep_prob 0, as flax's edge
+    cases. uniforms has x's shape."""
+    if keep_prob == 1.0:
+        return x
+    if keep_prob == 0.0:
+        return torch.zeros_like(x)
+    if uniforms is None:
+        raise ValueError("training with use_dropout needs the dropout draws")
+    keep = uniforms < keep_prob
+    return torch.where(keep, x / torch.tensor(keep_prob, dtype=x.dtype, device=x.device),
+                       torch.zeros_like(x))
+
+
 class RPNHead(nn.Module):
     """kxk conv trunk + 1x1 objectness/box heads over the stride-16 map.
 
@@ -54,18 +71,30 @@ class RPNHead(nn.Module):
 
 class MaskRCNNBoxPredictor(nn.Module):
     """FC heads on pooled ROI features: [N, D] -> ([N, num_classes + 1]
-    class logits, [N, num_classes, 4] per-class box refinements)."""
+    class logits, [N, num_classes, 4] per-class box refinements). D is the
+    box classifier's width, plus the aux heads' hidden widths on the MTL
+    refine path. With use_dropout, training drops the input as flax's
+    nn.Dropout does (`flax_dropout`)."""
 
     def __init__(self, in_features: int, num_classes: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, use_dropout: bool = False,
+                 dropout_keep_prob: float = 0.5):
         super().__init__()
         self.num_classes = num_classes
+        self.in_features = in_features
         self.dtype = dtype
+        self.use_dropout = use_dropout
+        # flax's nn.Dropout(rate=1 - keep) keeps with probability 1 - rate
+        self.dropout_keep_prob = 1.0 - (1.0 - dropout_keep_prob)
         self.class_logits = Linear(in_features, num_classes + 1, compute_dtype=dtype)
         self.box_refinement = Linear(in_features, num_classes * 4, compute_dtype=dtype)
 
-    def forward(self, pooled: Tensor):
+    def forward(self, pooled: Tensor, dropout_uniforms: Tensor = None):
+        """dropout_uniforms: [N, D] draws, needed in training with
+        use_dropout."""
         x = pooled.to(self.dtype)
+        if self.use_dropout and self.training:
+            x = flax_dropout(x, dropout_uniforms, self.dropout_keep_prob)
         cls = self.class_logits(x)
         box = self.box_refinement(x)
         return (
@@ -159,12 +188,9 @@ class ConvolutionalBoxPredictor(nn.Module):
             x = F.relu(getattr(self, name)(x))
         cls_in = x
         if self.use_dropout and self.training:
-            if dropout_uniforms is None:
-                raise ValueError("training with use_dropout needs the dropout draws")
-            keep = dropout_uniforms.permute(0, 3, 1, 2) < self.dropout_keep_prob
-            # divided by keep_prob in the compute type, as flax divides
-            keep_prob = torch.tensor(self.dropout_keep_prob, dtype=x.dtype, device=x.device)
-            cls_in = torch.where(keep, x / keep_prob, torch.zeros_like(x))
+            cls_in = flax_dropout(
+                x, None if dropout_uniforms is None else dropout_uniforms.permute(0, 3, 1, 2),
+                self.dropout_keep_prob)
         cls = self.class_predictor(cls_in).permute(0, 2, 3, 1).float()
         cls = cls.reshape(b, -1, self.num_classes + 1)
         if self.apply_sigmoid_to_scores:

@@ -28,16 +28,20 @@ Every parameter of the detector trains (flax's `params` collection). The
 batch-norm statistics are buffers: a frozen batch norm never changes
 them, and a live one (backbones/resnet.py LiveBatchNorm) folds the
 batch's statistics into them after the update, as mtlx's step writes its
-`updated_batch_stats`.
+`updated_batch_stats`: every live batch norm of the model, in a
+two-stage detector those of the backbone and of the box classifier
+trunk (whose statistics are the ROI crops').
 
 Randomness: `make_draws` makes every draw of a step from one
 `torch.Generator` on the step's device, in this order: each
 augmentation option's draws (in option order, keyed by the option's
 position; data/preprocessor.py `make_draws` and `draw_key`), then for Faster R-CNN proposal_pos and proposal_neg [B,
-first_stage_max_proposals], anchor_pos and anchor_neg [B, A], and with
-mtl.window_sampling window_scale and window_offset [B, G, 2]; for SSD
-with use_dropout dropout_{i} [B, h, w, depth], each box predictor's. A
-caller may pass its own draws (a test passes JAX's).
+first_stage_max_proposals], anchor_pos and anchor_neg [B, A], with
+mtl.window_sampling window_scale and window_offset [B, G, 2], and with
+second_stage_dropout dropout [B * second_stage_batch_size, D], the box
+predictor's (D its input width); for SSD with use_dropout dropout_{i}
+[B, h, w, depth], each box predictor's. A caller may pass its own draws
+(a test passes JAX's).
 """
 
 from __future__ import annotations
@@ -354,6 +358,8 @@ def make_draws(model, batch_size: int, canvas_hw: Tuple[int, int],
     if c.mtl.multiobject and c.mtl.window_sampling:
         draws["window_scale"] = u(batch_size, num_gt, 2)
         draws["window_offset"] = u(batch_size, num_gt, 2)
+    if c.second_stage_dropout:
+        draws["dropout"] = u(*model.dropout_shape(batch_size))
     return draws
 
 

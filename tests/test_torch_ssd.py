@@ -392,13 +392,30 @@ def test_train_step_matches_mtlx(tiny):
 
 
 def test_faster_rcnn_live_batch_norm_training_raises():
+    """Live batch norm in a Faster R-CNN's training no longer raises
+    NotImplementedError (it is ported; tests/test_torch_refine.py holds it
+    to mtlx): a training forward runs both trunks on the batch's
+    statistics. What still raises is a training forward without its
+    draws."""
+    from mtlx_torch.backbones.resnet import live_batch_norms
     from mtlx_torch.detector.faster_rcnn import FasterRCNN, FasterRCNNConfig
+    from mtlx_torch.train.train_step import make_draws
 
     cfg = FasterRCNNConfig(num_classes=2, canvas_size=(64, 64), backbone="resnet10",
                            batch_norm_trainable=True, dtype=torch.float32)
     model = FasterRCNN(cfg, device="cpu")  # serving reads the moving statistics
-    with pytest.raises(NotImplementedError, match="live batch norm"):
-        model.predict_train(torch.zeros(1, 64, 64, 3), torch.tensor([[64, 64]]), {}, {})
+    images, shapes = torch.zeros(1, 64, 64, 3), torch.tensor([[64, 64]])
+    with pytest.raises(KeyError, match="proposal_pos"):
+        model.predict_train(images, shapes, {}, {})
+    gt = {"boxes": torch.tensor([[[8.0, 8.0, 40.0, 40.0]]]), "classes": torch.tensor([[1]]),
+          "mask": torch.tensor([[True]])}
+    norms = live_batch_norms(model.modules)
+    for norm in norms:
+        norm.batch_stats = None
+    model.predict_train(images, shapes, gt,
+                        make_draws(model, 1, (64, 64), torch.Generator().manual_seed(0)))
+    assert all(norm.batch_stats is not None for norm in norms)
+    assert live_batch_norms(model.modules.classifier_backbone)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
