@@ -13,7 +13,8 @@ MobileNet-v1 and SSD Inception-v2 (300x300, VOC) through them too, and
 the train CLI's input pipeline: host crop / pad geometry, the worker
 loader, the bucket bound, the warm-up and the device-side SSD crops,
 and the paper's MTL refine path with live batch norm, dropout and the
-hard example miner through the CLIs.
+hard example miner through the CLIs, and TF checkpoints converted and
+warm-started from, and the flagship as a Mask R-CNN through the CLIs.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --data_parallel 4    # on a machine with 4 cards
@@ -210,6 +211,25 @@ Phases (any failure exits non-zero):
      versions and the moving statistics' change after it; one refine
      request and one refine train step of a resnet10 model in float32
      (TF32 off) on the card against the CPU (phases 5 and 7's tolerances)
+
+ 15. checkpoint conversion and Mask R-CNN: a slim ResNet-50 classification
+     checkpoint at full width written as V2 and as V1 and a TF OD API
+     Faster R-CNN checkpoint with the flagship's heads as V2 (this file's
+     writer, so the run needs no TensorFlow), each converted by `python -m
+     mtlx_torch.tools.convert_checkpoint` and the flagship train CLI
+     warm-started from its `.npz` for 2 steps (restored = converted,
+     finite losses); then the flagship with predict_instance_masks, the
+     readers' load_instance_masks and keypoints, eval_instance_masks and
+     the COCO and Pascal mask metrics on 32 noise JPEGs at VOC's sizes with
+     PNG instance masks and keypoints: train 4 steps and a restart to 6
+     (launches a step: NMS 1, crop 2, crop backward 1, IoU 4), step ms and
+     peak memory beside phase 8's; eval on 16 records (finite mask mAPs,
+     NMS 2 and crop 1 a batch of 8); every kernel call of a recorded train
+     step and eval batch against its plain version; the mask-target crop
+     (B x 64 one-channel images, one box each, -> 14x14) timed beside its
+     bound, plain version and F.grid_sample; export and a 600x800 request
+     returning detection_masks; one resnet10 mask train step on the card
+     against the CPU (phase 7's tolerances)
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -618,6 +638,25 @@ def crop_tap_reads(boxes, crop_size, h: int, w: int):
     return walk, four, boxes.shape[0] * boxes.shape[1] * crop_size[0] * crop_size[1]
 
 
+def crop_pixels_read(boxes, crop_size, h: int, w: int) -> int:
+    """Distinct pixels a crop must read: per image, the union over its
+    boxes of (rows under an in-range sample row) x (columns under an
+    in-range sample column), each pixel counted once however many boxes
+    sample it. A crop's bound reads these pixels' channels, not the map."""
+    from mtlx_torch.kernels import roi_cuda
+
+    (y_lo, y_hi, _, y_in), (x_lo, x_hi, _, x_in) = roi_cuda._sample_points(boxes, crop_size, h, w)
+
+    def used(lo, hi, in_range, n):  # [B, N, n]: 1 where a box reads the row / column
+        u = torch.zeros(*boxes.shape[:2], n + 1, device=boxes.device)
+        for idx in (lo, hi):  # out-of-range samples go to the spare index n
+            u.scatter_(2, torch.where(in_range, idx, n), 1.0)
+        return u[..., :n]
+
+    rows, cols = used(y_lo, y_hi, y_in, h), used(x_lo, x_hi, x_in, w)
+    return int((torch.bmm(rows.transpose(1, 2), cols) > 0).sum())
+
+
 def sample_grid(boxes, cs: int, h: int, w: int, dtype):
     """The crop's cs x cs sample points of each box as an F.grid_sample
     grid (align_corners=True): [B, N * cs, cs, 2]."""
@@ -672,19 +711,23 @@ def time_crop(features, boxes, cs: int, tag: str, plain_reps: int = 10):
     library_ms = grid_sample_ms(features, boxes, cs)
     fill_ms = cuda_ms(lambda: out.zero_(), 50)
     elt = features.element_size()
+    # the pixels under the sample points read once, the boxes read, the
+    # output written
+    pixels = crop_pixels_read(boxes, (cs, cs), h, w)
     t_bound, by = bound_ms(
-        nbytes=b * h * w * c * elt + b * n * 16 + b * n * cs * cs * c * elt,
+        nbytes=pixels * c * elt + b * n * 16 + b * n * cs * cs * c * elt,
         ops=b * n * cs * cs * c * ROI_OPS_PER_ELEMENT,
     )
     walk, four, outputs = crop_tap_reads(boxes, (cs, cs), h, w)
     shape = f"{b}x{h}x{w}x{c}x{n}->{cs}x{cs} {str(features.dtype)[6:]}"
     log(f"[roi] {tag} {shape}: equal to the plain version; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound {t_bound:.4f} ms ({by}), "
+        f"{plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound {t_bound:.4f} ms ({by}; "
+        f"{pixels / (b * h * w):.3f} of the map's pixels read), "
         f"a fill of the output {fill_ms:.4f} ms; taps read {walk / outputs:.3f} an output "
         f"({walk * c * elt / 1e6:.1f} MB; four-tap form {four / outputs:.3f}, "
         f"{four * c * elt / 1e6:.1f} MB)")
     return dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
-                bound_by=by, max_abs_err=0.0, fill_ms=fill_ms,
+                bound_by=by, max_abs_err=0.0, fill_ms=fill_ms, pixels_read=pixels,
                 taps_per_output=walk / outputs, four_tap_taps_per_output=four / outputs)
 
 
@@ -1055,7 +1098,7 @@ def stage_times(model, image, reps: int = 10):
             ev[2].record()
             props, scores, keep = model._postprocess_rpn(obj, enc, ts, model.anchors_for(hw))
             ev[3].record()
-            cls, box = model._predict_second_stage(feats, props, hw)
+            cls, box, _ = model._predict_second_stage(feats, props, hw)
             ev[4].record()
             model.postprocess({"proposal_boxes": props, "proposal_mask": keep,
                                "proposal_scores": scores, "class_predictions": cls,
@@ -1206,7 +1249,7 @@ def phase_card_vs_cpu(seed: int):
     agree = _agreement(pg["proposal_boxes"].cpu(), pc["proposal_boxes"], 1e-2)
     checks.append(("proposal slots equal within 1e-2 px", agree, agree >= 0.9, ">= 0.9"))
     # second stage on the CPU's proposals
-    cls_g, _ = gpu._predict_second_stage(
+    cls_g, _, _ = gpu._predict_second_stage(
         pg["rpn_features"], pc["proposal_boxes"].cuda(), (640, 896)
     )
     r = rel(cls_g, pc["class_predictions"])
@@ -1382,9 +1425,10 @@ def phase_train(seed: int, results):
 # ---------------------------------------------------------------- phase 7
 
 
-def phase_train_card_vs_cpu(seed: int, refine: bool = False):
+def phase_train_card_vs_cpu(seed: int, refine: bool = False, masks: bool = False):
     """One resnet10 train step of the MTL model (with `refine`, on the MTL
-    refine path) on the card and on the CPU."""
+    refine path; with `masks`, with the mask head and its loss on
+    instance masks made from the boxes) on the card and on the CPU."""
     import dataclasses
 
     from mtlx_torch.detector.faster_rcnn import FasterRCNN, flagship_train_config
@@ -1394,11 +1438,19 @@ def phase_train_card_vs_cpu(seed: int, refine: bool = False):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = flagship_train_config(torch.float32)
     cfg = dataclasses.replace(cfg, backbone="resnet10", canvas_size=(128, 128),
-                              mtl=dataclasses.replace(cfg.mtl, refine=refine))
+                              mtl=dataclasses.replace(cfg.mtl, refine=refine),
+                              predict_instance_masks=masks)
     cpu = FasterRCNN(cfg, device="cpu")
     cpu.init_weights(torch.Generator().manual_seed(seed))
     batch = train_batch(np.random.RandomState(seed + 1), 2, canvas=(128, 128), max_gt=8,
                         sizes=((96, 128), (100, 128)))
+    if masks:  # at stride 8: each box's cells, ragged
+        rs = np.random.RandomState(seed + 3)
+        raster = (rs.uniform(size=(2, 8, 16, 16)) < 0.1).astype(np.uint8)
+        for i, j in zip(*np.nonzero(batch["gt_mask"].cpu().numpy())):
+            y0, x0, y1, x1 = np.minimum(batch["gt_boxes"][i, j].cpu().numpy() // 8, 15).astype(int)
+            raster[i, j, y0:y1 + 1, x0:x1 + 1] = rs.uniform(size=(y1 - y0 + 1, x1 - x0 + 1)) < 0.9
+        batch["gt_instance_masks"] = torch.from_numpy(raster).cuda()
     batch_cpu = {k: v.cpu() for k, v in batch.items()}
     calibrate_batch_norm_on(cpu, batch_cpu["image"], batch_cpu["true_shape"])
     gpu = FasterRCNN(cfg, device="cuda")
@@ -1487,7 +1539,8 @@ def phase_train_card_vs_cpu(seed: int, refine: bool = False):
               # so its elements take the gradients' tolerance
               (f"parameters after the step, max diff over the largest magnitude "
                f"(worst {par_peak_at})", par_peak, 1e-2)]
-    log(f"[train-card-vs-cpu] resnet10{' refine' if refine else ''}, float32, 128x128, TF32 "
+    log(f"[train-card-vs-cpu] resnet10{' refine' if refine else ''}{' masks' if masks else ''}"
+        f", float32, 128x128, TF32 "
         f"off; card total_loss "
         f"{m_g['total_loss']:.6g}, cpu {m_c['total_loss']:.6g}")
     failed = []
@@ -1655,16 +1708,18 @@ def check_jpeg_on_card():
     return "equal"
 
 
-def loader_ms(record: str, canvas, passes: int = 2):
+def loader_ms(record: str, canvas, passes: int = 2, **dataset_kw):
     """ms a batch of 16 of the host loader over a record file (read,
     decode, canvas, packing; decode_threads 2, as the train CLI and
-    `time_steps_without_loader`), one pass after another."""
+    `time_steps_without_loader`), one pass after another; dataset_kw go to
+    the DetectionDataset (instance masks, keypoints)."""
     from mtlx_torch.data.loader import DetectionDataset, batches
 
     out = []
     for _ in range(passes):
         ds = DetectionDataset([record], canvas,
-                              ("keep_aspect", {"min_dimension": 600, "max_dimension": 1024}))
+                              ("keep_aspect", {"min_dimension": 600, "max_dimension": 1024}),
+                              **dataset_kw)
         t0 = time.perf_counter()
         n = sum(1 for _ in batches(ds, 16, seed=0, epochs=1, pack_images=True,
                                    decode_threads=2))
@@ -1673,13 +1728,14 @@ def loader_ms(record: str, canvas, passes: int = 2):
     return out
 
 
-def time_steps_without_loader(model, record: str, seed: int):
-    """ms a train step on the four batches of the records' first epoch
-    (the CLI's bucket shapes), loaded to the card before the clock
-    starts: alone, and while a thread reads, decodes and collates more
-    batches on the host as the CLI's prefetch thread does (but copies
-    nothing to the card). The train CLI's step minus these is what its
-    loader and the rest of its loop cost."""
+def time_steps_without_loader(model, record: str, seed: int, tag: str = "cli", **dataset_kw):
+    """ms a train step on the batches of the records' first epoch (the
+    CLI's bucket shapes), loaded to the card before the clock starts:
+    alone, and while a thread reads, decodes and collates more batches on
+    the host as the CLI's prefetch thread does (but copies nothing to the
+    card). The train CLI's step minus these is what its loader and the
+    rest of its loop cost. dataset_kw go to the DetectionDataset
+    (instance masks, keypoints); the batches carry what it loads."""
     import threading
 
     from mtlx_torch.data.loader import DetectionDataset, batches
@@ -1688,14 +1744,16 @@ def time_steps_without_loader(model, record: str, seed: int):
 
     def dataset():
         return DetectionDataset([record], model.cfg.canvas_size,
-                                ("keep_aspect", {"min_dimension": 600, "max_dimension": 1024}))
+                                ("keep_aspect", {"min_dimension": 600, "max_dimension": 1024}),
+                                **dataset_kw)
 
     ds = dataset()
-    keep = ("image", "true_shape", "gt_boxes", "gt_classes", "gt_mask")
+    keep = ("image", "true_shape", "gt_boxes", "gt_classes", "gt_mask", "gt_instance_masks",
+            "gt_keypoints")
     t0 = time.perf_counter()
     host = list(batches(ds, 16, seed=seed, epochs=1, pack_images=True, decode_threads=2))
     host_ms = (time.perf_counter() - t0) * 1e3 / len(host)
-    device_batches = [{k: torch.from_numpy(b[k]).cuda() for k in keep} for b in host]
+    device_batches = [{k: torch.from_numpy(b[k]).cuda() for k in keep if k in b} for b in host]
     del host
     ds.close()
     state = ts.create_train_state(model, ts.make_optimizer(learning_rate=0.003, momentum=0.9,
@@ -1736,9 +1794,9 @@ def time_steps_without_loader(model, record: str, seed: int):
         stop.set()
         reader.join()
     shapes = [tuple(b["image"].shape[1:3]) for b in device_batches]
-    log(f"[cli] the host loader alone: {host_ms:.2f} ms a batch of 16 (read, decode, "
+    log(f"[{tag}] the host loader alone: {host_ms:.2f} ms a batch of 16 (read, decode, "
         f"collate; {len(device_batches)} batches)")
-    log(f"[cli] train step on pre-loaded batches of the records (buckets {shapes}): alone "
+    log(f"[{tag}] train step on pre-loaded batches of the records (buckets {shapes}): alone "
         f"{', '.join(f'{t:.2f}' for t in alone)} ms; while a host thread read "
         f"{host_batches[0]} batches: {', '.join(f'{t:.2f}' for t in with_reader)} ms")
     return dict(shapes=shapes, alone_ms=alone, with_host_reader_ms=with_reader,
@@ -1946,15 +2004,19 @@ def train_step_calls(pipeline: str, train_dir: str, seed: int):
                                 device="cuda")
     tx, _, _ = optimizer_builder.build(train_config.optimizer, train_config)
     state = ckpt_lib.CheckpointManager(train_dir).restore(ts.create_train_state(model, tx))
+    reader = configs["train_input_config"]
     dataset = DetectionDataset(
-        list(configs["train_input_config"].tf_record_input_reader.input_path),
+        list(reader.tf_record_input_reader.input_path),
         model.cfg.canvas_size,
         model_builder.resizer_params(model_builder.image_resizer(configs["model"])),
-        max_boxes=model.cfg.max_gt_boxes)
+        max_boxes=model.cfg.max_gt_boxes,
+        load_instance_masks=reader.load_instance_masks and model.cfg.predict_instance_masks,
+        num_keypoints=reader.num_keypoints)
     batch = next(batches(dataset, train_config.batch_size, seed=seed, pack_images=True))
     dataset.close()
-    keep = ("image", "true_shape", "gt_boxes", "gt_classes", "gt_mask")
-    batch = {k: torch.from_numpy(batch[k]).cuda() for k in keep}
+    keep = ("image", "true_shape", "gt_boxes", "gt_classes", "gt_mask", "gt_instance_masks",
+            "gt_keypoints")
+    batch = {k: torch.from_numpy(batch[k]).cuda() for k in keep if k in batch}
     step_fn = train_lib.make_step_fn(
         model, preprocessor_builder.build(train_config.data_augmentation_options))
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2729,15 +2791,12 @@ def two_stage_workdir(work: str, name: str, data: str, seed: int, n: int = 32) -
     return pipeline
 
 
-def write_warm_start(pipeline: str, record: str, fine_tune: str, seed: int) -> None:
-    """The pipeline's fine_tune_checkpoint: the train CLI's own init (same
-    seed) with batch norm calibrated on one batch of the records, as step 0
-    of a port checkpoint directory."""
+def calibrated_model(pipeline: str, record: str, seed: int):
+    """The pipeline's training model on the card with the train CLI's own
+    init (same seed) and batch norm calibrated on one batch of the records."""
     from mtlx_torch.builders import model_builder
     from mtlx_torch.config import config_util
     from mtlx_torch.data.loader import DetectionDataset, batches
-    from mtlx_torch.train import checkpoints as ckpt_lib
-    from mtlx_torch.train import train_step as ts
 
     configs = config_util.get_configs_from_pipeline_file(pipeline)
     model = model_builder.build(configs["model"], is_training=True, device="cuda")
@@ -2748,6 +2807,16 @@ def write_warm_start(pipeline: str, record: str, fine_tune: str, seed: int) -> N
     dataset.close()
     calibrate_batch_norm_on(model, torch.from_numpy(first["image"]).cuda(),
                             torch.from_numpy(first["true_shape"]).cuda())
+    return model
+
+
+def write_warm_start(pipeline: str, record: str, fine_tune: str, seed: int) -> None:
+    """The pipeline's fine_tune_checkpoint: `calibrated_model`, as step 0
+    of a port checkpoint directory."""
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train_step as ts
+
+    model = calibrated_model(pipeline, record, seed)
     manager = ckpt_lib.CheckpointManager(fine_tune)
     manager.save(0, ts.create_train_state(model, ts.make_optimizer()))
     manager.wait()
@@ -2822,7 +2891,8 @@ def time_ps_crop(calls):
         b, h, w, c = features.shape
         n = boxes.shape[1]
         outputs = b * n * crop_size[0] * crop_size[1] * c
-        nbytes = features.numel() * 4 + boxes.numel() * 4 + outputs * 4
+        pixels = crop_pixels_read(boxes, tuple(int(v) for v in crop_size), h, w)
+        nbytes = pixels * c * 4 + boxes.numel() * 4 + outputs * 4
         bound, by = bound_ms(nbytes, outputs * ROI_OPS_PER_ELEMENT)
         out.append(dict(shape=f"{b}x{h}x{w}x{c}x{n}->{crop_size[0]}x{crop_size[1]} float32",
                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
@@ -3755,20 +3825,23 @@ def refine_pipeline(record: str, label_map: str, fine_tune: str, viz_dir: str,
     return text
 
 
-def train_cli_runs(pipeline: str, train_dir: str, steps_list, seed: int, tag: str, want):
-    """The train CLI in this process for each step count in turn, each run's
-    launches a step held to `want`; returns the runs (output, wall, counts,
-    peak memory, [train] lines)."""
+def train_cli_runs(pipeline: str, train_dir: str, steps_list, seed: int, tag: str, want,
+                   flags_list=None):
+    """The train CLI in this process for each step count in turn (with the
+    run's own extra flags from flags_list), each run's launches a step
+    held to `want`; returns the runs (output, wall, counts, peak memory,
+    [train] lines)."""
     from mtlx_torch.train import train as train_cli
 
     runs, done = [], 0
-    for steps in steps_list:
+    for i, steps in enumerate(steps_list):
         reset_kernel_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out, _ = run_cli(train_cli.main, ["--pipeline_config_path", pipeline, "--train_dir",
                                           train_dir, "--num_steps", str(steps), "--log_every",
-                                          "1", "--seed", str(seed)])
+                                          "1", "--seed", str(seed)]
+                         + list(flags_list[i] if flags_list else []))
         run = dict(out=out, wall=time.perf_counter() - t0, counts=kernel_counts(),
                    peak=torch.cuda.max_memory_allocated(), lines=train_log_lines(out))
         per_step = {k: v / (steps - done) for k, v in run["counts"].items()}
@@ -3935,8 +4008,8 @@ def refine_card_vs_cpu(seed: int):
 
     # the second stage (the refine vectors of the 300 proposals joined on)
     # on the CPU's proposals, as phase 5 takes them
-    cls_g, box_g = gpu._predict_second_stage(pg["rpn_features"], pc["proposal_boxes"].cuda(),
-                                             (128, 128))
+    cls_g, box_g, _ = gpu._predict_second_stage(pg["rpn_features"],
+                                                pc["proposal_boxes"].cuda(), (128, 128))
     checks = [("refine rpn_features max rel diff", rel(pg["rpn_features"], pc["rpn_features"]),
                1e-3),
               ("refine class_predictions (CPU proposals) max rel diff",
@@ -4102,6 +4175,459 @@ def phase_refine(seed: int, results):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 15
+#
+# A small writer of TF checkpoints, V1 (one table file) and V2 (an index
+# table and one data shard), so that the conversion check needs no
+# TensorFlow. tests/test_torch_checkpoint_convert.py holds what it writes
+# to tf.train.load_checkpoint.
+
+_TF_DTYPES = {np.dtype(np.float32): 1, np.dtype(np.int32): 3, np.dtype(np.int64): 9}
+
+
+def _varint(value: int) -> bytes:
+    out = bytearray()
+    value &= (1 << 64) - 1
+    while True:
+        byte = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(byte | 0x80)
+        else:
+            out.append(byte)
+            return bytes(out)
+
+
+def _field(number: int, payload: bytes) -> bytes:
+    """A length-delimited field."""
+    return _varint(number << 3 | 2) + _varint(len(payload)) + payload
+
+
+def _int_field(number: int, value: int) -> bytes:
+    return _varint(number << 3) + _varint(value)
+
+
+def _shape_proto(shape) -> bytes:
+    return b"".join(_field(2, _int_field(1, int(d))) for d in shape)
+
+
+def _table(entries, block_type: int = 0) -> bytes:
+    """A LevelDB table of the sorted (key, value) entries: a data block
+    each entry (as TF's 4 KiB blocks hold each large value alone, so a
+    lookup reads one tensor's block), an empty metaindex, the index and
+    the footer; block_type is the type byte every block gets (0 is
+    uncompressed; only the readers' refusal of another is tested)."""
+    from mtlx_torch.tools.tf_checkpoint import TABLE_MAGIC, masked_crc32c
+
+    out = bytearray()
+
+    def block(items) -> bytes:
+        body, restarts = bytearray(), []
+        for key, value in items:
+            restarts.append(len(body))
+            body += _varint(0) + _varint(len(key)) + _varint(len(value)) + key + value
+        restarts = restarts or [0]
+        return bytes(body) + b"".join(int(r).to_bytes(4, "little") for r in restarts) \
+            + len(restarts).to_bytes(4, "little")
+
+    def put(body: bytes):
+        offset = len(out)
+        trailer = bytes([block_type])
+        out.extend(body + trailer + masked_crc32c(body + trailer).to_bytes(4, "little"))
+        return _varint(offset) + _varint(len(body))
+
+    handles = [(key, put(block([(key, value)]))) for key, value in sorted(entries)]
+    meta = put(block([]))
+    index = put(block(handles))
+    footer = meta + index
+    out.extend(footer + bytes(40 - len(footer)) + TABLE_MAGIC)
+    return bytes(out)
+
+
+def _ordered_string(name: bytes) -> bytes:
+    """OrderedCode's string: 0x00 -> 00 ff, 0xff -> ff 00, ended by 00 01."""
+    escape = {0x00: b"\x00\xff", 0xFF: b"\xff\x00"}
+    return b"".join(escape.get(c, bytes([c])) for c in name) + b"\x00\x01"
+
+
+def write_tf_checkpoint(prefix: str, tensors, version: int = 2, block_type: int = 0) -> None:
+    """Write `tensors` (name -> float32 / int32 / int64 array) as TF does:
+    version 2 as `<prefix>.index` + `<prefix>.data-00000-of-00001`,
+    version 1 as the one table file `prefix` (each tensor one full slice,
+    its values packed in the TensorProto's *_val field), with a
+    `checkpoint` file beside it naming the prefix."""
+    from mtlx_torch.tools.tf_checkpoint import masked_crc32c
+
+    arrays = {n: np.require(v, requirements="C") for n, v in sorted(tensors.items())}
+    versions = _int_field(1, 1)  # VersionDef producer 1
+    if version == 2:
+        entries, data = [], bytearray()
+        for name, a in arrays.items():
+            raw = a.astype(a.dtype.newbyteorder("<")).tobytes()
+            entry = (_int_field(1, _TF_DTYPES[a.dtype]) + _field(2, _shape_proto(a.shape))
+                     + _int_field(4, len(data)) + _int_field(5, len(raw))
+                     + _varint(6 << 3 | 5) + masked_crc32c(raw).to_bytes(4, "little"))
+            entries.append((name.encode(), entry))
+            data += raw
+        header = _int_field(1, 1) + _field(3, versions)  # num_shards 1, little-endian
+        with open(prefix + ".index", "wb") as f:
+            f.write(_table([(b"", header)] + entries, block_type))
+        with open(prefix + ".data-00000-of-00001", "wb") as f:
+            f.write(bytes(data))
+    else:
+        metas, entries = [], []
+        for name, a in arrays.items():
+            full = b"".join(_field(1, b"") for _ in a.shape)  # an extent a dim, no length
+            metas.append(_field(1, _field(1, name.encode()) + _field(2, _shape_proto(a.shape))
+                                + _int_field(3, _TF_DTYPES[a.dtype]) + _field(4, full)))
+            if a.dtype == np.float32:
+                values = _field(5, a.astype("<f4").tobytes())
+            else:  # int_val (7) / int64_val (10), packed varints
+                values = _field(7 if a.dtype == np.int32 else 10,
+                                b"".join(_varint(int(v)) for v in a.reshape(-1)))
+            key = (b"\x00" + _ordered_string(name.encode())
+                   + (bytes([1, a.ndim]) if a.ndim else b"\x00") + b"\x80\x7f" * a.ndim)
+            saved = _field(1, name.encode()) + _field(2, full) + _field(3, values)
+            entries.append((key, _field(2, saved)))
+        meta = _field(1, b"".join(metas) + _field(2, versions))
+        with open(prefix, "wb") as f:
+            f.write(_table([(b"", meta)] + entries, block_type))
+    with open(os.path.join(os.path.dirname(prefix), "checkpoint"), "w") as f:
+        f.write(f'model_checkpoint_path: "{os.path.basename(prefix)}"\n')
+
+
+_RESNET_UNITS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+
+
+def slim_resnet_vars(rs, depth: int = 50, heads=None):
+    """Name -> float32 value of a slim resnet_v1_{depth} classification
+    checkpoint at full width (its logits and the optimizer's slots
+    included, which the converter skips); with `heads` =
+    (num_classes, anchors a location, rpn depth) a TF OD API Faster
+    R-CNN's first and second stage heads too."""
+    out = {}
+    prefix = f"resnet_v1_{depth}"
+
+    def conv_bn(scope, shape):
+        c = shape[-1]
+        out[f"{scope}/weights"] = rs.normal(0, (2.0 / np.prod(shape[:3])) ** 0.5,
+                                            shape).astype(np.float32)
+        out[f"{scope}/BatchNorm/gamma"] = rs.uniform(0.5, 1.5, c).astype(np.float32)
+        out[f"{scope}/BatchNorm/beta"] = rs.normal(0, 0.1, c).astype(np.float32)
+        out[f"{scope}/BatchNorm/moving_mean"] = rs.normal(0, 0.1, c).astype(np.float32)
+        out[f"{scope}/BatchNorm/moving_variance"] = rs.uniform(0.5, 1.5, c).astype(np.float32)
+
+    conv_bn(f"{prefix}/conv1", (7, 7, 3, 64))
+    cin = 64
+    for b, (n, d) in enumerate(zip(_RESNET_UNITS[depth], (256, 512, 1024, 2048)), start=1):
+        for u in range(1, n + 1):
+            base = f"{prefix}/block{b}/unit_{u}/bottleneck_v1"
+            unit_in = cin if u == 1 else d
+            conv_bn(f"{base}/conv1", (1, 1, unit_in, d // 4))
+            conv_bn(f"{base}/conv2", (3, 3, d // 4, d // 4))
+            conv_bn(f"{base}/conv3", (1, 1, d // 4, d))
+            if u == 1:
+                conv_bn(f"{base}/shortcut", (1, 1, unit_in, d))
+        cin = d
+    out[f"{prefix}/logits/weights"] = rs.normal(0, 0.01, (1, 1, 2048, 1000)).astype(np.float32)
+    out[f"{prefix}/logits/biases"] = np.zeros(1000, np.float32)
+    out[f"{prefix}/conv1/weights/Momentum"] = np.zeros((7, 7, 3, 64), np.float32)
+    out["global_step"] = np.asarray(1000, np.int64)
+    if heads is not None:
+        k, a, depth_rpn = heads
+        for scope, shape in (("Conv", (3, 3, 1024, depth_rpn)),
+                             ("FirstStageBoxPredictor/ClassPredictor", (1, 1, depth_rpn, 2 * a)),
+                             ("FirstStageBoxPredictor/BoxEncodingPredictor",
+                              (1, 1, depth_rpn, 4 * a)),
+                             ("SecondStageBoxPredictor/ClassPredictor", (2048, k + 1)),
+                             ("SecondStageBoxPredictor/BoxEncodingPredictor", (2048, 4 * k))):
+            out[f"{scope}/weights"] = rs.normal(0, 0.01, shape).astype(np.float32)
+            out[f"{scope}/biases"] = rs.normal(0, 0.01, shape[-1]).astype(np.float32)
+    return out
+
+
+
+# the mask flagship's launches: a train step (the mask loss adds a crop of
+# the matched ground-truth masks and an IoU launch), an eval batch of 8
+MASK_LAUNCHES = ({"nms": 1, "roi_crop": 2, "roi_crop_backward": 1, "iou": 4},
+                 {"nms": 2, "roi_crop": 1, "roi_crop_backward": 0, "iou": 0})
+# the first run (the in-process loader), then the restart to step 8 fed by
+# 4 loader worker processes, the masks in their shared memory
+MASK_STEPS = (4, 8)
+MASK_RUN_FLAGS = ([], ["--grain_workers", "4"])
+MASK_METRICS = ("coco_mask_metrics", "pascal_voc_instance_segmentation_metrics")
+NUM_KEYPOINTS = 3
+CONVERSION_STEPS = 2
+
+
+def write_mask_records(path: str, rs, n: int, sizes=VOC_SIZES) -> str:
+    """n TFRecords of noise JPEGs (quality 90) at the given sizes, 1-20
+    boxes each of VOC classes, each with a PNG instance mask (an ellipse
+    filling its box, its edge ragged) and NUM_KEYPOINTS keypoints inside it."""
+    from mtlx_torch.data import tfrecord
+    from mtlx_torch.data.example_decoder import build_example
+
+    with tfrecord.TFRecordWriter(path) as w:
+        for i in range(n):
+            h, wd = sizes[i % len(sizes)]
+            image = rs.randint(0, 256, (h, wd, 3)).astype(np.uint8)
+            k = rs.randint(1, 21)
+            y0, x0 = rs.uniform(0, 0.8, k), rs.uniform(0, 0.8, k)
+            boxes = np.stack([y0, x0, np.minimum(y0 + rs.uniform(0.05, 0.5, k), 1.0),
+                              np.minimum(x0 + rs.uniform(0.05, 0.5, k), 1.0)], 1)
+            yy, xx = np.mgrid[0:h, 0:wd]
+            masks = []
+            for b in boxes:
+                cy, cx = (b[0] + b[2]) / 2 * h, (b[1] + b[3]) / 2 * wd
+                ry, rx = max((b[2] - b[0]) / 2 * h, 1.0), max((b[3] - b[1]) / 2 * wd, 1.0)
+                inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= rs.uniform(0.8, 1.0)
+                masks.append(inside & (rs.uniform(size=(h, wd)) < 0.97))
+            keypoints = (boxes[:, None, :2] + rs.uniform(0, 1, (k, NUM_KEYPOINTS, 2))
+                         * (boxes[:, None, 2:] - boxes[:, None, :2]))
+            labels = rs.randint(1, 21, k)
+            w.write(build_example(encode_jpeg(image), b"jpeg", h, wd, f"mask{i}.jpeg", boxes,
+                                  labels, [VOC_NAMES[c - 1] for c in labels],
+                                  instance_masks=masks, keypoints=keypoints))
+    return path
+
+
+def mask_pipeline(record: str, label_map: str, fine_tune: str) -> str:
+    """The flagship pipeline as a published TF OD API Mask R-CNN config sets
+    it: predict_instance_masks in its mask_rcnn_box_predictor,
+    load_instance_masks (and the records' keypoints) in both readers,
+    eval_instance_masks and the COCO and Pascal mask metrics; its paths,
+    checkpoint interval (2) and eval size (16) the only other changes."""
+    text = cli_pipeline(record, label_map, fine_tune, save_every=2)
+    reader = f"  load_instance_masks: true\n  num_keypoints: {NUM_KEYPOINTS}\n"
+    reps = [("        use_dropout: false\n",
+             "        use_dropout: false\n        predict_instance_masks: true\n"),
+            ("train_input_reader: {\n", "train_input_reader: {\n" + reader),
+            ("eval_input_reader: {\n", "eval_input_reader: {\n" + reader),
+            ('  num_examples: 4952\n  metrics_set: "pascal_voc_metrics"\n',
+             "  num_examples: 16\n" + "".join(f'  metrics_set: "{m}"\n' for m in MASK_METRICS)
+             + "  eval_instance_masks: true\n")]
+    for old, new in reps:
+        if old not in text:
+            raise AssertionError(f"{FLAGSHIP_CONFIG} no longer holds {old!r}")
+        text = text.replace(old, new, 1)
+    return text
+
+
+def check_conversion(work: str, record: str, label_map: str, seed: int):
+    """Slim ResNet-50 classification checkpoints at full width written as
+    V2 and as V1, and a TF OD API Faster R-CNN checkpoint (the flagship's
+    heads) as V2, each converted by `python -m
+    mtlx_torch.tools.convert_checkpoint` in a process of its own and the
+    flagship train CLI warm-started from the `.npz` for CONVERSION_STEPS
+    steps: the tensors restored must be the tensors converted, the losses
+    finite."""
+    from mtlx_torch.train import train as train_cli
+
+    rs = np.random.RandomState(seed + 31)
+    slim = slim_resnet_vars(rs)
+    checkpoints = {"slim_resnet_v1_50 (V2)": (slim, 2, "classification"),
+                   "slim_resnet_v1_50 (V1)": (slim, 1, "classification"),
+                   "TF OD API faster_rcnn_resnet50 (V2)": (
+                       slim_resnet_vars(rs, heads=(20, 12, 512)), 2, "detection")}
+    out = {}
+    for i, (tag, (values, version, kind)) in enumerate(checkpoints.items()):
+        d = os.path.join(work, f"tf_{i}")
+        os.makedirs(d)
+        prefix = os.path.join(d, "model.ckpt")
+        t0 = time.perf_counter()
+        write_tf_checkpoint(prefix, values, version)
+        write_s = time.perf_counter() - t0
+        npz = os.path.join(d, "converted.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mtlx_torch.tools.convert_checkpoint",
+                               "--tf_checkpoint", prefix, "--type", kind, "--output", npz],
+                              cwd=REPO, env=repo_env(), capture_output=True, text=True,
+                              timeout=300)
+        convert_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"convert_checkpoint failed on {tag}:\n{proc.stderr[-3000:]}")
+        line = proc.stdout.splitlines()[0]
+        converted, unmapped = (int(v) for v in
+                               line.split("converted ")[1].split(" unmapped")[0]
+                               .replace(" tensors (", " ").split())
+        pipeline = os.path.join(d, "pipeline.config")
+        text = cli_pipeline(record, label_map, npz, save_every=None)
+        if kind == "detection":
+            text = text.replace("from_detection_checkpoint: false",
+                                "from_detection_checkpoint: true")
+        with open(pipeline, "w") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        run, _ = run_cli(train_cli.main, ["--pipeline_config_path", pipeline, "--train_dir",
+                                          os.path.join(d, "train"), "--num_steps",
+                                          str(CONVERSION_STEPS), "--log_every", "1",
+                                          "--seed", str(seed)])
+        train_s = time.perf_counter() - t0
+        warm = next(ln for ln in run.splitlines() if "[train] warm start: " in ln)
+        restored, skipped = (int(v) for v in warm.split("warm start: ")[1]
+                             .replace(" restored,", "").replace(" skipped", "").split())
+        lines = train_log_lines(run)
+        losses = [ln["total_loss"] for ln in lines]
+        log(f"[convert] {tag}: {len(values)} TF tensors written in {write_s:.2f} s, "
+            f"`{line}` in {convert_s:.2f} s (its own process); the flagship train CLI "
+            f"warm-started: {restored} tensors restored of {converted} converted "
+            f"({skipped} of the model's left at init), {len(lines)} steps in {train_s:.2f} s, "
+            f"total_loss {[round(v, 5) for v in losses]}")
+        if restored != converted or len(lines) != CONVERSION_STEPS \
+                or not all(np.isfinite(v) for v in losses):
+            raise AssertionError(f"{tag}: restored {restored} of {converted} converted, "
+                                 f"losses {losses}")
+        out[tag] = dict(tensors=len(values), converted=converted, unmapped=unmapped,
+                        restored=restored, skipped=skipped, write_s=write_s,
+                        convert_s=convert_s, train_s=train_s, total_loss=losses)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_masks(seed: int, results):
+    """Checkpoint conversion (check_conversion), then the flagship as a
+    Mask R-CNN through the CLIs on records with instance masks and
+    keypoints: train and restart with exact launches a step, eval with the
+    COCO and Pascal mask metrics, every kernel call of a recorded train
+    step and eval batch held to its plain version, the mask-target crop
+    timed, export and a 600x800 request returning detection_masks; and a
+    resnet10 mask train step on the card against the CPU."""
+    import shutil
+    import tempfile
+
+    from mtlx_torch.eval import eval as eval_cli
+    from mtlx_torch.export import exporter
+    from mtlx_torch.export.exporter import InferenceModel
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mtlx_masks_")
+    try:
+        record = write_mask_records(os.path.join(work, "voc_masks.record"),
+                                    np.random.RandomState(seed + 30), 32)
+        label_map = os.path.join(work, "label_map.pbtxt")
+        with open(label_map, "w") as f:
+            f.writelines(f"item {{ id: {i + 1} name: '{n}' }}\n" for i, n in enumerate(VOC_NAMES))
+        records_s = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        conversion = check_conversion(work, record, label_map, seed)
+        conversion_s = time.perf_counter() - t0
+
+        fine_tune = os.path.join(work, "warm_start")
+        pipeline = os.path.join(work, "pipeline.config")
+        with open(pipeline, "w") as f:
+            f.write(mask_pipeline(record, label_map, fine_tune))
+        write_warm_start(pipeline, record, fine_tune, seed)
+        train_dir = os.path.join(work, "train")
+        runs = train_cli_runs(pipeline, train_dir, MASK_STEPS, seed, "masks", MASK_LAUNCHES[0],
+                              MASK_RUN_FLAGS)
+        if f"resumed from step {MASK_STEPS[0]}" not in runs[1]["out"]:
+            raise AssertionError("masks: the restart did not resume")
+        lines = runs[0]["lines"] + runs[1]["lines"]
+        if not all("Loss/BoxClassifierLoss/mask_loss" in ln for ln in lines):
+            raise AssertionError("masks: a step logged no mask loss")
+        step_ms = [16 / ln["images_per_sec"] * 1e3 for ln in lines]
+        peak_gib = max(r["peak"] for r in runs) / 2**30
+        log(f"[masks] train {MASK_STEPS[0]} steps (in-process loader) + restart to "
+            f"{MASK_STEPS[1]} ({' '.join(MASK_RUN_FLAGS[1])}) at batch 16 "
+            f"({runs[0]['wall']:.2f} + {runs[1]['wall']:.2f} s CLI wall); step ms "
+            f"{[round(t, 2) for t in step_ms]}; peak {peak_gib:.2f} GiB; launches a step "
+            f"{MASK_LAUNCHES[0]}; mask_loss "
+            f"{[round(ln['Loss/BoxClassifierLoss/mask_loss'], 5) for ln in lines]}; total_loss "
+            f"{[round(ln['total_loss'], 5) for ln in lines]}")
+        wait = [ln["loader_wait_share"] for ln in lines]
+        loader = {"masks and keypoints": loader_ms(record, (1024, 1024), load_instance_masks=True,
+                                                   num_keypoints=NUM_KEYPOINTS),
+                  "boxes only": loader_ms(record, (1024, 1024))}
+        log(f"[masks] loader wait share {[round(v, 4) for v in wait]}; the host loader's ms a "
+            f"batch of 16 of these records (2 passes) with masks and keypoints "
+            f"{[round(t, 2) for t in loader['masks and keypoints']]}, without "
+            f"{[round(t, 2) for t in loader['boxes only']]}")
+        flagship = results.get("cli")
+        if flagship is not None:
+            log(f"[masks] beside it, the flagship without masks (phase 8, this run, 64 "
+                f"records): step ms {[round(t, 2) for t in flagship['train_step_ms']]}; peak "
+                f"{flagship['train_peak_bytes'] / 2**30:.2f} GiB")
+        # what the mask head costs the model: the mask flagship and the
+        # flagship on the same pre-loaded batches of these records
+        flagship_pipeline = os.path.join(work, "flagship.config")
+        with open(flagship_pipeline, "w") as f:
+            f.write(cli_pipeline(record, label_map, fine_tune, save_every=2))
+        alone = {}
+        for tag, path, kw in (("masks", pipeline, dict(load_instance_masks=True,
+                                                       num_keypoints=NUM_KEYPOINTS)),
+                              ("flagship", flagship_pipeline, {})):
+            torch.cuda.empty_cache()
+            model = calibrated_model(path, record, seed)
+            torch.cuda.reset_peak_memory_stats()
+            alone[tag] = time_steps_without_loader(model, record, seed, f"masks, {tag}", **kw)
+            alone[tag]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            del model
+        torch.cuda.empty_cache()
+        med = {tag: float(np.median(r["alone_ms"])) for tag, r in alone.items()}
+        log(f"[masks] on the same pre-loaded batches (no loader): median step "
+            f"{med['masks']:.2f} ms with the mask head, {med['flagship']:.2f} ms without, "
+            f"+{med['masks'] - med['flagship']:.2f} ms; peak {alone['masks']['peak_gib']:.2f} "
+            f"against {alone['flagship']['peak_gib']:.2f} GiB")
+
+        reset_kernel_counts()
+        out, metrics = run_cli(eval_cli.main, ["--pipeline_config_path", pipeline,
+                                               "--checkpoint_dir", train_dir, "--eval_dir",
+                                               os.path.join(work, "eval"), "--run_once"])
+        eval_per_batch = {k: v / 2 for k, v in kernel_counts().items()}
+        mask_map = metrics["DetectionMasks_Precision/mAP"]
+        pascal_map = metrics["PascalMasks_Precision/mAP@0.5IOU"]
+        log(f"[masks] eval at step {MASK_STEPS[1]} on 16 records: DetectionMasks mAP "
+            f"{mask_map:.6g}, PascalMasks mAP@0.5 {pascal_map:.6g}, "
+            f"{metrics['eval/images_per_sec']:.2f} img/s, launches a batch of 8 {eval_per_batch}")
+        if not (np.isfinite(mask_map) and np.isfinite(pascal_map)) \
+                or eval_per_batch != MASK_LAUNCHES[1]:
+            raise AssertionError(f"mask eval: mAP {mask_map} / {pascal_map}, launches "
+                                 f"{eval_per_batch}")
+
+        calls = train_step_calls(pipeline, train_dir, seed)[0]
+        shapes = {"train": check_kernels_on(calls, "mask train step"),
+                  "eval": check_kernels_on(eval_batch_calls(pipeline, train_dir),
+                                           "mask eval batch")}
+        (features, boxes, crop_size), _ = next(c for c in calls["roi_crop"]
+                                               if c[0][0].shape[-1] == 1)
+        target_crop = time_crop(features, boxes, int(crop_size[0]), "mask targets")
+        del calls
+        torch.cuda.empty_cache()
+
+        export_dir = os.path.join(work, "export")
+        run_cli(exporter.main, ["--pipeline_config_path", pipeline, "--trained_checkpoint_dir",
+                                train_dir, "--output_directory", export_dir])
+        served = InferenceModel.load(export_dir)
+        image = request_picture(np.random.RandomState(seed + 32), 600, 800)
+        det = served.predict_images([image])
+        check_outputs(det, 1)
+        masks = det.get("detection_masks")
+        n = int(det["num_detections"][0])
+        if masks is None or masks.shape != (1, 300, 14, 14) or not np.isfinite(masks).all() \
+                or masks.min() < 0 or masks.max() > 1:
+            raise AssertionError(f"the mask bundle's request: detection_masks "
+                                 f"{None if masks is None else masks.shape}")
+        request_ms = serve_ms(served, image)
+        log(f"[masks] one 600x800 request through the mask bundle: {n} detections, "
+            f"detection_masks {masks.shape} in [{masks.min():.3g}, {masks.max():.3g}]; ms a "
+            f"request (10, sorted) {[round(t, 2) for t in request_ms]}")
+        del served
+
+        t0 = time.perf_counter()
+        phase_train_card_vs_cpu(seed, masks=True)
+        cvc_s = time.perf_counter() - t0
+        wall = time.perf_counter() - t_phase
+        log(f"[masks] phase 15: {wall:.1f} s (records {records_s:.1f} s, conversion "
+            f"{conversion_s:.1f} s, card vs CPU {cvc_s:.1f} s)")
+        results["masks"] = dict(
+            conversion=conversion, step_ms=step_ms, peak_memory_gib=peak_gib,
+            loader_wait_share=wait, loader_ms=loader, steps_without_loader=alone,
+            train_launches_per_step=MASK_LAUNCHES[0], eval_launches_per_batch=eval_per_batch,
+            eval_mask_map=mask_map, eval_pascal_mask_map=pascal_map, shapes=shapes,
+            target_crop=target_crop, request_ms=request_ms, wall_s=wall)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4149,6 +4675,7 @@ def main(argv=None) -> int:
     phase_ssd(args.seed, results)
     phase_pipeline(args.seed, results)
     phase_refine(args.seed, results)
+    phase_masks(args.seed, results)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -4248,6 +4775,13 @@ def main(argv=None) -> int:
                               for part in ("train", "eval")}
         k["refine_options_shapes"] = {f"miner cap {cap}": r["shapes"].get(k["name"], [])
                                       for cap, r in refine["options"].items()}
+    masks = results["masks"]
+    for k in kernels:
+        k["masks_train_launches_per_step"] = masks["train_launches_per_step"][k["name"]]
+        k["masks_eval_launches_per_batch"] = masks["eval_launches_per_batch"][k["name"]]
+        k["masks_shapes"] = {part: masks["shapes"][part].get(k["name"], [])
+                             for part in ("train", "eval")}
+    kernels[1]["mask_target_crop"] = masks["target_crop"]
     kernels[0]["coco_postprocess"] = coco["postprocess_nms"]
     library = coco["library"]
     if library is not None:

@@ -8,7 +8,10 @@ are the same on both sides, for the ResNet, both Inception trunks and
 MobileNet alike (mtlx names every module), so the map is path to path:
 
   * conv `kernel` HWIO -> `weight` OIHW (a depthwise [3, 3, 1, C] kernel
-    becomes the grouped conv's [C, 1, 3, 3])
+    becomes the grouped conv's [C, 1, 3, 3]); the mask head's transpose
+    conv (`mask_head/upsample`) HWIO -> IOHW, flipped in both spatial
+    axes (flax's nn.ConvTranspose without transpose_kernel correlates
+    with the kernel as it is, PyTorch's transpose conv with it flipped)
   * dense `kernel` [in, out] -> `weight` [out, in]
   * `bias` -> `bias`
   * batch-norm `scale`/`bias` (params) -> the FrozenBatchNorm (or
@@ -36,10 +39,13 @@ import numpy as np
 import torch
 
 # top-level flax modules of every model (serving and training); an R-FCN
-# has rfcn_predictor where a Faster R-CNN has box_predictor, and an SSD
-# has extra and one box_predictor_{i} a feature map
+# has rfcn_predictor where a Faster R-CNN has box_predictor, a Mask R-CNN
+# also mask_head, and an SSD has extra and one box_predictor_{i} a
+# feature map
 INFERENCE_MODULES = ("backbone", "classifier_backbone", "rpn", "box_predictor",
-                     "rfcn_predictor", "extra")
+                     "rfcn_predictor", "extra", "mask_head")
+# flax nn.ConvTranspose modules, mapped to nn.ConvTranspose2d
+TRANSPOSE_CONVS = ("mask_head/upsample",)
 _SSD_PREDICTOR = re.compile(r"^box_predictor_\d+$")
 
 
@@ -83,7 +89,9 @@ def flax_to_state_dict(variables: Mapping, training_heads: bool = False
                     raise ValueError(f"unexpected batch statistic {where}")
             elif name == "kernel":
                 name = "weight"
-                if arr.ndim == 4:  # conv HWIO -> OIHW
+                if arr.ndim == 4 and "/".join(path[:-1]) in TRANSPOSE_CONVS:
+                    arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # HWIO -> IOHW, flipped
+                elif arr.ndim == 4:  # conv HWIO -> OIHW
                     arr = arr.transpose(3, 2, 0, 1)
                 elif arr.ndim == 2:  # dense [in, out] -> [out, in]
                     arr = arr.T

@@ -1,5 +1,7 @@
 """Faster R-CNN box coder (port of mtlx/coders/box_coders.py): anchor-relative
-`[ty, tx, th, tw]` codes with scale factors `[10, 10, 5, 5]`."""
+`[ty, tx, th, tw]` codes with scale factors `[10, 10, 5, 5]`, and the
+keypoint coder that extends them with each keypoint's anchor-relative
+offset."""
 
 from __future__ import annotations
 
@@ -61,3 +63,30 @@ def make_faster_rcnn_coder(scale_factors=(10.0, 10.0, 5.0, 5.0)) -> BoxCoder:
         decode=lambda c, a: faster_rcnn_decode(c, a, scale_factors),
         code_size=4,
     )
+
+
+def keypoint_encode(boxes: Tensor, keypoints: Tensor, anchors: Tensor,
+                    scale_factors: Sequence[float] = (10.0, 10.0, 5.0, 5.0)) -> Tensor:
+    """Boxes and their K keypoints as [ty, tx, th, tw, tky0, tkx0, ...]:
+    each keypoint relative to the anchor's center, over the anchor's size
+    (plus EPSILON), times the y / x scale factors (the reference's
+    keypoint_box_coder)."""
+    ycenter_a, xcenter_a, ha, wa = box_ops.center_coordinates_and_sizes(anchors)
+    box_codes = faster_rcnn_encode(boxes, anchors, scale_factors)
+    ha_e = (ha + EPSILON)[..., None]
+    wa_e = (wa + EPSILON)[..., None]
+    tky = (keypoints[..., 0] - ycenter_a[..., None]) / ha_e * scale_factors[0]
+    tkx = (keypoints[..., 1] - xcenter_a[..., None]) / wa_e * scale_factors[1]
+    kp_codes = torch.stack([tky, tkx], dim=-1).reshape(*boxes.shape[:-1], -1)
+    return torch.cat([box_codes, kp_codes], dim=-1)
+
+
+def keypoint_decode(codes: Tensor, anchors: Tensor, num_keypoints: int,
+                    scale_factors: Sequence[float] = (10.0, 10.0, 5.0, 5.0)):
+    """Box and keypoint codes back to (boxes, keypoints [..., K, 2])."""
+    ycenter_a, xcenter_a, ha, wa = box_ops.center_coordinates_and_sizes(anchors)
+    boxes = faster_rcnn_decode(codes[..., :4], anchors, scale_factors)
+    kp = codes[..., 4:].reshape(*codes.shape[:-1], num_keypoints, 2)
+    ky = kp[..., 0] / scale_factors[0] * (ha + EPSILON)[..., None] + ycenter_a[..., None]
+    kx = kp[..., 1] / scale_factors[1] * (wa + EPSILON)[..., None] + xcenter_a[..., None]
+    return boxes, torch.stack([ky, kx], dim=-1)

@@ -123,11 +123,10 @@ def decode_example(serialized: bytes, decode_image: bool = True,
     mtlx's decode_example does. groundtruth_classes stay 1-based as
     stored. decode_image decodes `image/encoded` by its `image/format`
     (data/imgcodec.py). Given a memoryview, the encoded image comes back
-    as a slice of it, not a copy. Instance masks are not ported and
-    raise."""
-    if load_instance_masks:
-        raise NotImplementedError("instance masks are not ported: ROADMAP.md queue 1, "
-                                  "masks and keypoints")
+    as a slice of it, not a copy. load_instance_masks decodes the
+    per-instance PNGs of `image/object/mask` into an [N, h, w] float32
+    0 / 1 array (a pixel is 1 where its luma is above 0, as mtlx's PIL
+    convert('L') > 0)."""
     fmap = parse_features(serialized)
     out: Dict = {}
     ymin = _floats(fmap, "image/object/bbox/ymin")
@@ -169,6 +168,13 @@ def decode_example(serialized: bytes, decode_image: bool = True,
         out[InputDataFields.groundtruth_keypoints] = np.stack(
             [ky, kx], axis=-1
         ).reshape(n, p, 2)
+    if load_instance_masks and "image/object/mask" in fmap:
+        from mtlx_torch.data import imgcodec
+
+        masks = [(imgcodec.decode_png_luma(b) > 0).astype(np.float32)
+                 for b in _bytes(fmap, "image/object/mask")]
+        out[InputDataFields.groundtruth_instance_masks] = (
+            np.stack(masks) if masks else np.zeros((0, 1, 1), np.float32))
     return out
 
 
@@ -237,11 +243,13 @@ def build_example(
     truncated=None,
     group_of=None,
     poses=None,
+    instance_masks=None,  # optional [N] list of [h, w] 0 / 1 arrays
     keypoints=None,  # optional [N, P, 2] normalized (y, x)
 ) -> bytes:
     """One serialized Example with the reference's feature keys (mtlx's
     build_example, which returns the message; this returns its bytes).
-    Instance masks are not ported."""
+    Instance masks go under `image/object/mask` as one 8-bit gray PNG
+    each (0 / 255), the TF OD API's PNG-masks format."""
     n = len(class_labels)
     difficult = difficult if difficult is not None else [0] * n
     truncated = truncated if truncated is not None else [0] * n
@@ -268,6 +276,12 @@ def build_example(
         if group_of is not None:
             f["image/object/group_of"] = int64_list_feature(group_of)
         f["image/object/view"] = bytes_list_feature(poses)
+        if instance_masks is not None:
+            from mtlx_torch.data import imgcodec
+
+            f["image/object/mask"] = bytes_list_feature(
+                [imgcodec.encode_png((np.asarray(m) > 0).astype(np.uint8) * 255)
+                 for m in instance_masks])
         if keypoints is not None:
             kp = np.asarray(keypoints, np.float32)
             f["image/object/keypoint/y"] = float_list_feature(kp[..., 0].reshape(-1))

@@ -222,9 +222,6 @@ class HostGeometry:
 
     def __call__(self, sample: Dict[str, np.ndarray],
                  rng: np.random.Generator) -> Dict[str, np.ndarray]:
-        if "gt_keypoints" in sample or "gt_instance_masks" in sample:
-            raise NotImplementedError("host geometry of keypoints and instance masks is not "
-                                      "ported: ROADMAP.md queue 1 item 16 (masks and keypoints)")
         pre_h, pre_w = int(sample["true_shape"][0]), int(sample["true_shape"][1])
         orig = sample.get("original_shape")
         src_scale = pre_h / float(orig[0]) if orig is not None else 1.0
@@ -254,6 +251,22 @@ class HostGeometry:
         out["true_shape"] = np.asarray([fh, fw], np.int32)
         out["gt_boxes"] = (frame.boxes * np.asarray([sy, sx, sy, sx])).astype(np.float32)
         out["gt_mask"] = frame.valid
+        if "gt_keypoints" in sample:
+            # the crops and pads only move the frame's origin, so it maps
+            # the keypoints; a point outside the final frame, or whose
+            # source lies outside the content every crop of the chain kept,
+            # becomes NaN (keypoint_ops.prune_outside_window)
+            src_kp = sample["gt_keypoints"].astype(np.float64)
+            kp = (src_kp - np.asarray([frame.oy, frame.ox])) * np.asarray([sy, sx])
+            c = frame.content
+            inside = ((kp[..., 0] >= 0) & (kp[..., 0] <= fh)
+                      & (kp[..., 1] >= 0) & (kp[..., 1] <= fw)
+                      & (src_kp[..., 0] >= c[0]) & (src_kp[..., 0] <= c[2])
+                      & (src_kp[..., 1] >= c[1]) & (src_kp[..., 1] <= c[3]))
+            out["gt_keypoints"] = np.where(inside[..., None], kp, np.nan).astype(np.float32)
+        # gt_instance_masks pass through: they stay on the source canvas (at
+        # mask_stride resolution) and the train step resamples them through
+        # the image's window (train.make_augmented_batch_fn)
         out["aug_window"] = np.asarray(
             [frame.oy, frame.ox, frame.oy + frame.h, frame.ox + frame.w], np.float32)
         out["aug_src_shape"] = np.asarray([pre_h, pre_w], np.int32)

@@ -166,9 +166,9 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
     return out
 
 
-def decode_png(encoded: bytes) -> np.ndarray:
-    """[H, W, 3] uint8 RGB of an 8-bit PNG (gray is replicated, alpha
-    dropped, as PIL's convert('RGB') does)."""
+def _png_samples(encoded: bytes) -> np.ndarray:
+    """[H, W, samples] uint8 of an 8-bit PNG as stored (gray, gray + alpha,
+    RGB or RGBA)."""
     header, idat = None, []
     for kind, body in _png_chunks(encoded):
         if kind == b"IHDR":
@@ -190,26 +190,48 @@ def decode_png(encoded: bytes) -> np.ndarray:
                                         bufsize=size), np.uint8)
     if raw.size != size:
         raise ValueError("PNG image data has the wrong size")
-    pixels = _unfilter(raw, height, width * ch, ch).reshape(height, width, ch)
-    if ch in (1, 2):
+    return _unfilter(raw, height, width * ch, ch).reshape(height, width, ch)
+
+
+def decode_png(encoded: bytes) -> np.ndarray:
+    """[H, W, 3] uint8 RGB of an 8-bit PNG (gray is replicated, alpha
+    dropped, as PIL's convert('RGB') does)."""
+    pixels = _png_samples(encoded)
+    if pixels.shape[2] in (1, 2):
         return np.repeat(pixels[..., :1], 3, axis=2)
     return np.ascontiguousarray(pixels[..., :3])
 
 
+def decode_png_luma(encoded: bytes) -> np.ndarray:
+    """[H, W] uint8 of a PNG as PIL's convert('L') gives it: gray as
+    stored (alpha dropped), color as its ITU-R 601 luma in PIL's integer
+    rounding."""
+    pixels = _png_samples(encoded)
+    if pixels.shape[2] in (1, 2):
+        return np.ascontiguousarray(pixels[..., 0])
+    rgb = pixels[..., :3].astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+
+
 def encode_png(image: np.ndarray) -> bytes:
-    """An 8-bit RGB PNG of [H, W, 3] uint8 pixels, every row filter 0."""
+    """An 8-bit PNG of [H, W, 3] RGB or [H, W] gray uint8 pixels, every row
+    filter 0."""
     image = np.ascontiguousarray(image, np.uint8)
+    gray = image.ndim == 2
+    if gray:
+        image = image[..., None]
     h, w, ch = image.shape
-    if ch != 3:
-        raise ValueError(f"encode_png takes RGB images, got {ch} channels")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * 3)], axis=1)
+    if ch != 3 and not gray:
+        raise ValueError(f"encode_png takes RGB or gray images, got {ch} channels")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * ch)], axis=1)
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
     return (_PNG_SIGNATURE
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if gray else 2, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))  # fast; noise does not shrink
             + chunk(b"IEND", b""))
 

@@ -13,8 +13,14 @@ at, bounded by `max_bucket_variants` (`BucketCoalescer`).
 from pinned memory while the step runs; data/grain_loader.py runs
 `batches`' work in worker processes.
 
-Not ported, each raising where it is asked for: instance masks and
-keypoints (ROADMAP.md queue 1 item 16).
+With load_instance_masks a sample carries `gt_instance_masks` [G, CH /
+mask_stride, CW / mask_stride] uint8 0 / 1: each instance's mask resized
+with PIL (bilinear, thresholded at half) onto round(true / mask_stride)
+and pasted at the top left of the reduced canvas, as mtlx carries them
+(the mask loss crops them to 14x14 anyway). With num_keypoints P a
+sample carries `gt_keypoints` [G, P, 2], absolute (y, x) on the canvas.
+Both are arrays of the batch like any other, so the worker loader ships
+them through its shared memory too.
 """
 
 from __future__ import annotations
@@ -34,8 +40,6 @@ from mtlx_torch.data import imgcodec, tfrecord
 from mtlx_torch.data.example_decoder import InputDataFields, decode_example
 from mtlx_torch.device import DeviceLike, resolve_device
 from mtlx_torch.utils.bucketing import bucket_extent, bucket_multiple as _bucket_multiple
-
-_NOT_PORTED = "is not ported: ROADMAP.md queue 1"
 
 
 def keep_aspect_target(h: int, w: int, min_dimension: int,
@@ -71,13 +75,13 @@ class DetectionDataset:
         process_count: int = 1,
         keep_difficult: bool = True,
         load_instance_masks: bool = False,
+        mask_stride: int = 8,
         num_keypoints: int = 0,
         tf1_resize: bool = False,
     ):
-        if load_instance_masks:
-            raise NotImplementedError(f"load_instance_masks {_NOT_PORTED}, masks and keypoints")
-        if num_keypoints:
-            raise NotImplementedError(f"num_keypoints {_NOT_PORTED}, masks and keypoints")
+        self.load_instance_masks = load_instance_masks
+        self.mask_stride = mask_stride
+        self.num_keypoints = num_keypoints
         self.canvas_size = canvas_size
         self.resizer = resizer
         self.tf1_resize = tf1_resize
@@ -131,9 +135,12 @@ class DetectionDataset:
         (length,) = struct.unpack_from("<Q", m, off)
         return memoryview(m)[off + 12: off + 12 + length]
 
-    def _parse(self, i: int) -> Dict:
-        """Example parse only, no image decode."""
-        return decode_example(self._read(i), decode_image=False, return_encoded=True)
+    def _parse(self, i: int, with_masks: bool = False) -> Dict:
+        """Example parse only, no image decode; with_masks decodes the
+        instance masks too (when loaded), which only a sample needs, not
+        the header scans."""
+        return decode_example(self._read(i), decode_image=False, return_encoded=True,
+                              load_instance_masks=with_masks and self.load_instance_masks)
 
     def _target(self, h0: int, w0: int) -> Tuple[int, int]:
         kind, params = self.resizer
@@ -178,7 +185,7 @@ class DetectionDataset:
 
     def get(self, i: int) -> Dict[str, np.ndarray]:
         """One canvas-shaped sample (numpy)."""
-        return self._decode_assemble(self._parse(i), i)
+        return self._decode_assemble(self._parse(i, with_masks=True), i)
 
     def _decode_assemble(self, ex: Dict, i: int) -> Dict[str, np.ndarray]:
         enc = ex[InputDataFields.image_encoded]
@@ -193,7 +200,7 @@ class DetectionDataset:
         """Samples with the JPEGs decoded on the codec's thread pool (the
         interpreter lock released); a batch holding another format decodes
         one image at a time."""
-        exs = [self._parse(int(i)) for i in indices]
+        exs = [self._parse(int(i), with_masks=True) for i in indices]
         fmts = [ex.get(InputDataFields.image_format, b"jpeg") for ex in exs]
         if any(f not in imgcodec.JPEG_FORMATS for f in fmts):
             return [self._decode_assemble(ex, int(i)) for ex, i in zip(exs, indices)]
@@ -214,10 +221,16 @@ class DetectionDataset:
         group_of = ex.get(InputDataFields.groundtruth_group_of)
         if group_of is None or len(group_of) != len(classes):
             group_of = np.zeros(len(classes), np.int64)
+        inst_masks = ex.get(InputDataFields.groundtruth_instance_masks)
+        keypoints_norm = ex.get(InputDataFields.groundtruth_keypoints)
         if not self.keep_difficult and len(difficult) == len(classes):
             keep = difficult == 0
             boxes_norm, classes = boxes_norm[keep], classes[keep]
             difficult, group_of = difficult[keep], group_of[keep]
+            if inst_masks is not None and len(inst_masks):
+                inst_masks = inst_masks[keep]
+            if keypoints_norm is not None and len(keypoints_norm):
+                keypoints_norm = keypoints_norm[keep]
 
         th, tw = image.shape[:2]
         ch, cw = self.canvas_size
@@ -232,6 +245,17 @@ class DetectionDataset:
         n = len(boxes_abs)
         mask = np.zeros((self.max_boxes,), bool)
         mask[: min(n, self.max_boxes)] = True
+        extra = {}
+        if self.num_keypoints > 0:
+            p = self.num_keypoints
+            gt_kp = np.zeros((self.max_boxes, p, 2), np.float32)
+            if keypoints_norm is not None and keypoints_norm.size:
+                k = keypoints_norm[: self.max_boxes, :p]
+                # normalized -> absolute canvas pixels (the boxes' frame)
+                gt_kp[: k.shape[0], : k.shape[1]] = k * np.asarray([th, tw], np.float32)
+            extra["gt_keypoints"] = gt_kp
+        if self.load_instance_masks:
+            extra["gt_instance_masks"] = self._paste_masks(inst_masks, th, tw)
         return {
             "image": canvas,
             "true_shape": np.asarray([th, tw], np.int32),
@@ -242,7 +266,28 @@ class DetectionDataset:
             "gt_group_of": pad_or_clip(group_of.astype(np.int32), self.max_boxes),
             "gt_mask": mask,
             "source_id": ex.get(InputDataFields.source_id, str(i)),
+            **extra,
         }
+
+    def _paste_masks(self, inst_masks: Optional[np.ndarray], th: int, tw: int) -> np.ndarray:
+        """[max_boxes, CH / s, CW / s] uint8: each instance mask resized with
+        the image onto round(true / s) (PIL bilinear, thresholded at 127)
+        and pasted on the reduced canvas (s = mask_stride)."""
+        from PIL import Image
+
+        ms = self.mask_stride
+        ch, cw = self.canvas_size
+        mch, mcw = ch // ms, cw // ms
+        out = np.zeros((self.max_boxes, mch, mcw), np.uint8)
+        if inst_masks is None:
+            return out
+        mth, mtw = max(1, round(th / ms)), max(1, round(tw / ms))
+        for k in range(min(len(inst_masks), self.max_boxes)):
+            small = np.asarray(
+                Image.fromarray((inst_masks[k] > 0.5).astype(np.uint8) * 255, "L").resize(
+                    (min(mtw, mcw), min(mth, mch)), Image.BILINEAR))
+            out[k, : small.shape[0], : small.shape[1]] = small > 127
+        return out
 
 
 def _bucket(true_shapes: np.ndarray, canvas_hw, bucket_multiple: int,

@@ -46,7 +46,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 from torch import Tensor
 
-from mtlx_torch.geometry import box_ops
+from mtlx_torch.geometry import box_ops, keypoint_ops
 from mtlx_torch.ops import roi as roi_lib
 
 Param = Union[float, Tensor]
@@ -99,7 +99,9 @@ def _inside(img: Tensor, new_h: Tensor, new_w: Tensor) -> Tensor:
 def random_horizontal_flip(sample: Dict[str, Tensor], uniforms: Tensor,
                            probability: float = 0.5) -> Dict[str, Tensor]:
     """Mirror the true-image region of each image whose draw is below
-    `probability`, and its boxes."""
+    `probability`, its boxes and, where the sample has them, its
+    instance masks [B, G, gh, gw] (at canvas / stride, mirrored within
+    round(true width / stride)) and keypoints [B, G, P, 2]."""
     do = uniforms < probability  # [B]
     img = sample["image"]
     b, height, width, ch = img.shape
@@ -115,12 +117,35 @@ def random_horizontal_flip(sample: Dict[str, Tensor], uniforms: Tensor,
     out = dict(sample)
     out["image"] = torch.where(do[:, None, None, None], flipped, img)
     out["boxes"] = torch.where(do[:, None, None], fboxes, boxes)
+    if "instance_masks" in sample:
+        out["instance_masks"] = _flip_masks(sample["instance_masks"], w, width, 3, do)
+    if "keypoints" in sample:
+        kp = sample["keypoints"]
+        flipped_kp = keypoint_ops.flip_horizontal(kp, wf[:, :, None] / 2.0)
+        out["keypoints"] = torch.where(do[:, None, None, None], flipped_kp, kp)
     return out
+
+
+def _flip_masks(m: Tensor, extent: Tensor, canvas: int, dim: int, do: Tensor) -> Tensor:
+    """Instance masks [B, G, gh, gw] mirrored along `dim` (2: rows, 3:
+    columns) within each image's extent [B, 1] on the mask raster, where
+    `do` [B] is set: the raster's stride is the canvas extent over its
+    size, and the true extent rounds to it half to even (jnp.round)."""
+    size = m.shape[dim]
+    stride = canvas // size
+    em = torch.round(extent.to(torch.float32) / stride).to(torch.int64)  # [B, 1]
+    idx = torch.arange(size, device=m.device)
+    src = torch.where(idx < em, em - 1 - idx, idx)  # [B, size]
+    shape = [m.shape[0], 1, 1, 1]
+    shape[dim] = size
+    flipped = torch.gather(m, dim, src.reshape(shape).expand(m.shape))
+    return torch.where(do[:, None, None, None], flipped, m)
 
 
 def random_vertical_flip(sample: Dict[str, Tensor], uniforms: Tensor,
                          probability: float = 0.5) -> Dict[str, Tensor]:
-    """Mirror the true-image region top to bottom, and its boxes."""
+    """Mirror the true-image region top to bottom, its boxes and, where
+    the sample has them, its instance masks and keypoints."""
     do = uniforms < probability
     img = sample["image"]
     b, height, width, ch = img.shape
@@ -136,6 +161,12 @@ def random_vertical_flip(sample: Dict[str, Tensor], uniforms: Tensor,
     out = dict(sample)
     out["image"] = torch.where(do[:, None, None, None], flipped, img)
     out["boxes"] = torch.where(do[:, None, None], fboxes, boxes)
+    if "instance_masks" in sample:
+        out["instance_masks"] = _flip_masks(sample["instance_masks"], h, height, 2, do)
+    if "keypoints" in sample:
+        kp = sample["keypoints"]
+        flipped_kp = keypoint_ops.flip_vertical(kp, hf[:, :, None] / 2.0)
+        out["keypoints"] = torch.where(do[:, None, None, None], flipped_kp, kp)
     return out
 
 
@@ -776,6 +807,26 @@ TRANSFORMS: Dict[str, Callable] = {
     "random_black_patches": random_black_patches,
     "subtract_channel_mean": subtract_channel_mean,
 }
+
+# the options that carry instance masks and keypoints along: the flips
+# mirror them, the photometric and box-only ones leave them as they are.
+# The crop, scale and rotation family does not transform them, and the
+# train CLI refuses it when they are loaded (train.make_augmented_batch_fn)
+MASK_SAFE_TRANSFORMS = frozenset({
+    "normalize_image",
+    "random_horizontal_flip",
+    "random_vertical_flip",
+    "random_pixel_value_scale",
+    "random_rgb_to_gray",
+    "random_adjust_brightness",
+    "random_adjust_contrast",
+    "random_adjust_hue",
+    "random_adjust_saturation",
+    "random_distort_color",
+    "random_jitter_boxes",
+    "scale_boxes_to_pixel_coordinates",
+    "subtract_channel_mean",
+})
 
 # candidate windows a crop draws (mtlx's num_attempts)
 NUM_ATTEMPTS = 8

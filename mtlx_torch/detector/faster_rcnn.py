@@ -14,6 +14,13 @@ the greedy NMS kernel, and the ROI crop is one launch of the crop kernel
 kernel (proposal sampling, and the RPN and second-stage target
 assignments) and one of the crop's backward kernel.
 
+Instance masks (predict_instance_masks, Mask R-CNN's mask head on the
+box classifier's unpooled features): the postprocess carries each
+proposal's per-class mask logits through the NMS as an extra field, and
+the training step's mask loss adds one IoU launch (the proposals'
+re-assignment) and one crop launch (the matched ground-truth masks cut
+to 14x14, all B x P in one).
+
 Serving runs under `torch.inference_mode()`; training keeps mtlx's
 stop-gradients: the RPN outputs enter the proposal selection detached,
 so NMS is never differentiated, and proposals, ground-truth windows,
@@ -281,10 +288,6 @@ class FasterRCNNModules(nn.Module):
 
     def __init__(self, cfg: FasterRCNNConfig):
         super().__init__()
-        if cfg.predict_instance_masks:
-            raise NotImplementedError(
-                "the mask head is not ported: ROADMAP.md queue 1 item 16 (masks and keypoints)"
-            )
         self.refines = cfg.mtl.refines
         self.backbone, self.classifier_backbone = make_trunk(cfg)
         width = self.backbone.out_channels
@@ -308,18 +311,26 @@ class FasterRCNNModules(nn.Module):
             width, cfg.num_classes, cfg.dtype, cfg.second_stage_dropout,
             cfg.second_stage_dropout_keep_prob,
         )
+        if cfg.predict_instance_masks:  # on the unpooled box classifier features
+            self.mask_head = box_predictors.MaskHead(
+                self.classifier_backbone.out_channels, cfg.num_classes,
+                cfg.mask_prediction_conv_depth, cfg.dtype)
 
     def classify_rois(self, roi_crops: Tensor, aux_hidden: Optional[Tensor] = None,
                       dropout: Optional[Tensor] = None):
         """[N, h, w, C] ROI crops -> box classifier features -> mean pool
         (-> the refine path's aux_hidden [N, D] concatenated) -> (class
-        logits [N, K+1], box refinements [N, K, 4]). dropout: the box
-        predictor's draws, in training with second_stage_dropout."""
+        logits [N, K+1], box refinements [N, K, 4], mask logits [N, 2h',
+        2w', K] of the mask head on the unpooled features, or None without
+        one). dropout: the box predictor's draws, in training with
+        second_stage_dropout."""
         x = self.classifier_backbone(roi_crops)
         pooled = x.float().mean(dim=(1, 2))
         if aux_hidden is not None:
             pooled = torch.cat([pooled, aux_hidden], dim=-1)
-        return self.box_predictor(pooled, dropout)
+        cls, box = self.box_predictor(pooled, dropout)
+        masks = self.mask_head(x) if hasattr(self, "mask_head") else None
+        return cls, box, masks
 
     def aux_hidden_for_rois(self, pooled_rpn: Tensor) -> Tensor:
         """The refine vector of each ROI: the multi-object and closeness
@@ -396,7 +407,11 @@ class FasterRCNN:
                 elif name.startswith("box_predictor."):
                     spec = c.second_stage_fc_initializer
                 receptive = w[0, 0].numel() if w.dim() == 4 else 1
-                _init_(w, spec, w.shape[1] * receptive, w.shape[0] * receptive, generator)
+                fan_in, fan_out = w.shape[1] * receptive, w.shape[0] * receptive
+                module = self.modules.get_submodule(name.rsplit(".", 1)[0])
+                if isinstance(module, nn.ConvTranspose2d):  # weight [in, out, kh, kw]
+                    fan_in, fan_out = fan_out, fan_in
+                _init_(w, spec, fan_in, fan_out, generator)
             elif name.endswith((".scale", ".var")):
                 w.fill_(1.0)
             else:
@@ -468,9 +483,11 @@ class FasterRCNN:
         }
         if c.number_of_stages == 1:
             return pred
-        cls_logits, box_refine = self._predict_second_stage(feats, proposals, canvas_hw)
+        cls_logits, box_refine, masks = self._predict_second_stage(feats, proposals, canvas_hw)
         pred["class_predictions"] = cls_logits
         pred["refined_box_encodings"] = box_refine
+        if masks is not None:
+            pred["mask_predictions"] = masks  # [B, P, mh, mw, K]
         return pred
 
     def predict_train(self, images: Tensor, true_shapes: Tensor,
@@ -507,10 +524,12 @@ class FasterRCNN:
         }
         if c.number_of_stages == 1:
             return pred
-        cls_logits, box_refine = self._second_stage(
+        cls_logits, box_refine, masks = self._second_stage(
             feats, proposals, canvas_hw, draws.get("dropout") if c.second_stage_dropout else None)
         pred["class_predictions"] = cls_logits
         pred["refined_box_encodings"] = box_refine
+        if masks is not None:
+            pred["mask_predictions"] = masks
         if c.mtl.any:
             self._predict_aux(pred, feats, groundtruth, canvas_hw, draws)
         return pred
@@ -533,8 +552,9 @@ class FasterRCNN:
         """ROI crop -> maxpool -> box classifier features (-> the refine
         vector of each proposal joined on) -> FC heads. Returns
         (class_predictions [B, P, K+1], refined_box_encodings
-        [B, P, K, 4]). A 1x1 / stride-1 maxpool is the identity and is
-        skipped. dropout: the box predictor's draws [B * P, D]."""
+        [B, P, K, 4], mask_predictions [B, P, mh, mw, K] or None). A 1x1 /
+        stride-1 maxpool is the identity and is skipped. dropout: the box
+        predictor's draws [B * P, D]."""
         c = self.cfg
         b, p = proposals.shape[:2]
         norm_proposals = self._normalized(proposals, canvas_hw)
@@ -552,8 +572,10 @@ class FasterRCNN:
             # map in the map's compute type, as the aux heads' windows are
             pooled_rpn = roi_lib.mean_pooled_crop(feats, norm_proposals, (7, 7)).float()
             aux_hidden = self.modules.aux_hidden_for_rois(pooled_rpn.reshape(b * p, -1))
-        cls_logits, box_refine = self.modules.classify_rois(crops, aux_hidden, dropout)
-        return cls_logits.reshape(b, p, -1), box_refine.reshape(b, p, -1, 4)
+        cls_logits, box_refine, masks = self.modules.classify_rois(crops, aux_hidden, dropout)
+        if masks is not None:
+            masks = masks.reshape((b, p) + masks.shape[1:])
+        return cls_logits.reshape(b, p, -1), box_refine.reshape(b, p, -1, 4), masks
 
     @torch.inference_mode()
     def _predict_second_stage(self, feats: Tensor, proposals: Tensor,
@@ -663,6 +685,9 @@ class FasterRCNN:
         out.update(self._first_stage_loss(pred, gt, (draws["anchor_pos"], draws["anchor_neg"])))
         if c.number_of_stages > 1:
             out.update(self._second_stage_loss(pred, gt))
+            if (c.predict_instance_masks and "mask_predictions" in pred
+                    and "instance_masks" in gt):
+                out.update(self._mask_loss(pred, gt))
             if c.mtl.any:
                 out.update(self._aux_loss(pred, gt, replicas))
         out["total_loss"] = sum(v for k, v in out.items() if k.startswith("Loss/"))
@@ -735,6 +760,42 @@ class FasterRCNN:
             * c.second_stage_localization_loss_weight,
         }
 
+    def _mask_loss(self, pred, gt):
+        """mtlx's per-proposal instance-mask loss: the sampled proposals are
+        assigned again by the detection assigner (one IoU launch for the
+        batch), each one's matched ground-truth mask (at the loader's
+        canvas / mask_stride raster, in the compute canvas's frame) is
+        cropped and resized to the prediction's 14x14 (one crop launch for
+        all B x P proposals, each its own one-channel image), and the
+        matched class's mask logits take the sigmoid cross-entropy against
+        it, averaged over the pixels and the positive proposals of each
+        image, then over the images."""
+        c = self.cfg
+        mask_pred = pred["mask_predictions"]  # [B, P, mh, mw, K]
+        b, p, mh, mw, _ = mask_pred.shape
+        s = c.feature_stride
+        feats = pred["rpn_features"]
+        norm = torch.tensor([feats.shape[1] * s, feats.shape[2] * s] * 2,
+                            dtype=torch.float32, device=mask_pred.device)
+        with torch.no_grad():  # the targets are constants
+            props = pred["proposal_boxes"]
+            res = self._detection_assigner.assign(props, gt["boxes"], gt_mask=gt["mask"])
+            pos = ((res.match >= 0) & pred["proposal_mask"]).float()
+            gt_masks = gt["instance_masks"]  # [B, G, gh, gw]
+            g, gh, gw = gt_masks.shape[1:]
+            midx = torch.clamp(res.match, 0, g - 1)
+            sel = torch.gather(gt_masks, 1, midx[:, :, None, None].expand(b, p, gh, gw)).float()
+            target = roi_lib.batch_crop_and_resize(
+                sel.reshape(b * p, gh, gw, 1), (props / norm).reshape(b * p, 1, 4).contiguous(),
+                (mh, mw)).reshape(b, p, mh, mw)
+            cls = torch.clamp(torch.gather(gt["classes"], 1, midx), 0, c.num_classes - 1)
+        logit = torch.take_along_dim(
+            mask_pred, cls[:, :, None, None, None].expand(b, p, mh, mw, 1), dim=-1)[..., 0]
+        per_prop = loss_lib.sigmoid_cross_entropy(logit, target).mean(dim=(2, 3))
+        per_image = (per_prop * pos).sum(-1) / torch.clamp_min(pos.sum(-1), 1.0)
+        return {"Loss/BoxClassifierLoss/mask_loss":
+                per_image.mean() * c.second_stage_mask_prediction_loss_weight}
+
     def _aux_loss(self, pred, gt, replicas=None):
         c = self.cfg
         out = {}
@@ -792,8 +853,11 @@ class FasterRCNN:
     def postprocess(self, pred: Dict[str, Tensor], true_shapes: Tensor) -> Dict[str, Tensor]:
         """Second-stage decode + per-class NMS -> final detections:
         detection_boxes (normalized to the TRUE image), detection_scores,
-        detection_classes (0-based), num_detections. In RPN-only mode the
-        proposals are returned as class-agnostic detections."""
+        detection_classes (0-based), num_detections and, for a mask model,
+        detection_masks [B, D, mh, mw] (the sigmoid of each detection's
+        class's mask logits, carried through the NMS as an extra field;
+        0.5 on padding, as in mtlx). In RPN-only mode the proposals are
+        returned as class-agnostic detections."""
         c = self.cfg
         props = pred["proposal_boxes"]
         b = props.shape[0]
@@ -827,10 +891,18 @@ class FasterRCNN:
             clip_window=window,
             change_coordinate_frame=True,
             valid_mask=pred["proposal_mask"],
+            extra_fields={"masks": pred["mask_predictions"]} if "mask_predictions" in pred
+            else None,
         )
-        return {
+        out = {
             "detection_boxes": res.boxes,
             "detection_scores": res.scores,
             "detection_classes": res.classes,
             "num_detections": res.num_valid,
         }
+        if "masks" in res.extra_fields:
+            per_class = res.extra_fields["masks"]  # [B, D, mh, mw, K]
+            cls = res.classes.long()[:, :, None, None, None].expand(*per_class.shape[:4], 1)
+            out["detection_masks"] = torch.sigmoid(
+                torch.take_along_dim(per_class, cls, dim=-1)[..., 0])
+        return out

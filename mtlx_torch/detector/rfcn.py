@@ -65,6 +65,8 @@ class RFCN(FasterRCNN):
                       dropout: Optional[Tensor] = None):
         """Position-sensitive second stage, for training and (through
         `_predict_second_stage`) serving: (class_predictions [B, P, K+1],
-        refined_box_encodings [B, P, K, 4]), float32. R-FCN has no
-        dropout (its config never sets second_stage_dropout)."""
-        return self.modules.rfcn_predictions(feats, self._normalized(proposals, canvas_hw))
+        refined_box_encodings [B, P, K, 4], None), float32. R-FCN has no
+        dropout (its config never sets second_stage_dropout) and no mask
+        head."""
+        cls, box = self.modules.rfcn_predictions(feats, self._normalized(proposals, canvas_hw))
+        return cls, box, None

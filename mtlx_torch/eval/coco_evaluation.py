@@ -14,9 +14,11 @@ COCOeval's bbox protocol, with no pycocotools.
     with at most k detections an image
 
 The metric names are the reference's coco_tools names
-('DetectionBoxes_Precision/mAP', ...). Mask IoU matching (mtlx's iou_type
-'segm') and the mask evaluator (`CocoMaskEvaluator`) are not ported:
-ROADMAP.md queue 1 item 16.
+('DetectionBoxes_Precision/mAP', ...). iou_type 'segm' (metrics_set
+'coco_mask_metrics', `CocoMaskEvaluator`) matches on binary-mask IoU
+instead, a crowd's IoU being the intersection over the detection's area
+(pycocotools' maskUtils.iou), with mask-pixel areas for the area ranges,
+under the names 'DetectionMasks_...'.
 """
 
 from __future__ import annotations
@@ -36,13 +38,29 @@ AREA_RANGES = {
 }
 MAX_DETECTIONS = 100
 RECALL_POINTS = np.linspace(0.0, 1.0, 101)
-_MASKS_NOT_PORTED = "is not ported: ROADMAP.md queue 1 item 16 (masks and keypoints)"
 
 
 def _box_areas(boxes: np.ndarray) -> np.ndarray:
     if len(boxes) == 0:
         return np.zeros((0,), np.float64)
     return np.maximum(boxes[:, 2] - boxes[:, 0], 0) * np.maximum(boxes[:, 3] - boxes[:, 1], 0)
+
+
+def _mask_iou(dt_masks: np.ndarray, gt_masks: np.ndarray,
+              gt_iscrowd: np.ndarray) -> np.ndarray:
+    """[D, G] binary-mask IoU; a crowd's is the intersection over the
+    detection's area (pycocotools maskUtils.iou with iscrowd)."""
+    d, g = len(dt_masks), len(gt_masks)
+    out = np.zeros((d, g), np.float64)
+    if d == 0 or g == 0:
+        return out
+    dt = dt_masks.reshape(d, -1).astype(bool)
+    gt = gt_masks.reshape(g, -1).astype(bool)
+    inter = dt.astype(np.float64) @ gt.T.astype(np.float64)  # [D, G]
+    da = dt.sum(1).astype(np.float64)[:, None]
+    ga = gt.sum(1).astype(np.float64)[None, :]
+    union = np.where(gt_iscrowd[None, :], da, da + ga - inter)
+    return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
 
 
 def _match_image(
@@ -99,11 +117,16 @@ def _match_image(
 
 
 class CocoDetectionEvaluation:
-    """Accumulates per-image results of box matching (mtlx's iou_type
-    'bbox'); classes are 0-based here."""
+    """Accumulates per-image results; classes are 0-based here. iou_type
+    'bbox' matches on box IoU, 'segm' on binary-mask IoU with mask-pixel
+    areas (masks [N, H, W] in the same image frame for groundtruth and
+    detections)."""
 
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int, iou_type: str = "bbox"):
+        if iou_type not in ("bbox", "segm"):
+            raise ValueError(f"unknown iou_type {iou_type!r}")
         self.num_classes = num_classes
+        self.iou_type = iou_type
         self.gt: Dict[str, dict] = {}
         # per area range: a list over images of {class: (scores, tp, ig)}
         self._results: Dict[str, List] = {k: [] for k in AREA_RANGES}
@@ -115,13 +138,17 @@ class CocoDetectionEvaluation:
         boxes: np.ndarray,
         classes: np.ndarray,
         is_crowd: Optional[np.ndarray] = None,
+        masks: Optional[np.ndarray] = None,
     ):
         if is_crowd is None or len(is_crowd) != len(classes):
             is_crowd = np.zeros(len(classes), bool)
+        if self.iou_type == "segm" and masks is None:
+            raise ValueError("segm evaluation needs groundtruth masks")
         self.gt[image_key] = {
             "boxes": np.asarray(boxes, np.float64).reshape(-1, 4),
             "classes": np.asarray(classes, np.int64),
             "is_crowd": np.asarray(is_crowd, bool),
+            "masks": np.asarray(masks, bool) if masks is not None else None,
         }
 
     def add_single_detected_image_info(
@@ -130,19 +157,32 @@ class CocoDetectionEvaluation:
         boxes: np.ndarray,
         scores: np.ndarray,
         classes: np.ndarray,
+        masks: Optional[np.ndarray] = None,
     ):
         gt = self.gt.get(image_key, {
             "boxes": np.zeros((0, 4)),
             "classes": np.zeros(0, np.int64),
             "is_crowd": np.zeros(0, bool),
+            "masks": None,
         })
         boxes = np.asarray(boxes, np.float64).reshape(-1, 4)
         scores = np.asarray(scores, np.float64)
         classes = np.asarray(classes, np.int64)
         order = np.argsort(-scores, kind="stable")[:MAX_DETECTIONS]
         boxes, scores, classes = boxes[order], scores[order], classes[order]
-        dt_areas = _box_areas(boxes)
-        gt_areas = _box_areas(gt["boxes"])
+        segm = self.iou_type == "segm"
+        if segm:
+            if masks is None:
+                raise ValueError("segm evaluation needs detection masks")
+            masks = np.asarray(masks, bool)[order]
+            gt_masks = gt["masks"]
+            if gt_masks is None:
+                gt_masks = np.zeros((0,) + masks.shape[1:], bool)
+            dt_areas = masks.sum(axis=(1, 2)).astype(np.float64)
+            gt_areas = gt_masks.sum(axis=(1, 2)).astype(np.float64)
+        else:
+            dt_areas = _box_areas(boxes)
+            gt_areas = _box_areas(gt["boxes"])
         for rng_name, (lo, hi) in AREA_RANGES.items():
             per_class = {}
             for c in range(self.num_classes):
@@ -152,7 +192,10 @@ class CocoDetectionEvaluation:
                     continue
                 g_ignore = gt["is_crowd"][gsel] | ((gt_areas[gsel] < lo) | (gt_areas[gsel] >= hi))
                 d_out = (dt_areas[dsel] < lo) | (dt_areas[dsel] >= hi)
-                iou = np_box_ops.iou(boxes[dsel], gt["boxes"][gsel])
+                if segm:
+                    iou = _mask_iou(masks[dsel], gt_masks[gsel], gt["is_crowd"][gsel])
+                else:
+                    iou = np_box_ops.iou(boxes[dsel], gt["boxes"][gsel])
                 tp, ig, npig = _match_image(iou, gt["is_crowd"][gsel], g_ignore, d_out)
                 per_class[c] = (scores[dsel], tp, ig)
                 self._npig[rng_name][c] += npig
@@ -209,7 +252,7 @@ class CocoDetectionEvaluation:
         def mean(x):
             return float(np.nanmean(x)) if np.isfinite(x).any() else -1.0
 
-        prefix = "DetectionBoxes"
+        prefix = "DetectionMasks" if self.iou_type == "segm" else "DetectionBoxes"
         ap_all, _ = self._precision_recall("all", MAX_DETECTIONS)
         out = {
             f"{prefix}_Precision/mAP": mean(ap_all),
@@ -280,7 +323,52 @@ class CocoDetectionEvaluator:
 
 
 class CocoMaskEvaluator:
-    """metrics_set 'coco_mask_metrics' (mask IoU matching): not ported."""
+    """metrics_set 'coco_mask_metrics': the COCOeval matching of the box
+    evaluator on binary-mask IoU with mask-pixel areas. The dicts carry
+    'groundtruth_instance_masks' / 'detection_masks', [N, H, W] binary in
+    the true image's frame; an image without them contributes nothing."""
 
     def __init__(self, categories: List[dict], include_metrics_per_category: bool = False):
-        raise NotImplementedError(f"CocoMaskEvaluator {_MASKS_NOT_PORTED}")
+        self.categories = categories
+        self._include_per_category = include_metrics_per_category
+        self._label_offset = 1
+        max_id = max(c["id"] for c in categories)
+        self.evaluation = CocoDetectionEvaluation(num_classes=max_id, iou_type="segm")
+        self._name = {c["id"]: c["name"] for c in categories}
+
+    def add_single_ground_truth_image_info(self, image_id: str, groundtruth_dict):
+        masks = groundtruth_dict.get("groundtruth_instance_masks")
+        if masks is None:
+            return
+        self.evaluation.add_single_ground_truth_image_info(
+            image_id,
+            groundtruth_dict["groundtruth_boxes"],
+            np.asarray(groundtruth_dict["groundtruth_classes"]) - self._label_offset,
+            groundtruth_dict.get("groundtruth_is_crowd",
+                                 groundtruth_dict.get("groundtruth_difficult")),
+            masks=masks,
+        )
+
+    def add_single_detected_image_info(self, image_id: str, detections_dict):
+        masks = detections_dict.get("detection_masks")
+        if masks is None or image_id not in self.evaluation.gt:
+            return
+        self.evaluation.add_single_detected_image_info(
+            image_id,
+            detections_dict["detection_boxes"],
+            detections_dict["detection_scores"],
+            np.asarray(detections_dict["detection_classes"]) - self._label_offset,
+            masks=masks,
+        )
+
+    def evaluate(self) -> Dict[str, float]:
+        out = self.evaluation.evaluate()
+        if self._include_per_category:
+            per_cat = self.evaluation.per_category_ap()
+            for cls_id, name in self._name.items():
+                ap = per_cat.get(cls_id - self._label_offset, float("nan"))
+                out[f"DetectionMasks_PerformanceByCategory/mAP/{name}"] = ap
+        return out
+
+    def clear(self):
+        self.__init__(self.categories, self._include_per_category)

@@ -10,7 +10,10 @@ eval_config.metrics_set (Pascal, weighted Pascal, COCO, OpenImages) and
 prints `[eval] step N: {json}` with their metrics (`Precision/mAP@0.5IOU`
 and the per-class APs; `DetectionBoxes_Precision/mAP`, `mAP@.50IOU`,
 `mAP@.75IOU`, the mAP and AR@100 by area and AR@1/10/100;
-`OpenImagesV2_Precision/mAP@0.5IOU`) and eval/images_per_sec; each
+`OpenImagesV2_Precision/mAP@0.5IOU`; with eval_instance_masks, the mask
+metrics `DetectionMasks_*` and `PascalMasks_*` / `WeightedPascalMasks_*`
+on the groundtruth masks upscaled from the loader's raster and each
+detection's mask pasted into its box) and eval/images_per_sec; each
 evaluation's metrics are also appended
 to `<eval_dir>/metrics.jsonl` and written, where finite, as scalars to a
 TensorBoard event file in eval_dir (`utils/summary_writer.py`).
@@ -36,12 +39,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-# metrics_set entries whose evaluators are not ported (mask matching)
-_NOT_PORTED_METRICS = (
-    "pascal_voc_instance_segmentation_metrics",
-    "weighted_pascal_voc_instance_segmentation_metrics",
-    "coco_mask_metrics",
-)
+# the evaluators that match on instance masks
+MASK_EVALUATORS = ("CocoMaskEvaluator", "PascalInstanceSegmentationEvaluator",
+                   "WeightedPascalInstanceSegmentationEvaluator")
 
 
 def parse_args(argv=None):
@@ -72,11 +72,13 @@ def parse_args(argv=None):
 
 def build_evaluators(eval_config, categories: List[dict]):
     """metrics_set names -> evaluators (default: the Pascal VOC one)."""
-    from mtlx_torch.eval.coco_evaluation import CocoDetectionEvaluator
+    from mtlx_torch.eval.coco_evaluation import CocoDetectionEvaluator, CocoMaskEvaluator
     from mtlx_torch.eval.object_detection_evaluation import (
         OpenImagesDetectionEvaluator,
         PascalDetectionEvaluator,
+        PascalInstanceSegmentationEvaluator,
         WeightedPascalDetectionEvaluator,
+        WeightedPascalInstanceSegmentationEvaluator,
     )
 
     names = list(eval_config.metrics_set) or ["pascal_voc_detection_metrics"]
@@ -90,9 +92,12 @@ def build_evaluators(eval_config, categories: List[dict]):
             evaluators.append(OpenImagesDetectionEvaluator(categories))
         elif name == "coco_detection_metrics":
             evaluators.append(CocoDetectionEvaluator(categories))
-        elif name in _NOT_PORTED_METRICS:
-            raise NotImplementedError(f"the {name} evaluator is not ported: ROADMAP.md "
-                                      "queue 1 item 16 (masks and keypoints)")
+        elif name == "pascal_voc_instance_segmentation_metrics":
+            evaluators.append(PascalInstanceSegmentationEvaluator(categories))
+        elif name == "weighted_pascal_voc_instance_segmentation_metrics":
+            evaluators.append(WeightedPascalInstanceSegmentationEvaluator(categories))
+        elif name == "coco_mask_metrics":
+            evaluators.append(CocoMaskEvaluator(categories))
         else:
             raise ValueError(f"unknown eval_config.metrics_set entry {name!r}")
     return evaluators
@@ -128,11 +133,9 @@ def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
     from mtlx_torch.utils import visualization_utils as viz
     from mtlx_torch.utils.label_map_util import create_category_index
 
-    if eval_config.eval_instance_masks:
-        raise NotImplementedError("eval_instance_masks is not ported: ROADMAP.md queue 1, "
-                                  "masks and keypoints")
     evaluators = [] if eval_config.ignore_groundtruth else build_evaluators(eval_config,
                                                                             categories)
+    mask_evaluators = check_mask_metrics(evaluators, eval_config, dataset, model)
     detections_export = [] if eval_config.export_path else None
     category_index = create_category_index(categories)
     viz_dir = eval_config.visualization_export_dir
@@ -164,6 +167,12 @@ def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
             images = np.concatenate([images, np.repeat(images[-1:], pad, 0)])
             true_shapes = np.concatenate([true_shapes, np.repeat(true_shapes[-1:], pad, 0)])
         det = detect(model, images, true_shapes, bucket_multiple)
+        if not eval_config.eval_instance_masks:
+            det.pop("detection_masks", None)
+        if mask_evaluators and "detection_masks" not in det and start == 0:
+            print(f"[eval] note: {mask_evaluators} requested but no detection masks reach the "
+                  "evaluator — use a mask-predicting model (coco_mask_metrics scores zero "
+                  "mask detections)", flush=True)
         for j, s in enumerate(samples):
             th, tw = s["true_shape"]
             gt_n = int(s["gt_mask"].sum())
@@ -182,22 +191,38 @@ def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
                 "detection_scores": det["detection_scores"][j][:n_det],
                 "detection_classes": det["detection_classes"][j][:n_det] + 1,
             }
+            to_evaluate = bool(mask_evaluators) and "gt_instance_masks" in s
+            det_masks = None
+            if "detection_masks" in det and (to_evaluate or done < num_viz):
+                det_masks = viz.paste_instance_masks(det["detection_masks"][j][:n_det],
+                                                     boxes_norm, int(th), int(tw))
+            if to_evaluate:
+                # both sides in the true image's frame
+                gt_info["groundtruth_instance_masks"] = true_frame_masks(
+                    s["gt_instance_masks"][:gt_n], s["image"].shape[0], int(th), int(tw))
+                if det_masks is not None:
+                    det_info["detection_masks"] = det_masks
             for evaluator in evaluators:
                 evaluator.add_single_ground_truth_image_info(s["source_id"], gt_info)
                 evaluator.add_single_detected_image_info(s["source_id"], det_info)
             if detections_export is not None:
                 detections_export.append({"source_id": s["source_id"],
-                                          **{k: v.tolist() for k, v in det_info.items()}})
+                                          **{k: det_info[k].tolist() for k in (
+                                              "detection_boxes", "detection_scores",
+                                              "detection_classes")}})
             if done < num_viz:
                 # left: the detections scoring 0.3 or more; right: the groundtruth
                 image = np.array(s["image"][:th, :tw], np.uint8, copy=True)
                 viz.visualize_boxes_and_labels_on_image_array(
                     image, boxes_norm, det_info["detection_classes"],
-                    det_info["detection_scores"], category_index, min_score_thresh=0.3)
+                    det_info["detection_scores"], category_index, instance_masks=det_masks,
+                    min_score_thresh=0.3)
                 gt_image = np.array(s["image"][:th, :tw], np.uint8, copy=True)
                 viz.visualize_boxes_and_labels_on_image_array(
                     gt_image, gt_info["groundtruth_boxes"] / scale,
-                    gt_info["groundtruth_classes"], None, category_index, min_score_thresh=0.0)
+                    gt_info["groundtruth_classes"], None, category_index,
+                    instance_masks=gt_info.get("groundtruth_instance_masks"),
+                    min_score_thresh=0.0)
                 image = np.concatenate([image, gt_image], axis=1)
                 if writer is not None:
                     writer.image(f"Detections_Left_Groundtruth_Right/{done}", image, step)
@@ -213,6 +238,48 @@ def evaluate_checkpoint(model, dataset, eval_config, categories: List[dict],
         metrics.update(evaluator.evaluate())
     metrics["eval/images_per_sec"] = done / (time.perf_counter() - t0)
     return metrics
+
+
+def check_mask_metrics(evaluators, eval_config, dataset, model) -> List[str]:
+    """The names of the mask evaluators among `evaluators`; raises, as
+    mtlx does, where the config could never feed them: eval_instance_masks
+    off, an input reader that loads no instance masks, or (for the Pascal
+    ones) a model that predicts none."""
+    names = [type(e).__name__ for e in evaluators if type(e).__name__ in MASK_EVALUATORS]
+    if not names:
+        return names
+    if not eval_config.eval_instance_masks:
+        raise ValueError(
+            f"metrics_set requests {names} but eval_config.eval_instance_masks is false — set "
+            "it to true (and load_instance_masks on the eval input reader), or drop the "
+            "instance-segmentation metrics_set entries")
+    if not getattr(dataset, "load_instance_masks", True):
+        raise ValueError(
+            f"metrics_set requests {names} but the eval input reader does not load instance "
+            "masks — set eval_input_reader.load_instance_masks: true")
+    pascal = [n for n in names if n != "CocoMaskEvaluator"]
+    if pascal and not getattr(getattr(model, "cfg", None), "predict_instance_masks", True):
+        raise ValueError(
+            f"metrics_set requests {pascal} but the model does not predict instance masks — "
+            "enable predict_instance_masks on the box predictor (mask_rcnn_box_predictor "
+            "{ predict_instance_masks: true })")
+    return names
+
+
+def true_frame_masks(raster: np.ndarray, canvas_h: int, th: int, tw: int) -> np.ndarray:
+    """Ground-truth masks [G, CH / s, CW / s] of the loader's raster as
+    [G, th, tw] bool in the true image's frame: each one's true region
+    (round(true / s)) upscaled with PIL (bilinear) and thresholded at 127,
+    as mtlx's eval does."""
+    from PIL import Image
+
+    ms = canvas_h // raster.shape[1]
+    mth, mtw = max(1, round(th / ms)), max(1, round(tw / ms))
+    out = np.zeros((len(raster), th, tw), bool)
+    for k in range(len(raster)):
+        small = (raster[k][:mth, :mtw] * 255).astype(np.uint8)
+        out[k] = np.asarray(Image.fromarray(small, "L").resize((tw, th), Image.BILINEAR)) > 127
+    return out
 
 
 def main(argv=None):

@@ -2,8 +2,9 @@
 mtlx/eval/object_detection_evaluation.py: ObjectDetectionEvaluation and
 the Pascal, OpenImages and weighted Pascal evaluators, with the
 reference's metric names, 'Precision/mAP@0.5IOU' and
-'PerformanceByCategory/AP@0.5IOU/<name>'). The instance-segmentation
-evaluators are not ported: ROADMAP.md queue 1 item 16."""
+'PerformanceByCategory/AP@0.5IOU/<name>', and the Pascal and weighted
+Pascal instance-segmentation evaluators, which match on mask IoU and
+prefix their names 'PascalMasks_' / 'WeightedPascalMasks_')."""
 
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ class ObjectDetectionEvaluation:
         groundtruth_class_labels: np.ndarray,
         groundtruth_is_difficult: Optional[np.ndarray] = None,
         groundtruth_is_group_of: Optional[np.ndarray] = None,
+        groundtruth_masks: Optional[np.ndarray] = None,
     ):
         n = len(groundtruth_class_labels)
         if groundtruth_is_difficult is None or len(groundtruth_is_difficult) != n:
@@ -46,6 +48,7 @@ class ObjectDetectionEvaluation:
             "labels": groundtruth_class_labels,
             "difficult": groundtruth_is_difficult,
             "group_of": groundtruth_is_group_of,
+            "masks": groundtruth_masks,
         }
         for cls in range(self.num_classes):
             # neither difficult nor group-of boxes enter the recall denominator
@@ -61,16 +64,19 @@ class ObjectDetectionEvaluation:
         detected_boxes: np.ndarray,
         detected_scores: np.ndarray,
         detected_class_labels: np.ndarray,
+        detected_masks: Optional[np.ndarray] = None,
     ):
         gt = self.gt.get(image_key, {
             "boxes": np.zeros((0, 4), np.float32),
             "labels": np.zeros(0, np.int64),
             "difficult": np.zeros(0, bool),
             "group_of": np.zeros(0, bool),
+            "masks": None,
         })
         scores, tp_fp, correct = self.per_image.compute_object_detection_metrics(
             detected_boxes, detected_scores, detected_class_labels, gt["boxes"],
             gt["labels"], gt["difficult"], groundtruth_is_group_of=gt["group_of"],
+            detected_masks=detected_masks, groundtruth_masks=gt["masks"],
         )
         for cls in range(self.num_classes):
             self.scores_per_class[cls].append(scores[cls])
@@ -139,6 +145,38 @@ class PascalDetectionEvaluator:
         self.__init__(self.categories, self.evaluation.per_image.iou_threshold)
 
 
+class PascalInstanceSegmentationEvaluator(PascalDetectionEvaluator):
+    """pascal_voc_instance_segmentation_metrics: the Pascal protocol matched
+    on instance-mask IoU instead of box IoU, its metric names prefixed
+    'PascalMasks_'. The groundtruth and detection dicts carry
+    'groundtruth_instance_masks' / 'detection_masks', [N, H, W] binary in
+    the image's frame."""
+
+    _PREFIX = "PascalMasks_"
+
+    def add_single_ground_truth_image_info(self, image_id: str, groundtruth_dict: dict):
+        self.evaluation.add_single_ground_truth_image_info(
+            image_id,
+            groundtruth_dict["groundtruth_boxes"],
+            groundtruth_dict["groundtruth_classes"] - self._label_offset,
+            groundtruth_dict.get("groundtruth_difficult"),
+            groundtruth_masks=np.asarray(groundtruth_dict["groundtruth_instance_masks"], bool),
+        )
+
+    def add_single_detected_image_info(self, image_id: str, detections_dict: dict):
+        self.evaluation.add_single_detected_image_info(
+            image_id,
+            detections_dict["detection_boxes"],
+            detections_dict["detection_scores"],
+            detections_dict["detection_classes"] - self._label_offset,
+            detected_masks=np.asarray(detections_dict["detection_masks"], bool),
+        )
+
+    def evaluate(self) -> Dict[str, float]:
+        out = super().evaluate()
+        return {f"{self._PREFIX}{k}": v for k, v in out.items()}
+
+
 class OpenImagesDetectionEvaluator(PascalDetectionEvaluator):
     """open_images_V2_detection_metrics: Pascal-style AP@0.5 with the
     OpenImages group-of protocol. Group-of groundtruth boxes stay out of
@@ -189,3 +227,14 @@ class WeightedPascalDetectionEvaluator(PascalDetectionEvaluator):
             out[f"WeightedPascalBoxes_PerformanceByCategory/AP@0.5IOU/{name}"] = float(
                 aps[cls_id - self._label_offset])
         return out
+
+
+class WeightedPascalInstanceSegmentationEvaluator(PascalInstanceSegmentationEvaluator):
+    """weighted_pascal_voc_instance_segmentation_metrics: the weighted
+    (box-count pooled) AP of WeightedPascalDetectionEvaluator over
+    mask-IoU matches, its names prefixed 'WeightedPascalMasks_'."""
+
+    def evaluate(self) -> Dict[str, float]:
+        pooled = WeightedPascalDetectionEvaluator.evaluate(self)
+        return {k.replace("WeightedPascalBoxes_", "WeightedPascalMasks_"): v
+                for k, v in pooled.items()}

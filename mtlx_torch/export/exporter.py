@@ -17,7 +17,10 @@ serves the reference's three input types: images as arrays
 (`predict_encoded_images`) and serialized tf.train.Examples
 (`predict_tf_examples`). Outputs follow the reference contract:
 detection_boxes (normalized to the original image), detection_scores,
-detection_classes (1-based), num_detections, as numpy arrays.
+detection_classes (1-based), num_detections, as numpy arrays; a mask
+model also returns detection_masks [B, D, 14, 14], each detection's mask
+probabilities within its box (mtlx's InferenceModel drops them; its
+model's postprocess returns them as here).
 
 Served batches run on a bucketed compute canvas: the largest true image
 extent of the batch rounded up to the bucket granularity (128 px by
@@ -187,12 +190,15 @@ class InferenceModel:
     @staticmethod
     def _postprocess_output(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         out = {k: v.cpu().numpy() for k, v in out.items()}
-        return {
+        served = {
             "detection_boxes": out["detection_boxes"],
             "detection_scores": out["detection_scores"],
             "detection_classes": out["detection_classes"] + 1,  # 1-based ids
             "num_detections": out["num_detections"],
         }
+        if "detection_masks" in out:  # a mask model's, box-relative
+            served["detection_masks"] = out["detection_masks"]
+        return served
 
 
 def export_inference_graph(pipeline_config_path: str, trained_checkpoint_dir: str,

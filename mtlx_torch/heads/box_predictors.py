@@ -1,5 +1,5 @@
-"""Faster R-CNN, R-FCN and SSD box predictor heads (port of
-mtlx/heads/box_predictors.py).
+"""Faster R-CNN, R-FCN and SSD box predictor heads, and Mask R-CNN's mask
+head (port of mtlx/heads/box_predictors.py).
 
 The heads hold float32 parameters, compute in the module dtype (bfloat16
 on the card) and emit float32 outputs, so the softmax and the decode run
@@ -14,7 +14,7 @@ from torch import Tensor, nn
 
 from mtlx_torch.backbones.mobilenet import SameConv2d
 from mtlx_torch.backbones.resnet import same_pad
-from mtlx_torch.layers import Conv2d, Linear
+from mtlx_torch.layers import Conv2d, ConvTranspose2d, Linear
 from mtlx_torch.ops import roi as roi_ops
 
 
@@ -101,6 +101,32 @@ class MaskRCNNBoxPredictor(nn.Module):
             cls.float(),
             box.float().reshape(*pooled.shape[:-1], self.num_classes, 4),
         )
+
+
+class MaskHead(nn.Module):
+    """The instance-mask branch on the unpooled ROI features (mtlx's
+    MaskHead, the reference MaskRCNNBoxPredictor's predict_instance_masks):
+    a 3x3 conv + ReLU, a 2x2 stride-2 transpose conv + ReLU (the 2x
+    upsample) and 1x1 per-class logits, in the compute type.
+
+    NHWC [N, h, w, C] -> [N, 2h, 2w, num_classes] float32 mask logits.
+    The transpose conv's weight is flax's kernel flipped in both spatial
+    axes (bridge.py): flax's nn.ConvTranspose computes y[2i + a] =
+    x[i] K[1 - a], PyTorch's y[2i + a] = x[i] W[a]."""
+
+    def __init__(self, in_channels: int, num_classes: int, conv_depth: int = 256,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = Conv2d(in_channels, conv_depth, 3, padding=1, compute_dtype=dtype)
+        self.upsample = ConvTranspose2d(conv_depth, conv_depth, 2, stride=2, compute_dtype=dtype)
+        self.logits = Conv2d(conv_depth, num_classes, 1, compute_dtype=dtype)
+
+    def forward(self, roi_features: Tensor) -> Tensor:
+        x = roi_features.to(self.dtype).permute(0, 3, 1, 2)
+        x = F.relu(self.conv1(x))
+        x = F.relu(self.upsample(x))
+        return self.logits(x).permute(0, 2, 3, 1).float()
 
 
 class RfcnBoxPredictor(nn.Module):

@@ -1,5 +1,5 @@
 """Layers that keep float32 parameters and compute in another type, as
-flax's `nn.Conv` / `nn.Dense` do with `param_dtype=float32` and a
+flax's `nn.Conv` / `nn.ConvTranspose` / `nn.Dense` do with `param_dtype=float32` and a
 `dtype`: the weight and bias are cast to the compute type at each call
 (a differentiable cast, so the float32 parameters train). SGD at the
 flagship's learning rate would lose most updates on bfloat16-stored
@@ -28,6 +28,22 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d with float32 parameters, computing in
+    `compute_dtype`."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, dtype=torch.float32, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: Tensor) -> Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
 
 
 class Linear(nn.Linear):

@@ -14,7 +14,7 @@ order among ties.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import Tensor
@@ -75,6 +75,7 @@ class NMSResult(NamedTuple):
     classes: Tensor  # [..., max_total] int32 (0-based class ids, background removed)
     valid_mask: Tensor  # [..., max_total] bool
     num_valid: Tensor  # [...] int32
+    extra_fields: Dict[str, Tensor] = {}  # gathered per-box fields [..., max_total, ...]
 
 
 def batch_multiclass_non_max_suppression(
@@ -87,6 +88,7 @@ def batch_multiclass_non_max_suppression(
     clip_window: Optional[Tensor] = None,
     change_coordinate_frame: bool = False,
     valid_mask: Optional[Tensor] = None,
+    extra_fields: Optional[Dict[str, Tensor]] = None,
 ) -> NMSResult:
     """Per-class score threshold + NMS + total cap for a batch of images,
     all `B x K` class problems in one launch.
@@ -98,8 +100,15 @@ def batch_multiclass_non_max_suppression(
         zero-area clipped boxes dropped.
       change_coordinate_frame: re-express outputs relative to clip_window.
       valid_mask: [B, N] validity of input rows.
+      extra_fields: optional dict of [B, N, ...] tensors gathered with the
+        kept boxes (their source rows), zero where an output is padding.
     """
     b, n, num_classes = scores.shape
+    extra_fields = extra_fields or {}
+    for key, val in extra_fields.items():
+        if tuple(val.shape[:2]) != (b, n):
+            raise ValueError(f"extra_fields[{key!r}] must be [B, N, ...]; got "
+                             f"{tuple(val.shape)} for boxes {tuple(boxes.shape)}")
     q = boxes.shape[2]
     dev = scores.device
     if valid_mask is None:
@@ -136,28 +145,39 @@ def batch_multiclass_non_max_suppression(
     flat_scores = cls_scores.reshape(b, -1)
     flat_keep = keep.reshape(b, -1)
     flat_classes = class_ids.reshape(-1).expand(b, -1)
+    flat_src = idx.reshape(b, -1)
 
     total = min(max_total_size, flat_scores.shape[1])
     top_scores, top_i = top_k(flat_scores, total)
     out_boxes = torch.gather(flat_boxes, 1, top_i[..., None].expand(b, total, 4))
     out_classes = torch.gather(flat_classes, 1, top_i)
     out_keep = torch.gather(flat_keep, 1, top_i)
+    out_src = torch.gather(flat_src, 1, top_i)
     if max_total_size > total:  # pad up if fewer candidates than requested
         pad = max_total_size - total
         out_boxes = torch.nn.functional.pad(out_boxes, (0, 0, 0, pad))
         top_scores = torch.nn.functional.pad(top_scores, (0, pad), value=_NEG)
         out_classes = torch.nn.functional.pad(out_classes, (0, pad))
         out_keep = torch.nn.functional.pad(out_keep, (0, pad))
+        out_src = torch.nn.functional.pad(out_src, (0, pad))
 
     if change_coordinate_frame and window is not None:
         out_boxes = box_ops.change_coordinate_frame(out_boxes, window)
 
+    extras = {}
+    for key, val in extra_fields.items():
+        rows = out_src.reshape(b, -1, *(1,) * (val.dim() - 2)).expand(
+            b, out_src.shape[1], *val.shape[2:])
+        keep_rows = out_keep.reshape(b, -1, *(1,) * (val.dim() - 2))
+        extras[key] = torch.where(keep_rows, torch.gather(val, 1, rows),
+                                  torch.zeros((), dtype=val.dtype, device=val.device))
     return NMSResult(
         boxes=torch.where(out_keep[..., None], out_boxes, 0.0),
         scores=torch.where(out_keep, top_scores, 0.0),
         classes=out_classes,
         valid_mask=out_keep,
         num_valid=out_keep.sum(-1).to(torch.int32),
+        extra_fields=extras,
     )
 
 
@@ -171,13 +191,17 @@ def multiclass_non_max_suppression(
     clip_window: Optional[Tensor] = None,
     change_coordinate_frame: bool = False,
     valid_mask: Optional[Tensor] = None,
+    extra_fields: Optional[Dict[str, Tensor]] = None,
 ) -> NMSResult:
     """One image: boxes [N, Q, 4], scores [N, K], clip_window [4],
-    valid_mask [N] -> NMSResult with [max_total_size] fields."""
+    valid_mask [N], extra_fields of [N, ...] -> NMSResult with
+    [max_total_size] fields."""
     res = batch_multiclass_non_max_suppression(
         boxes[None], scores[None], score_threshold, iou_threshold,
         max_size_per_class, max_total_size,
         clip_window=clip_window, change_coordinate_frame=change_coordinate_frame,
         valid_mask=None if valid_mask is None else valid_mask[None],
+        extra_fields={k: v[None] for k, v in (extra_fields or {}).items()},
     )
-    return NMSResult(*(t[0] for t in res))
+    return NMSResult(*(t[0] for t in res[:5]),
+                     extra_fields={k: v[0] for k, v in res.extra_fields.items()})

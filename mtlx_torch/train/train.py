@@ -64,13 +64,17 @@ from mtlx_torch.train import train_step as ts
 def make_augmented_batch_fn(aug_options: List[Tuple[str, dict]]) -> Callable:
     """Returns augment(batch, draws) -> batch: a batch that carries host
     geometry (the `aug_*` fields of data/host_geometry.py) has its pixels
-    resampled through its window first; then the options apply, the one at
-    position i with draws[preprocessor.draw_key(i)]."""
+    resampled through its window first, and its instance masks too, at
+    their stride with the [G] instances as the resample's channels; then
+    the options apply, the one at position i with
+    draws[preprocessor.draw_key(i)]. A batch with instance masks or
+    keypoints refuses the options that would not carry them along
+    (preprocessor.MASK_SAFE_TRANSFORMS), as mtlx does."""
 
     def augment(batch: Dict[str, Tensor], draws: Dict[str, Tensor]) -> Dict[str, Tensor]:
         if "aug_window" in batch:
-            # host-drawn crop / pad geometry: the boxes and true_shape were
-            # rewritten on the host, only the pixels move
+            # host-drawn crop / pad geometry: the boxes, keypoints and
+            # true_shape were rewritten on the host, only the pixels move
             batch = dict(batch)
             window = batch.pop("aug_window")
             src_shape = batch.pop("aug_src_shape")
@@ -78,6 +82,21 @@ def make_augmented_batch_fn(aug_options: List[Tuple[str, dict]]) -> Callable:
             batch["image"] = prep.batch_apply_host_window(
                 batch["image"].float(), batch["true_shape"], window, src_shape,
                 batch.pop("aug_pad_color"), content)
+            if "gt_instance_masks" in batch:
+                # the loader pasted round(true / stride), so the mask
+                # frame's extents round the same way
+                m = batch["gt_instance_masks"]  # [B, G, mh, mw]
+                ms = batch["image"].shape[1] // m.shape[2]
+
+                def on_mask_grid(extent: Tensor) -> Tensor:
+                    return torch.clamp_min(torch.round(extent.float() / ms), 1).to(torch.int32)
+
+                soft = prep.batch_apply_host_window(
+                    m.permute(0, 2, 3, 1).float(), on_mask_grid(batch["true_shape"]),
+                    window.float() / ms, on_mask_grid(src_shape),
+                    torch.zeros((m.shape[0], m.shape[1]), device=m.device),
+                    content.float() / ms if content is not None else None)
+                batch["gt_instance_masks"] = soft.permute(0, 3, 1, 2)
         if not aug_options:
             return batch
         sample = {
@@ -87,9 +106,18 @@ def make_augmented_batch_fn(aug_options: List[Tuple[str, dict]]) -> Callable:
             "mask": batch["gt_mask"],
             "true_shape": batch["true_shape"],
         }
+        carried = {"gt_instance_masks": "instance_masks", "gt_keypoints": "keypoints"}
+        carried = {k: v for k, v in carried.items() if k in batch}
+        if carried:
+            unsafe = [n for n, _ in aug_options if n not in prep.MASK_SAFE_TRANSFORMS]
+            if unsafe:
+                raise ValueError(
+                    "instance masks/keypoints are loaded but these augmentations do not "
+                    f"transform them: {unsafe} — remove them or disable the annotation loading")
+            sample.update({v: batch[k] for k, v in carried.items()})
         out = prep.batch_preprocess(sample, aug_options, draws)
         return dict(batch, image=out["image"], gt_boxes=out["boxes"], gt_mask=out["mask"],
-                    true_shape=out["true_shape"])
+                    true_shape=out["true_shape"], **{k: out[v] for k, v in carried.items()})
 
     return augment
 

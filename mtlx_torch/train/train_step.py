@@ -294,21 +294,23 @@ def make_regularization_fn(scopes) -> Optional[Callable]:
 def pad_batch_to_bucket(batch: Dict[str, Tensor], canvas, multiple: int = 0) -> Dict:
     """Pad a batch's images (bottom and right, zeros) up to the next
     `multiple` of their extent, capped at the canvas: the detector
-    computes on that bucket."""
+    computes on that bucket. Instance masks [B, G, CH / s, CW / s] are
+    cut to the bucket's extent on their raster (s = CH over their rows)."""
     multiple = bucket_multiple(multiple)
     ch, cw = canvas
     img = batch["image"]
     h, w = img.shape[1], img.shape[2]
     if h > ch or w > cw:
         raise ValueError(f"image {tuple(img.shape)} exceeds canvas {canvas}")
-    if "gt_instance_masks" in batch:
-        raise NotImplementedError("instance masks are not ported: ROADMAP.md queue 1, "
-                                  "masks and keypoints")
     bh = min(ch, -(-h // multiple) * multiple)
     bw = min(cw, -(-w // multiple) * multiple)
     out = dict(batch)
     if (h, w) != (bh, bw):
         out["image"] = F.pad(img, (0, 0, 0, bw - w, 0, bh - h))
+    if out.get("gt_instance_masks") is not None:
+        m = out["gt_instance_masks"]
+        ms = ch // m.shape[2]
+        out["gt_instance_masks"] = m[:, :, : bh // ms, : bw // ms]
     return out
 
 
@@ -381,8 +383,9 @@ def make_train_step(model, regularization_fn: Optional[Callable] = None,
                     replicas=None, ema_decay: Optional[float] = None) -> Callable:
     """Returns step(state, batch, generator=None, draws=None) -> (state,
     metrics). batch: image [B, H, W, 3] (uint8 or float), true_shape
-    [B, 2], gt_boxes [B, G, 4], gt_classes [B, G], gt_mask [B, G], all on
-    the model's device. The draws not given come from `generator`.
+    [B, 2], gt_boxes [B, G, 4], gt_classes [B, G], gt_mask [B, G] and,
+    for a mask model, gt_instance_masks [B, G, h, w], all on the model's
+    device. The draws not given come from `generator`.
     metrics: every loss term, total_loss and grad_norm (of the raw
     gradients), as tensors on the device.
 
@@ -415,6 +418,8 @@ def make_train_step(model, regularization_fn: Optional[Callable] = None,
         images = m.preprocess(batch["image"].float())
         gt = {"boxes": batch["gt_boxes"].float(), "classes": batch["gt_classes"].long(),
               "mask": batch["gt_mask"].bool()}
+        if "gt_instance_masks" in batch:
+            gt["instance_masks"] = batch["gt_instance_masks"]
         draws = dict(draws or {})
         if generator is not None:
             made = make_draws(m, global_rows(images.shape[0], ranks),

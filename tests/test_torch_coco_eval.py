@@ -144,8 +144,28 @@ def test_open_images_seeded_equal_mtlx(seed):
 
 
 def test_mask_evaluation_raises():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tcoco.CocoMaskEvaluator(CATS)
+    # the mask evaluator is ported (tests/test_torch_masks.py holds it to
+    # mtlx's); what raises now is what mtlx's raises: segm matching fed a
+    # side without masks
+    rs = np.random.RandomState(3)
+    gt_masks = rs.uniform(size=(2, 16, 16)) < 0.4
+    gt = {"groundtruth_boxes": np.asarray([[0, 0, 16, 16]] * 2, np.float32),
+          "groundtruth_classes": np.asarray([1, 2]), "groundtruth_instance_masks": gt_masks}
+    det = {"detection_boxes": np.asarray([[0, 0, 16, 16]] * 2, np.float32),
+           "detection_scores": np.asarray([0.9, 0.4], np.float32),
+           "detection_classes": np.asarray([1, 2]), "detection_masks": gt_masks[::-1]}
+    theirs, ours = jcoco.CocoMaskEvaluator(CATS), tcoco.CocoMaskEvaluator(CATS)
+    for ev in (theirs, ours):
+        ev.add_single_ground_truth_image_info("a", gt)
+        ev.add_single_detected_image_info("a", det)
+    assert ours.evaluate() == theirs.evaluate()
+    for evaluation in (jcoco.CocoDetectionEvaluation(2, iou_type="segm"),
+                       tcoco.CocoDetectionEvaluation(2, iou_type="segm")):
+        with pytest.raises(ValueError, match="segm evaluation needs groundtruth masks"):
+            evaluation.add_single_ground_truth_image_info("a", gt["groundtruth_boxes"],
+                                                          np.asarray([0, 1]))
+    with pytest.raises(ValueError, match="unknown iou_type"):
+        tcoco.CocoDetectionEvaluation(2, iou_type="keypoints")
 
 
 def test_coco_label_map_equals_mtlx():

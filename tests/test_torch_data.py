@@ -324,13 +324,15 @@ def test_batches_equal_mtlx(records, kw):
 
 
 def test_unported_loader_options_raise(records):
-    # masks and keypoints (item 16) are what the loader still lacks; host
-    # geometry and bucket coalescing are ported (test_torch_host_geometry.py)
-    with pytest.raises(NotImplementedError, match="load_instance_masks.*masks and keypoints"):
-        tloader.DetectionDataset([records["png"]], CANVAS, RESIZER, load_instance_masks=True)
-    with pytest.raises(NotImplementedError, match="num_keypoints.*masks and keypoints"):
-        tloader.DetectionDataset([records["png"]], CANVAS, RESIZER, num_keypoints=17)
-    port, _ = _datasets(records["png"])
+    # no loader option raises any longer: instance masks and keypoints are
+    # ported (tests/test_torch_masks.py holds them to mtlx on records that
+    # have them); on records without them both come out as zeros, as mtlx's
+    port, ref = _datasets(records["png"], load_instance_masks=True, num_keypoints=17)
+    for i in range(2):
+        got, want = port.get(i), ref.get(i)
+        _assert_samples_equal(got, want)
+        assert got["gt_instance_masks"].shape == (6, 40, 40) and not got["gt_instance_masks"].any()
+        assert got["gt_keypoints"].shape == (6, 17, 2) and not got["gt_keypoints"].any()
     assert next(tloader.batches(port, 2, pack_images=True, max_bucket_variants=2))
     port.close()
 

@@ -135,9 +135,11 @@ def test_build_evaluators():
                                    "open_images_V2_detection_metrics"]), CATEGORIES)
     assert [type(e).__name__ for e in evs] == ["CocoDetectionEvaluator",
                                                "OpenImagesDetectionEvaluator"]
-    for name in ("pascal_voc_instance_segmentation_metrics",
-                 "weighted_pascal_voc_instance_segmentation_metrics", "coco_mask_metrics"):
-        with pytest.raises(NotImplementedError, match=f"{name}.*item 16"):
-            build_evaluators(config([name]), CATEGORIES)
+    evs = build_evaluators(config(["pascal_voc_instance_segmentation_metrics",
+                                   "weighted_pascal_voc_instance_segmentation_metrics",
+                                   "coco_mask_metrics"]), CATEGORIES)
+    assert [type(e).__name__ for e in evs] == ["PascalInstanceSegmentationEvaluator",
+                                               "WeightedPascalInstanceSegmentationEvaluator",
+                                               "CocoMaskEvaluator"]
     with pytest.raises(ValueError, match="unknown"):
         build_evaluators(config(["no_such_metrics"]), CATEGORIES)

@@ -121,8 +121,8 @@ def test_postprocess_rpn_selects_the_same_proposals(tiny):
 
 def test_second_stage_on_the_same_proposals(tiny):
     jp, port = tiny["jpred"], tiny["port"]
-    cls, box = port._predict_second_stage(_t(jp["rpn_features"]), _t(jp["proposal_boxes"]),
-                                          (64, 64))
+    cls, box, _ = port._predict_second_stage(_t(jp["rpn_features"]),
+                                             _t(jp["proposal_boxes"]), (64, 64))
     _close(cls, jp["class_predictions"])
     _close(box, jp["refined_box_encodings"])
 

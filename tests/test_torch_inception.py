@@ -168,8 +168,8 @@ def test_inception_resnet_v2_second_stage():
     port.modules.load_state_dict(flax_to_state_dict(variables), strict=True)
     assert port.modules.box_predictor.class_logits.in_features == 1536
     assert port.modules.rpn.conv.in_channels == 1088
-    cls, box = port._predict_second_stage(torch.from_numpy(feats), torch.from_numpy(proposals),
-                                          (64, 64))
+    cls, box, _ = port._predict_second_stage(torch.from_numpy(feats),
+                                             torch.from_numpy(proposals), (64, 64))
     _close(cls.numpy(), want[0])
     _close(box.numpy(), want[1])
 

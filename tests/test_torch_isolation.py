@@ -1,5 +1,6 @@
-"""mtlx_torch imports neither JAX nor anything of mtlx, and reads pipeline
-files and label maps without protobuf and PIL.
+"""mtlx_torch imports neither JAX nor anything of mtlx, reads pipeline
+files and label maps without protobuf and PIL, and converts a TF
+checkpoint without TensorFlow.
 
 Checked in a subprocess: tests/conftest.py has already imported jax into
 the pytest process, so only a fresh interpreter can show what importing
@@ -33,8 +34,17 @@ with tempfile.TemporaryDirectory() as tmp:
     with open(path, "w") as f:
         f.write("item { id: 1 name: 'aeroplane' } item { id: 2 name: 'bicycle' }")
     assert label_map_util.get_label_map_dict(path) == {"aeroplane": 1, "bicycle": 2}
+    # a TF checkpoint read and converted (chip_smoke.py's writer makes it)
+    import numpy as np
+    import chip_smoke
+    from mtlx_torch.tools import convert_checkpoint
+    prefix = os.path.join(tmp, "model.ckpt")
+    chip_smoke.write_tf_checkpoint(prefix, {"resnet_v1_50/conv1/weights":
+                                            np.ones((7, 7, 3, 64), np.float32)}, 1)
+    assert convert_checkpoint.convert(prefix, "classification", 50)[1:] == (1, 0)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "mtlx", "PIL")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "mtlx", "PIL",
+                                    "tensorflow")
              or m == "google.protobuf" or m.startswith("google.protobuf."))
 print(len(names), bad)
 """
@@ -49,5 +59,5 @@ def test_port_loads_no_jax_and_no_mtlx():
     )
     assert res.returncode == 0, res.stderr
     count, bad = res.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(count) >= 79, res.stdout  # every module of the port was imported
+    assert int(count) >= 83, res.stdout  # every module of the port was imported
     assert bad == "[]", f"mtlx_torch loaded {bad}"

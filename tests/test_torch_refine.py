@@ -221,8 +221,8 @@ def test_refine_second_stage_on_mtlx_proposals(refine):
     (the 7x7 mean pool of every proposal and the aux heads' hidden
     activations joined to the pooled features)."""
     js = refine["serving"]
-    cls, box = refine["port"]._predict_second_stage(_t(js["rpn_features"]),
-                                                    _t(js["proposal_boxes"]), (64, 64))
+    cls, box, _ = refine["port"]._predict_second_stage(_t(js["rpn_features"]),
+                                                       _t(js["proposal_boxes"]), (64, 64))
     _close(cls.numpy(), js["class_predictions"])
     _close(box.numpy(), js["refined_box_encodings"])
 

@@ -329,8 +329,8 @@ def test_serving_predict_and_postprocess(tiny):
     np.testing.assert_allclose(pred["proposal_boxes"].numpy(), je["proposal_boxes"],
                                rtol=1e-5, atol=1e-3)
     # the second stage on mtlx's proposals
-    cls, box = port._predict_second_stage(_t(je["rpn_features"]), _t(je["proposal_boxes"]),
-                                          (64, 64))
+    cls, box, _ = port._predict_second_stage(_t(je["rpn_features"]),
+                                             _t(je["proposal_boxes"]), (64, 64))
     _close(cls, je["class_predictions"])
     _close(box, je["refined_box_encodings"])
     # the postprocess on mtlx's stage outputs
