@@ -14,7 +14,9 @@ the train CLI's input pipeline: host crop / pad geometry, the worker
 loader, the bucket bound, the warm-up and the device-side SSD crops,
 and the paper's MTL refine path with live batch norm, dropout and the
 hard example miner through the CLIs, and TF checkpoints converted and
-warm-started from, and the flagship as a Mask R-CNN through the CLIs.
+warm-started from, and the flagship as a Mask R-CNN through the CLIs,
+and classifier pretraining warm-starting the flagship, the other
+classification backbones and the dataset record writers.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --data_parallel 4    # on a machine with 4 cards
@@ -230,6 +232,32 @@ Phases (any failure exits non-zero):
      bound, plain version and F.grid_sample; export and a 600x800 request
      returning detection_masks; one resnet10 mask train step on the card
      against the CPU (phase 7's tolerances)
+
+ 16. classifier pretraining and the record writers: 64 noise JPEG records
+     of slim's classification schema at ImageNet-like sizes (500x375,
+     375x500); `python -m mtlx_torch.train.train_classifier` in a process
+     of its own at 224x224, batch 64, 1000 classes for ResNet-50 (8 steps,
+     `--export_backbone`) and MobileNet-v1 (4 steps): finite losses, step
+     ms by CUDA events from step 2, the host's decode ms a batch, img/s and
+     peak memory from its `[cls]` lines; tiny VOC, COCO and Pet devkits (16
+     noise JPEGs each) through the three `create_*_tf_record` CLIs, every
+     record decoded; the flagship train CLI warm-started from the
+     ResNet-50 export (from_detection_checkpoint false) for 2 steps on the
+     VOC records (restored = exported, the backbone and block4; launches a
+     step NMS 1, crop 1, crop bwd 1, IoU 3), then the eval CLI on them
+     (NMS 2, crop 1 a batch of 8); one float32 ResNet-50 classifier step
+     (batch 4, TF32 off) on the card against the CPU (logits and moving
+     statistics within 1e-4 of the largest magnitude, the loss within 1e-4
+     relative, the gradients against the CPU's float64 ones within twice
+     the CPU's own float32 error plus 1e-3); vgg_preprocess and
+     inception_preprocess, train and eval, on 64 256x256 images: one crop
+     launch a call, the card's result within 1e-5 of the CPU's, the crop
+     at each call's boxes bit-equal to its plain version and timed beside
+     its bound, plain version and F.grid_sample; Inception v1, v3, v4
+     (299x299), VGG-16 and AlexNet at full width, their trunks' endpoints
+     and logits in float32 on the card against the CPU within 1e-4 of the
+     largest magnitude, and the bfloat16 classifier's forward timed at
+     batch 32
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -4628,6 +4656,457 @@ def phase_masks(seed: int, results):
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+
+# ---------------------------------------------------------------- phase 16
+
+CLASSIFIER_RUNS = (("resnet50", 8), ("mobilenet_v1", 4))  # --model, steps
+CLASSIFIER_BATCH = 64
+CLASSIFIER_RECORDS = 64
+# ImageNet-like (height, width): 500x375 and 375x500 (w x h)
+IMAGENET_SIZES = ((375, 500), (500, 375))
+WARM_START_STEPS = 2
+DEVKIT_IMAGES = 16
+CROP_IMAGES, CROP_SIDE, CROP_OUT = 64, 256, 224
+# card against CPU, float32 with TF32 off: the trunks' outputs within
+# 1e-4 of the largest magnitude (phases 11-12), the classifier step's
+# loss within 1e-4 relative and its gradients and updates within 1e-3
+# (L2 of the difference over L2) as phase 7's
+TRUNK_TOL = 1e-4
+BACKBONE_FORWARD_BATCH = 32
+# name, module, classifier, image side (slim's for Inception v3 / v4)
+BACKBONES = (("inception_v1", "inception_v1", "InceptionV1Classifier", 224),
+             ("inception_v3", "inception_v3", "InceptionV3Classifier", 299),
+             ("inception_v4", "inception_v4", "InceptionV4Classifier", 299),
+             ("vgg16", "vgg", "VGG16Classifier", 224),
+             ("alexnet", "alexnet", "AlexNetClassifier", 224))
+
+
+def write_classification_records(path: str, rs, n: int, num_classes: int = 1000) -> str:
+    """n TFRecords of slim's classification schema (`image/encoded`, a
+    noise JPEG of quality 90 at ImageNet-like sizes in turn, and
+    `image/class/label`)."""
+    from mtlx_torch.data import tfrecord
+    from mtlx_torch.data.example_decoder import (bytes_feature, int64_list_feature,
+                                                 serialize_example)
+
+    with tfrecord.TFRecordWriter(path) as w:
+        for i in range(n):
+            h, wd = IMAGENET_SIZES[i % len(IMAGENET_SIZES)]
+            image = rs.randint(0, 256, (h, wd, 3)).astype(np.uint8)
+            w.write(serialize_example({
+                "image/encoded": bytes_feature(encode_jpeg(image)),
+                "image/format": bytes_feature(b"jpeg"),
+                "image/class/label": int64_list_feature([rs.randint(num_classes)])}))
+    return path
+
+
+def run_classifier_cli(model: str, steps: int, record: str, work: str, export=None):
+    """`python -m mtlx_torch.train.train_classifier` at full width (224x224,
+    batch 64, 1000 classes) in a process of its own; returns its [cls]
+    lines, summary and wall seconds."""
+    argv = [sys.executable, "-m", "mtlx_torch.train.train_classifier", "--model", model,
+            "--train_record", record, "--train_dir", os.path.join(work, f"cls_{model}"),
+            "--num_classes", "1000", "--image_size", "224", "--batch_size",
+            str(CLASSIFIER_BATCH), "--num_steps", str(steps), "--log_every", "1"]
+    if export:
+        argv += ["--export_backbone", export]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=REPO, env=repo_env(), capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"  | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"train_classifier {model} failed:\n{proc.stderr[-3000:]}")
+    lines = [json.loads(ln[len("[cls] "):]) for ln in proc.stdout.splitlines()
+             if ln.startswith("[cls] {")]
+    summary = json.loads(next(ln for ln in proc.stdout.splitlines()
+                              if ln.startswith("[cls] summary "))[len("[cls] summary "):])
+    if [ln["step"] for ln in lines] != list(range(1, steps + 1)) \
+            or not all(np.isfinite(ln["loss"]) for ln in lines) \
+            or len(summary["step_ms"]) != steps or "[cls] done" not in proc.stdout:
+        raise AssertionError(f"train_classifier {model}: lines {lines}")
+    exported = None
+    if export:
+        marker = f"exported backbone warm-start checkpoint to {export} ("
+        line = next(ln for ln in proc.stdout.splitlines() if marker in ln)
+        exported = int(line.split(marker)[1].split()[0])
+    steady = summary["step_ms"][1:]
+    log(f"[classifier] {model} CLI, {steps} steps at batch {CLASSIFIER_BATCH}, 224x224, 1000 "
+        f"classes ({wall:.2f} s wall, its own process): step ms from step 2 (CUDA events) "
+        f"{[round(t, 2) for t in steady]} (median {np.median(steady):.2f}, "
+        f"{CLASSIFIER_BATCH / np.median(steady) * 1e3:.1f} img/s on the device), step 1 "
+        f"{summary['step_ms'][0]:.2f}; host decode ms a batch "
+        f"{[round(t, 1) for t in summary['decode_ms']]}; CLI img/s "
+        f"{lines[-1]['images_per_sec']}; peak {summary['peak_memory_bytes'] / 2**30:.2f} GiB; "
+        f"loss {[ln['loss'] for ln in lines]}")
+    return dict(lines=lines, step_ms=summary["step_ms"], decode_ms=summary["decode_ms"],
+                median_step_ms=float(np.median(steady)),
+                device_images_per_sec=CLASSIFIER_BATCH / float(np.median(steady)) * 1e3,
+                cli_images_per_sec=lines[-1]["images_per_sec"],
+                peak_memory_bytes=summary["peak_memory_bytes"], wall_s=wall,
+                exported_tensors=exported)
+
+
+def _voc_xml(filename: str, h: int, w: int, objects) -> str:
+    parts = [f"<annotation><filename>{filename}</filename><size><width>{w}</width>"
+             f"<height>{h}</height><depth>3</depth></size>"]
+    for name, (y0, x0, y1, x1), difficult in objects:
+        parts.append(f"<object><name>{name}</name><pose>Unspecified</pose>"
+                     f"<truncated>0</truncated><difficult>{difficult}</difficult><bndbox>"
+                     f"<xmin>{x0}</xmin><ymin>{y0}</ymin><xmax>{x1}</xmax><ymax>{y1}</ymax>"
+                     f"</bndbox></object>")
+    return "".join(parts) + "</annotation>"
+
+
+def _pixel_boxes(rs, h: int, w: int, k: int):
+    y0, x0 = rs.randint(0, int(h * 0.7), k), rs.randint(0, int(w * 0.7), k)
+    return [(a, b, min(a + rs.randint(20, h // 2), h - 1), min(b + rs.randint(20, w // 2), w - 1))
+            for a, b in zip(y0, x0)]
+
+
+def write_devkits(work: str, rs, n: int = DEVKIT_IMAGES):
+    """Tiny VOC, COCO and Pet devkits of n noise JPEGs each (VOC's sizes;
+    COCO's for COCO), with 1-5 objects an image, a tenth difficult (VOC,
+    Pet) or crowd (COCO)."""
+    from mtlx_torch.data.pet import PET_CLASSES
+
+    voc = os.path.join(work, "VOCdevkit", "VOC2007")
+    for sub in ("ImageSets/Main", "Annotations", "JPEGImages"):
+        os.makedirs(os.path.join(voc, sub))
+    ids = []
+    for i in range(n):
+        h, w = VOC_SIZES[i % len(VOC_SIZES)]
+        ids.append(f"{i:06d}")
+        with open(os.path.join(voc, "JPEGImages", f"{ids[-1]}.jpg"), "wb") as f:
+            f.write(encode_jpeg(rs.randint(0, 256, (h, w, 3)).astype(np.uint8)))
+        objects = [(VOC_NAMES[rs.randint(20)], box, int(rs.uniform() < 0.1))
+                   for box in _pixel_boxes(rs, h, w, rs.randint(1, 6))]
+        with open(os.path.join(voc, "Annotations", f"{ids[-1]}.xml"), "w") as f:
+            f.write(_voc_xml(f"{ids[-1]}.jpg", h, w, objects))
+    with open(os.path.join(voc, "ImageSets", "Main", "trainval.txt"), "w") as f:
+        f.write("".join(f"{e}\n" for e in ids))
+
+    coco = os.path.join(work, "coco")
+    os.makedirs(os.path.join(coco, "images"))
+    cats = coco_categories()
+    images, anns = [], []
+    for i in range(n):
+        h, w = COCO_SIZES[i % len(COCO_SIZES)]
+        images.append({"id": i + 1, "file_name": f"{i:012d}.jpg", "height": h, "width": w})
+        with open(os.path.join(coco, "images", images[-1]["file_name"]), "wb") as f:
+            f.write(encode_jpeg(rs.randint(0, 256, (h, w, 3)).astype(np.uint8)))
+        for y0, x0, y1, x1 in _pixel_boxes(rs, h, w, rs.randint(1, 6)):
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": cats[rs.randint(len(cats))]["id"],
+                         "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                         "iscrowd": int(rs.uniform() < 0.1)})
+    coco_json = os.path.join(coco, "instances.json")
+    with open(coco_json, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": c["id"], "name": c["name"]} for c in cats]}, f)
+
+    pet = os.path.join(work, "pet")
+    for sub in ("images", "annotations/xmls"):
+        os.makedirs(os.path.join(pet, sub))
+    ids = []
+    for i in range(n):
+        breed = PET_CLASSES[rs.randint(len(PET_CLASSES))]
+        ids.append(f"{breed}_{i + 1}")
+        h, w = VOC_SIZES[i % len(VOC_SIZES)]
+        with open(os.path.join(pet, "images", f"{ids[-1]}.jpg"), "wb") as f:
+            f.write(encode_jpeg(rs.randint(0, 256, (h, w, 3)).astype(np.uint8)))
+        kind = "cat" if breed[0].isupper() else "dog"
+        with open(os.path.join(pet, "annotations", "xmls", f"{ids[-1]}.xml"), "w") as f:
+            f.write(_voc_xml(f"{ids[-1]}.jpg", h, w, [(kind, _pixel_boxes(rs, h, w, 1)[0], 0)]))
+    with open(os.path.join(pet, "annotations", "trainval.txt"), "w") as f:
+        f.write("".join(f"{e} 1 1 1\n" for e in ids))
+    return os.path.join(work, "VOCdevkit"), (coco_json, os.path.join(coco, "images")), pet
+
+
+def run_record_tools(work: str, seed: int):
+    """The three `mtlx_torch.tools.create_*_tf_record` CLIs (their `main`) on
+    tiny devkits; every record decodes through the port's reader. Returns
+    the VOC record and label map paths."""
+    import importlib
+
+    from mtlx_torch.data.example_decoder import decode_example
+    from mtlx_torch.data.tfrecord import read_records
+
+    voc, (coco_json, coco_images), pet = write_devkits(work, np.random.RandomState(seed + 40))
+    out = {name: os.path.join(work, f"{name}.record") for name in ("voc", "coco", "pet")}
+    label_map = os.path.join(work, "pascal_label_map.pbtxt")
+    commands = {
+        "voc": ["mtlx_torch.tools.create_pascal_tf_record", "--data_dir", voc, "--set",
+                "trainval", "--year", "VOC2007", "--write_label_map", label_map],
+        "coco": ["mtlx_torch.tools.create_coco_tf_record", "--annotations_file", coco_json,
+                 "--image_dir", coco_images],
+        "pet": ["mtlx_torch.tools.create_pet_tf_record", "--data_dir", pet, "--set",
+                "trainval"]}
+    result = {}
+    for name, argv in commands.items():
+        t0 = time.perf_counter()
+        printed, count = run_cli(importlib.import_module(argv[0]).main,
+                                 argv[1:] + ["--output_path", out[name]])
+        wall = time.perf_counter() - t0
+        records = list(read_records(out[name], verify_crc=True))
+        objects = sum(len(decode_example(r, decode_image=False)["groundtruth_classes"])
+                      for r in records)
+        log(f"[classifier] {argv[0]}: `{printed.strip()}` in {wall:.2f} s; {len(records)} "
+            f"records, {objects} objects, all decoded")
+        if len(records) != DEVKIT_IMAGES or count != DEVKIT_IMAGES:
+            raise AssertionError(f"{argv[0]}: {len(records)} records, want {DEVKIT_IMAGES}")
+        result[name] = dict(records=len(records), objects=objects, wall_s=wall)
+    return out["voc"], label_map, result
+
+
+def warm_start_and_eval(work: str, record: str, label_map: str, export: str, exported: int,
+                        seed: int):
+    """The flagship train CLI warm-started from the classifier's exported
+    backbone (from_detection_checkpoint false) for WARM_START_STEPS steps on
+    the VOC writer's records, then the eval CLI once on them."""
+    from mtlx_torch.eval import eval as eval_cli
+
+    pipeline = os.path.join(work, "warm_start.config")
+    with open(pipeline, "w") as f:
+        f.write(cli_pipeline(record, label_map, export, save_every=None))
+    train_dir = os.path.join(work, "warm_train")
+    want = {"nms": 1, "roi_crop": 1, "roi_crop_backward": 1, "iou": 3}
+    run = train_cli_runs(pipeline, train_dir, [WARM_START_STEPS], seed, "classifier warm start",
+                         want)[0]
+    warm = next(ln for ln in run["out"].splitlines() if "[train] warm start: " in ln)
+    restored, skipped = (int(v) for v in warm.split("warm start: ")[1]
+                         .replace(" restored,", "").replace(" skipped", "").split())
+    log(f"[classifier] the flagship train CLI warm-started from the exported ResNet-50 "
+        f"classifier: {restored} tensors restored (the backbone and block4: {exported} "
+        f"exported), {skipped} skipped; {WARM_START_STEPS} steps on the VOC writer's "
+        f"{DEVKIT_IMAGES} records, launches a step {want}; total_loss "
+        f"{[round(ln['total_loss'], 5) for ln in run['lines']]}")
+    if restored != exported:
+        raise AssertionError(f"warm start restored {restored} of {exported} exported tensors")
+    reset_kernel_counts()
+    out, metrics = run_cli(eval_cli.main, ["--pipeline_config_path", pipeline, "--checkpoint_dir",
+                                           train_dir, "--eval_dir", os.path.join(work, "eval"),
+                                           "--run_once"])
+    per_batch = {k: v / 2 for k, v in kernel_counts().items()}
+    voc_map = metrics["Precision/mAP@0.5IOU"]
+    log(f"[classifier] eval on the {DEVKIT_IMAGES} VOC writer records: mAP@0.5 {voc_map:.6g}, "
+        f"launches a batch of 8 {per_batch}")
+    if not np.isfinite(voc_map) or per_batch != {"nms": 2, "roi_crop": 1,
+                                                 "roi_crop_backward": 0, "iou": 0}:
+        raise AssertionError(f"warm-start eval: mAP {voc_map}, launches {per_batch}")
+    return dict(restored=restored, skipped=skipped, exported=exported,
+                total_loss=[ln["total_loss"] for ln in run["lines"]],
+                train_launches_per_step=want, eval_launches_per_batch=per_batch, eval_map=voc_map)
+
+
+def classifier_step_card_vs_cpu(seed: int):
+    """One float32 ResNet-50 classifier step (live batch norm, TF32 off) on
+    a batch of 4 224x224 images on the card and on the CPU, from the same
+    seeded weights: logits, loss and the moving statistics against the
+    CPU's, the gradients against the CPU's float64 ones."""
+    from mtlx_torch.backbones import resnet
+    from mtlx_torch.train import train_classifier as tcls
+    from mtlx_torch.train import train_step as ts
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(seed + 41)
+    images = torch.from_numpy(rs.uniform(0, 255, (4, 224, 224, 3)).astype(np.float32))
+    labels = torch.from_numpy(rs.randint(0, 1000, 4))
+    side = {}
+    for dev in ("cpu", "cuda"):
+        net = resnet.ResNetClassifier(50, 1000, dtype=torch.float32)
+        tcls.init_weights(net, torch.Generator().manual_seed(seed))
+        net.to(dev)
+        model = tcls.Classifier(net, resnet.preprocess_images)
+        state = ts.create_train_state(model, tcls.make_optimizer(0.1, 1000))
+        with torch.no_grad():
+            logits = net.train()(resnet.preprocess_images(images.to(dev)))
+        for norm in resnet.live_batch_norms(net):
+            norm.batch_stats = None
+        state, loss, _ = tcls.make_classifier_step(model)(state, images.to(dev), labels.to(dev))
+        side[dev] = dict(logits=logits.cpu(), loss=loss.item(),
+                         grads={k: p.grad.cpu() for k, p in net.named_parameters()},
+                         stats={k: b.cpu() for k, b in net.named_buffers()})
+    # the same gradients on the CPU in float64
+    net = resnet.ResNetClassifier(50, 1000, dtype=torch.float32)
+    tcls.init_weights(net, torch.Generator().manual_seed(seed))
+    net.double()
+    for m in net.modules():
+        for attr in ("compute_dtype", "dtype"):
+            if isinstance(getattr(m, attr, None), torch.dtype):
+                setattr(m, attr, torch.float64)
+    tcls.softmax_cross_entropy(net.train()(resnet.preprocess_images(images.double())),
+                               labels).mean().backward()
+    g64 = {k: p.grad for k, p in net.named_parameters()}
+    c, g = side["cpu"], side["cuda"]
+    l2 = lambda d, t: float(d.norm() / t.norm().clamp_min(1e-30))
+    peak = lambda d, t: float(d.abs().max() / t.abs().max().clamp_min(1e-30))
+    cat = lambda d: torch.cat([t.double().flatten() for t in d.values()])
+    logit_err = peak(g["logits"] - c["logits"], c["logits"])
+    stat_err = max(peak(g["stats"][k] - t, t) for k, t in c["stats"].items())
+    card_l2, cpu_l2 = (l2(cat(side[d]["grads"]) - cat(g64), cat(g64)) for d in ("cuda", "cpu"))
+    worst = max((l2(g["grads"][k] - t, t), k) for k, t in c["grads"].items())
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    # live batch norm takes mtlx's variance, E[x^2] - E[x]^2 in float32,
+    # whose cancellation at seeded random weights leaves float32 gradients
+    # percents from float64 ones on any device: the card's gradients (the
+    # update at step 1) are held to float64 within twice the CPU's own
+    # float32 error plus 1e-3 (L2, all tensors together)
+    log(f"[classifier] card vs CPU gradients: L2 of the difference over L2 against the CPU's "
+        f"float64 ones, card {card_l2:.3g}, CPU float32 {cpu_l2:.3g}; card against CPU, the "
+        f"worst tensor {worst[0]:.3g} at {worst[1]}")
+    checks = [("logits, max diff over the largest magnitude", logit_err, TRUNK_TOL),
+              ("loss, relative diff", loss_rel, 1e-4),
+              ("gradients against float64, L2 of the difference over L2", card_l2,
+               2 * cpu_l2 + 1e-3),
+              ("moving statistics, max diff over the largest magnitude", stat_err, TRUNK_TOL)]
+    log(f"[classifier] card vs CPU: one float32 ResNet-50 classifier step, batch 4, 224x224, "
+        f"TF32 off; loss card {g['loss']:.6g}, cpu {c['loss']:.6g}")
+    failed = []
+    for name, value, tol in checks:
+        log(f"[classifier] card vs CPU {name}: {value:.3g} (tolerance {tol}) "
+            f"{'ok' if value <= tol else 'FAIL'}")
+        if value > tol:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"classifier step, card and CPU disagree: {failed}")
+    return {name: value for name, value, _ in checks}
+
+
+def classification_crops(seed: int):
+    """vgg_preprocess and inception_preprocess on 64 noise images of 256x256,
+    train and eval: one crop launch a call, the result on the card within
+    1e-5 of the CPU's; the crop kernel on each call's boxes bit-equal to
+    its plain version and timed (`time_crop`)."""
+    from mtlx_torch.data import classification_preprocessing as cp
+
+    rs = np.random.RandomState(seed + 42)
+    images = torch.from_numpy(rs.uniform(0, 255, (CROP_IMAGES, CROP_SIDE, CROP_SIDE, 3))
+                              .astype(np.float32))
+    draws = cp.make_draws(CROP_IMAGES, torch.Generator().manual_seed(seed))
+    gpu_images = images.cuda()
+    gpu_draws = {k: v.cuda() for k, v in draws.items()}
+    out = {}
+    for style, fn, min_area in (("vgg", cp.vgg_preprocess, 0.5),
+                                ("inception", cp.inception_preprocess, 0.08)):
+        for training in (True, False):
+            tag = f"{style} {'train' if training else 'eval'}"
+            reset_kernel_counts()
+            got = fn(gpu_images, gpu_draws if training else None, (CROP_OUT, CROP_OUT), training)
+            torch.cuda.synchronize()
+            launches = kernel_counts()["roi_crop"]
+            want = fn(images, draws if training else None, (CROP_OUT, CROP_OUT), training)
+            err = float((got.cpu() - want).abs().max() / want.abs().max())
+            log(f"[classification-crop] {tag}: {launches} crop launch, the card's result within "
+                f"{err:.3g} of the CPU's (tolerance 1e-5)")
+            if launches != 1 or err > 1e-5:
+                raise AssertionError(f"{tag}: {launches} crop launches, card vs CPU {err}")
+            out[tag] = dict(launches=launches, card_vs_cpu=err)
+    boxes = {"vgg train": cp.random_crop_boxes(gpu_draws, CROP_SIDE, CROP_SIDE, min_area=0.5),
+             "inception train": cp.random_crop_boxes(gpu_draws, CROP_SIDE, CROP_SIDE),
+             "eval": torch.tensor([0.0625, 0.0625, 0.9375, 0.9375], device="cuda")
+             .expand(CROP_IMAGES, 4)}
+    timed = {tag: time_crop(gpu_images, b[:, None].contiguous(), CROP_OUT,
+                            f"classification crop, {tag}")
+             for tag, b in boxes.items()}
+    return dict(calls=out, timed=timed)
+
+
+def backbones_on_card(seed: int):
+    """Inception v1 / v3 / v4, VGG-16 and AlexNet at full width: Features
+    and Classifier in float32 (TF32 off) on the card against the CPU on 2
+    images, within TRUNK_TOL of the largest magnitude; the bfloat16
+    classifier's forward timed at batch 32."""
+    import importlib
+
+    from mtlx_torch.train.train_classifier import init_weights
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, module, cls, side in BACKBONES:
+        make = getattr(importlib.import_module(f"mtlx_torch.backbones.{module}"), cls)
+        kw = {"image_size": side} if name in ("vgg16", "alexnet") else {}
+        net = make(1000, torch.float32, **kw).eval()
+        init_weights(net, torch.Generator().manual_seed(seed))
+        trunk = net.features if hasattr(net, "features") else net.body
+        x = torch.from_numpy(np.random.RandomState(seed + 43).normal(0, 1, (2, side, side, 3))
+                             .astype(np.float32))
+        with torch.no_grad():
+            want = [*map(torch.Tensor.clone, _as_list(trunk(x))), net(x)]
+            net.cuda()
+            got = [t.cpu() for t in [*_as_list(trunk(x.cuda())), net(x.cuda())]]
+        errs = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        net16 = make(1000, torch.bfloat16, **kw).eval()
+        net16.load_state_dict(net.state_dict())
+        net16.cuda().to(memory_format=torch.channels_last)
+        x16 = torch.randn(BACKBONE_FORWARD_BATCH, side, side, 3, device="cuda")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: net16(x16), 10)
+        params = sum(p.numel() for p in net.parameters())
+        log(f"[backbones] {name} ({params / 1e6:.2f} M parameters) at {side}x{side}: card vs CPU "
+            f"float32 (trunk endpoints, logits) max diff over the largest magnitude "
+            f"{[f'{e:.3g}' for e in errs]} (tolerance {TRUNK_TOL}); bfloat16 forward at batch "
+            f"{BACKBONE_FORWARD_BATCH} {ms:.3f} ms ({BACKBONE_FORWARD_BATCH / ms * 1e3:.1f} img/s)")
+        if max(errs) > TRUNK_TOL:
+            raise AssertionError(f"{name}: card and CPU disagree, {errs}")
+        out[name] = dict(side=side, params=params, card_vs_cpu=errs, bf16_forward_ms=ms)
+        del net, net16
+        torch.cuda.empty_cache()
+    return out
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def phase_classifier(seed: int, results):
+    """Classifier pretraining and the record writers: the ResNet-50 and
+    MobileNet-v1 classifier CLIs at full width, the ResNet-50 export
+    warm-starting the flagship train CLI (from_detection_checkpoint false)
+    on the VOC record writer's records, then the eval CLI; one classifier
+    step on the card against the CPU; the classification crop; the five
+    other classification backbones on the card against the CPU."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mtlx_classifier_")
+    try:
+        record = write_classification_records(os.path.join(work, "imagenet.record"),
+                                              np.random.RandomState(seed + 44),
+                                              CLASSIFIER_RECORDS)
+        export = os.path.join(work, "r50_backbone.pt")
+        records_s = time.perf_counter() - t_phase
+        clis = {model: run_classifier_cli(model, steps, record, work,
+                                          export if model == "resnet50" else None)
+                for model, steps in CLASSIFIER_RUNS}
+        voc_record, label_map, tools = run_record_tools(work, seed)
+        t0 = time.perf_counter()
+        warm = warm_start_and_eval(work, voc_record, label_map, export,
+                                   clis["resnet50"]["exported_tensors"], seed)
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step_check = classifier_step_card_vs_cpu(seed)
+        step_check_s = time.perf_counter() - t0
+        crops = classification_crops(seed)
+        t0 = time.perf_counter()
+        backbones = backbones_on_card(seed)
+        backbones_s = time.perf_counter() - t0
+        wall = time.perf_counter() - t_phase
+        log(f"[classifier] phase 16: {wall:.1f} s (records {records_s:.1f} s, classifier CLIs "
+            f"{sum(c['wall_s'] for c in clis.values()):.1f} s, record tools "
+            f"{sum(t['wall_s'] for t in tools.values()):.1f} s, warm start and eval "
+            f"{warm_s:.1f} s, card vs CPU {step_check_s:.1f} s, backbones {backbones_s:.1f} s)")
+        results["classifier"] = dict(clis=clis, record_tools=tools, warm_start=warm,
+                                     card_vs_cpu=step_check, crops=crops, backbones=backbones,
+                                     wall_s=wall)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4676,6 +5155,7 @@ def main(argv=None) -> int:
     phase_pipeline(args.seed, results)
     phase_refine(args.seed, results)
     phase_masks(args.seed, results)
+    phase_classifier(args.seed, results)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -4782,6 +5262,15 @@ def main(argv=None) -> int:
         k["masks_shapes"] = {part: masks["shapes"][part].get(k["name"], [])
                              for part in ("train", "eval")}
     kernels[1]["mask_target_crop"] = masks["target_crop"]
+    classifier = results["classifier"]
+    for k in kernels:
+        k["classifier_warm_start_launches_per_step"] = \
+            classifier["warm_start"]["train_launches_per_step"][k["name"]]
+        k["classifier_eval_launches_per_batch"] = \
+            classifier["warm_start"]["eval_launches_per_batch"][k["name"]]
+    kernels[1]["classification_crop"] = dict(
+        launches_per_call={tag: c["launches"] for tag, c in classifier["crops"]["calls"].items()},
+        **classifier["crops"]["timed"])
     kernels[0]["coco_postprocess"] = coco["postprocess_nms"]
     library = coco["library"]
     if library is not None:

@@ -50,11 +50,12 @@ def _pair(k: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
     return (k, k) if isinstance(k, int) else tuple(k)
 
 
-def max_pool_same(x: Tensor, stride: int) -> Tensor:
-    """flax `max_pool(x, (3, 3), strides=(s, s), padding="SAME")` on NCHW."""
-    if stride == 1:
-        return F.max_pool2d(x, 3, 1, padding=1)  # pads with -inf
-    return F.max_pool2d(same_pad(x, 3, stride, value=float("-inf")), 3, stride)
+def max_pool_same(x: Tensor, stride: int, window: int = 3) -> Tensor:
+    """flax `max_pool(x, (k, k), strides=(s, s), padding="SAME")` on NCHW
+    (k = window)."""
+    if stride == 1 and window % 2:
+        return F.max_pool2d(x, window, 1, padding=window // 2)  # pads with -inf
+    return F.max_pool2d(same_pad(x, window, stride, value=float("-inf")), window, stride)
 
 
 def avg_pool_same(x: Tensor) -> Tensor:

@@ -10,8 +10,8 @@ norm is frozen, or live with `bn.trainable` (feature_extractor
 batch_norm train). NHWC in and out; names as in mtlx (`conv0`,
 `conv{i}_dw`, `conv{i}_pw_bn`, ...).
 
-`MobileNetV1Classifier` (classifier training) is not ported: ROADMAP.md
-queue 1 item 19.
+`MobileNetV1Classifier` is the classification network that the
+classifier pretraining path trains (live batch norm by default).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from torch import Tensor, nn
 
 from mtlx_torch.backbones.inception_resnet_v2 import BNKnobs
 from mtlx_torch.backbones.resnet import BNSpec, _nchw, _nhwc, make_norm, same_pad
-from mtlx_torch.layers import Conv2d
+from mtlx_torch.layers import Conv2d, Linear
 
 # (stride, out_channels) per depthwise-separable block, after the conv0 stem
 _MOBILENET_V1_DEFS = [
@@ -92,3 +92,19 @@ class MobileNetV1(nn.Module):
             if i in _ENDPOINTS:
                 endpoints.append(_nhwc(x))
         return endpoints
+
+
+class MobileNetV1Classifier(nn.Module):
+    """`body` (the MobileNetV1 stack), a spatial mean of conv13 and float32
+    `logits`. It trains with live batch norm by default, as slim's
+    classification does."""
+
+    def __init__(self, num_classes: int = 1000, depth_multiplier: float = 1.0,
+                 bn_trainable: bool = True, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.body = MobileNetV1(depth_multiplier, dtype=dtype,
+                                bn=BNKnobs(bn_trainable, MOBILENET_BN))
+        self.logits = Linear(self.body.out_channels[-1], num_classes)
+
+    def forward(self, images: Tensor) -> Tensor:
+        return self.logits(self.body(images)[-1].mean(dim=(1, 2)).float())

@@ -6,6 +6,10 @@ mtlx/backbones/resnet.py).
   * box classifier features: block4 at stride 1 on the 14x14 -> 7x7
     max-pooled ROI crops (2048 channels); the caller pools.
 
+`ResNetClassifier` is the classification network the classifier
+pretraining path trains: the proposal features, block4 at stride 2, a
+spatial mean and the logits.
+
 The public modules take and return NHWC tensors, as in `mtlx`; inside,
 the convolutions run on NCHW views of the same memory (an NHWC tensor
 permuted to NCHW is `channels_last`, the layout cuDNN prefers).
@@ -29,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
-from mtlx_torch.layers import Conv2d
+from mtlx_torch.layers import Conv2d, Linear
 
 BLOCK_SIZES = {
     # depth 10 is a wiring-validation size (1 bottleneck per stage)
@@ -338,6 +342,26 @@ class ResNetBoxClassifierFeatures(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         return _nhwc(self.block4(_nchw(x.to(self.dtype))))
+
+
+class ResNetClassifier(nn.Module):
+    """The classification network (slim's train path that makes the
+    ImageNet warm starts): `body` (conv1 .. block3), `block4` at stride
+    2, a spatial mean and float32 `logits`. It trains with live batch
+    norm by default, as slim's classification does; the moving
+    statistics it learns are what a detector's frozen batch norm reads
+    after a warm start (train/train_classifier.py --export_backbone)."""
+
+    def __init__(self, depth: int = 50, num_classes: int = 1000, bn_trainable: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.body = ResNetProposalFeatures(depth, dtype, bn_trainable=bn_trainable)
+        self.block4 = ResNetStage(BLOCK_SIZES[depth][3], 1024, 2048, 2, dtype, bn_trainable)
+        self.logits = Linear(2048, num_classes)
+
+    def forward(self, images: Tensor) -> Tensor:
+        x = self.block4(_nchw(self.body(images)))
+        return self.logits(x.mean(dim=(2, 3)).float())
 
 
 # Canonical per-channel means the reference subtracts in preprocess

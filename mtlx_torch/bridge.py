@@ -28,6 +28,10 @@ kernels map at whatever width they have (wider on the refine path), and
 a live batch norm's `batch_stats` as a frozen one's, in both trunks. Any
 other leaf raises, so a variable tree the port cannot hold never loads
 half-mapped.
+
+`flax_tree_to_state_dict` maps the trees of the classification networks
+(ResNet, MobileNet-v1, Inception v1 / v3 / v4, VGG-16, AlexNet) the same
+way, whatever their top-level modules.
 """
 
 from __future__ import annotations
@@ -71,17 +75,34 @@ def flax_to_state_dict(variables: Mapping, training_heads: bool = False
     the aux heads' leaves only with training_heads (a training model, or
     a serving model whose config refines: `cfg.mtl.any` tells whether the
     port's model holds them)."""
+    def keep(top: str, where: str) -> bool:
+        if top in TRAINING_ONLY_MODULES:
+            return training_heads
+        if not is_inference_module(top):
+            raise ValueError(f"no counterpart in the port for {where}")
+        return True
+
+    return _map_tree(variables, keep)
+
+
+def flax_tree_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Map the flax variables of any network whose port repeats its module
+    paths (the classifiers of backbones/: `body`, `block4`, `logits`,
+    `features`, `fc6` ...) to its state_dict, leaf by leaf as
+    flax_to_state_dict."""
+    return _map_tree(variables, lambda top, where: True)
+
+
+def _map_tree(variables: Mapping, keep) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         if collection not in ("params", "batch_stats"):
             raise ValueError(f"unexpected variable collection {collection!r}")
         for path, leaf in _leaves(tree):
-            top, name = path[0], path[-1]
+            name = path[-1]
             where = "/".join((collection,) + path)
-            if top in TRAINING_ONLY_MODULES and not training_heads:
+            if not keep(path[0], where):
                 continue
-            if not is_inference_module(top) and top not in TRAINING_ONLY_MODULES:
-                raise ValueError(f"no counterpart in the port for {where}")
             arr = np.asarray(leaf, dtype=np.float32)
             module = ".".join(path[:-1])
             if collection == "batch_stats":
