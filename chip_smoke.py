@@ -16,7 +16,9 @@ and the paper's MTL refine path with live batch norm, dropout and the
 hard example miner through the CLIs, and TF checkpoints converted and
 warm-started from, and the flagship as a Mask R-CNN through the CLIs,
 and classifier pretraining warm-starting the flagship, the other
-classification backbones and the dataset record writers.
+classification backbones and the dataset record writers, and spatial
+partitioning of 2048x2048 images, the spatial and hybrid grids, the
+space-to-depth stem, backbone remat and the Multibox preset.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --data_parallel 4    # on a machine with 4 cards
@@ -258,6 +260,26 @@ Phases (any failure exits non-zero):
      and logits in float32 on the card against the CPU within 1e-4 of the
      largest magnitude, and the bfloat16 classifier's forward timed at
      batch 32
+ 17. spatial partitioning and the last options: the full-width flagship
+     MTL R50 (bf16 compute, f32 parameters, seeded weights, batch norm
+     calibrated) on 2 synthetic images on a 2048x2048 canvas, one rank on
+     the whole batch and then two gloo ranks on cuda:0 over (data=1,
+     spatial=2), each with its half of every image's rows: a warm-up
+     step (each rank's kernel calls held to their plain versions) and 3
+     timed steps each, step ms and each rank's peak memory beside one
+     rank's, launches NMS 1, crop 1, crop backward 1 and IoU 3 a step a
+     rank; one float32 step (TF32 off) of the resnet10 MTL model at
+     128x128 over the (data=2, spatial=2) grid, the hybrid (data_dcn=2,
+     data=2) grid and four flat ranks, four gloo ranks on cuda:0: each
+     grid's ranks bitwise equal, loss and sum of |parameter| within 1e-4
+     relative of one rank on the whole batch; SpaceToDepthConv1 at 16 x
+     640 x 1024 within 1e-5 of the plain stem's largest magnitude in f32,
+     its bf16 forward + backward timed beside the plain stem's; the
+     flagship at batch 16 with and without backbone_remat (step ms, peak
+     memory) and an f32 resnet10 step's gradients with and without it
+     (within 1e-6); SSD Inception-v2 at depth multiplier 0.5, card vs CPU
+     as phase 12; the Multibox preset at 32 x 100 x 1917, the card's
+     matches equal to the CPU's, ms a call
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -268,7 +290,10 @@ steps at batch 16 at world size 1 and N (64 records of one size in a
 fixed order; step ms, peak memory and launches of each), then N NCCL
 ranks, one a card, of one float32 step held within 1e-6 of N gloo ranks
 on cuda:0 (the same rows at the same batch size), and both printed
-beside one rank on the whole batch.
+beside one rank on the whole batch. At N = 4 it also holds phase 17's
+two grids, the (data=2, spatial=2) and the hybrid (data_dcn=2, data=2),
+and four flat ranks over NCCL, rank r on cuda:r, within 1e-6 of the
+same over gloo, and each within 1e-4 of one rank.
 """
 
 from __future__ import annotations
@@ -2426,11 +2451,11 @@ distributed.destroy_process_group()
 """
 
 
-def spawn_ranks(work: str, data: str, world: int, backend: str):
-    """Run _RANK_STEP in `world` processes (over gloo all on cuda:0, since
-    NCCL refuses two ranks on one card; over NCCL rank r on cuda:r);
-    returns each rank's saved results and the wall seconds."""
-    out = os.path.join(work, f"ranks_{backend}_out.pt")
+def run_ranks(script: str, args, world: int, backend: str, out: str):
+    """Run `script` in `world` processes with argv [*args, out, device,
+    backend] (over gloo all on cuda:0, since NCCL refuses two ranks on one
+    card; over NCCL rank r on cuda:r); returns each rank's saved results
+    (out.<rank>) and the wall seconds."""
     device = "cuda:0" if backend == "gloo" else "cuda"
     port = free_port()
     t0 = time.perf_counter()
@@ -2439,18 +2464,30 @@ def spawn_ranks(work: str, data: str, world: int, backend: str):
         env = dict(repo_env(), RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", _RANK_STEP, data, out, device, backend], cwd=REPO, env=env,
+            [sys.executable, "-c", script, *args, out, device, backend], cwd=REPO, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = [p.communicate(timeout=600)[0] for p in procs]
     wall = time.perf_counter() - t0
     if any(p.returncode for p in procs):
         raise AssertionError(f"a rank over {backend} failed:\n"
                              + "\n".join(text[-3000:] for text in logs))
-    ranks = [torch.load(f"{out}.{r}") for r in range(world)]
+    return [torch.load(f"{out}.{r}") for r in range(world)], wall
+
+
+def same_params(ranks, tag: str, key: str = "params") -> None:
+    """Raise unless every rank's parameters equal rank 0's bit for bit."""
     for other in ranks[1:]:
-        for name, value in ranks[0]["params"].items():
-            if not torch.equal(value, other["params"][name]):
-                raise AssertionError(f"{world} ranks over {backend}: the ranks' {name} differ")
+        for name, value in ranks[0][key].items():
+            if not torch.equal(value, other[key][name]):
+                raise AssertionError(f"{tag}: the ranks' {name} differ")
+
+
+def spawn_ranks(work: str, data: str, world: int, backend: str):
+    """_RANK_STEP in `world` processes (run_ranks); the ranks' parameters
+    must be bitwise equal."""
+    ranks, wall = run_ranks(_RANK_STEP, [data], world, backend,
+                            os.path.join(work, f"ranks_{backend}_out.pt"))
+    same_params(ranks, f"{world} ranks over {backend}")
     return ranks, wall
 
 
@@ -2643,7 +2680,9 @@ def phase_data_parallel(seed: int, world: int, results):
     (rank r's are records r, r + N, ...: the rows come in another order,
     so the flip draws fall on other images); then N NCCL ranks, one a
     card, of one float32 step against N gloo ranks and one rank
-    (check_ranks_on_cards)."""
+    (check_ranks_on_cards); at N = 4 also the (data=2, spatial=2) and
+    (data_dcn=2, data=2) grids and four flat ranks over NCCL against the
+    same over gloo and one rank (check_grids_on_cards)."""
     import shutil
     import tempfile
 
@@ -2662,7 +2701,9 @@ def phase_data_parallel(seed: int, world: int, results):
                                peak_memory_gib=summary["peak_memory_gib"],
                                launches_per_step=per_step)
         results["data_parallel"] = dict(runs=runs,
-                                        ranks=check_ranks_on_cards(work, seed, world, "nccl"))
+                                        ranks=check_ranks_on_cards(work, seed, world, "nccl"),
+                                        grids=check_grids_on_cards(work, seed, ("gloo", "nccl"))
+                                        if world == 4 else None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3170,14 +3211,18 @@ def time_recorded_nms(args, tag: str):
                 max_abs_err=0.0, picks=int(picks.sum()))
 
 
-def ssd_card_vs_cpu(name: str, seed: int):
+def ssd_card_vs_cpu(name: str, seed: int, depth_multiplier=None):
     """One float32 training-mode forward (TF32 off, live batch norm on the
-    batch's statistics) of the config's SSD on the card and on the CPU
-    with the same seeded weights, two 300x300 pictures: the trunk's two
-    endpoints and the heads' class and box outputs within 1e-4 of the
-    largest magnitude of each."""
+    batch's statistics) of the config's SSD (at another depth_multiplier
+    where one is given) on the card and on the CPU with the same seeded
+    weights, two 300x300 pictures: the trunk's two endpoints and the
+    heads' class and box outputs within 1e-4 of the largest magnitude of
+    each."""
+    import dataclasses
+
     from mtlx_torch.builders import model_builder
     from mtlx_torch.config import config_util
+    from mtlx_torch.detector.ssd import SSD
 
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3187,9 +3232,11 @@ def ssd_card_vs_cpu(name: str, seed: int):
             os.path.join(REPO, "configs", f"{name}.config"))
         gpu = model_builder.build(configs["model"], is_training=True, dtype=torch.float32,
                                   device="cuda")
+        if depth_multiplier is not None:
+            gpu = SSD(dataclasses.replace(gpu.cfg, depth_multiplier=depth_multiplier), "cuda")
+            name = f"{name} x {depth_multiplier}"
         gpu.init_weights(torch.Generator().manual_seed(seed))
-        cpu = model_builder.build(configs["model"], is_training=True, dtype=torch.float32,
-                                  device="cpu")
+        cpu = SSD(gpu.cfg, device="cpu")
         cpu.modules.load_state_dict(gpu.modules.state_dict())
         rs = np.random.RandomState(seed + 19)
         images = np.stack([request_picture(rs, 300, 300) for _ in range(2)]).astype(np.float32)
@@ -5107,12 +5154,408 @@ def phase_classifier(seed: int, results):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 17
+
+
+SPATIAL_CANVAS = (2048, 2048)  # the large-image case spatial partitioning is for
+SPATIAL_BATCH = 2
+SPATIAL_STEPS = 3
+SPATIAL_LAUNCHES = {"nms": 1, "roi_crop": 1, "roi_crop_backward": 1, "iou": 3}
+GRID_CANVAS = (128, 128)
+
+# one rank of phase 17's grids. "flagship": the full-width MTL R50 over
+# (data=1, spatial=world), a warm-up step whose kernel calls are held to
+# their plain versions, then SPATIAL_STEPS timed steps (ms, peak memory,
+# launches a step); "grids": one float32 resnet10 step (TF32 off) over
+# (data=2, spatial=2), over the hybrid (data_dcn=2, data=2) grid and over
+# four flat ranks, with the draws of the global batch
+_SPATIAL_RANK = r"""
+import sys
+import time
+import torch
+import chip_smoke as cs
+from mtlx_torch.detector.faster_rcnn import FasterRCNN
+from mtlx_torch.parallel import distributed, spatial
+from mtlx_torch.train import train_step as ts
+
+mode, data_path, out, device, backend = sys.argv[1:6]
+data = torch.load(data_path, weights_only=False)
+if mode == "grids":
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+device, replicas = distributed.init_process_group(device, backend=backend)
+
+
+def setup(mesh):
+    model = FasterRCNN(data["cfg"], device=device)
+    model.modules.load_state_dict(data["weights"])
+    state = ts.create_train_state(model, ts.make_optimizer(learning_rate=data["lr"]))
+    if isinstance(mesh, spatial.SpatialMesh):
+        step = spatial.make_spatial_train_step(model, mesh)
+        batch = spatial.shard_batch_spatial(mesh, data["batch"])
+    else:
+        step = ts.make_train_step(model, replicas=mesh)
+        batch = {k: mesh.rows(v) for k, v in data["batch"].items()}
+    return model, state, step, {k: v.to(device) for k, v in batch.items()}
+
+
+result = {}
+if mode == "flagship":
+    model, state, step, batch = setup(spatial.create_spatial_mesh(1, replicas.world_size))
+    gen = torch.Generator(device=device).manual_seed(data["seed"])
+    warm = {}
+
+    def warm_up():
+        warm["state"], warm["metrics"] = step(state, batch, generator=gen)
+
+    calls = cs.record_kernel_inputs(warm_up)
+    state = warm["state"]
+    result["shapes"] = cs.check_kernels_on(calls, f"spatial rank {replicas.rank}")
+    torch.cuda.synchronize()
+    cs.reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    result["step_ms"], result["launches"], result["total_loss"] = [], [], []
+    for _ in range(data["steps"]):
+        counts = cs.kernel_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        result["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        result["launches"].append({k: v - counts[k] for k, v in cs.kernel_counts().items()})
+        result["total_loss"].append(float(metrics["total_loss"]))
+    result["peak_bytes"] = torch.cuda.max_memory_allocated()
+    result["image_slab"] = list(batch["image"].shape)
+else:
+    grids = {"spatial": spatial.create_spatial_mesh(2, 2),
+             "hybrid": distributed.create_hybrid_mesh(num_slices=2), "flat": replicas}
+    for name, mesh in grids.items():
+        model, state, step, batch = setup(mesh)
+        draws = {k: mesh.rows(v).to(device) for k, v in data["draws"].items()}
+        state, metrics = step(state, batch, draws=draws)
+        result[name] = {"metrics": {k: v.cpu() for k, v in metrics.items()},
+                        "params": {k: v.detach().cpu()
+                                   for k, v in model.modules.state_dict().items()}}
+torch.save(result, f"{out}.{replicas.rank}")
+distributed.destroy_process_group()
+"""
+
+
+def timed_steps(step, state, batch, gen, steps: int):
+    """A warm-up step, then `steps` timed ones: (ms of each, peak bytes,
+    launches a step, the state after)."""
+    state, _ = step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(metrics["total_loss"])):
+            raise AssertionError(f"a non-finite loss: {metrics}")
+    launches = {k: v / steps for k, v in kernel_counts().items()}
+    return times, torch.cuda.max_memory_allocated(), launches, state
+
+
+def spatial_flagship(work: str, seed: int):
+    """The full-width MTL R50 (bf16 compute, f32 parameters) on a batch of
+    SPATIAL_BATCH synthetic images on a SPATIAL_CANVAS canvas: one rank on
+    the whole batch, then two gloo ranks on cuda:0 over (data=1,
+    spatial=2), each with half of every image's rows; step ms, each rank's
+    peak memory and its launches a step (SPATIAL_LAUNCHES)."""
+    import dataclasses
+
+    from mtlx_torch.detector.faster_rcnn import FasterRCNN, flagship_train_config
+    from mtlx_torch.train import train_step as ts
+
+    cfg = dataclasses.replace(flagship_train_config(), canvas_size=SPATIAL_CANVAS)
+    model = FasterRCNN(cfg, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(seed))
+    h, w = SPATIAL_CANVAS
+    batch = train_batch(np.random.RandomState(seed + 17), SPATIAL_BATCH, canvas=SPATIAL_CANVAS,
+                        sizes=((h * 7 // 8, h), (w * 7 // 8, w)))
+    calibrate_batch_norm_on(model, batch["image"], batch["true_shape"])
+    lr, step_seed = 0.003, seed + 18
+    data = os.path.join(work, "spatial_flagship.pt")
+    torch.save({"cfg": cfg, "lr": lr, "seed": step_seed, "steps": SPATIAL_STEPS,
+                "weights": {k: v.detach().cpu() for k, v in model.modules.state_dict().items()},
+                "batch": {k: v.cpu() for k, v in batch.items()}}, data)
+    state = ts.create_train_state(model, ts.make_optimizer(learning_rate=lr))
+    gen = torch.Generator(device="cuda").manual_seed(step_seed)
+    one_ms, one_peak, one_launches, _ = timed_steps(ts.make_train_step(model), state, batch,
+                                                    gen, SPATIAL_STEPS)
+    log(f"[spatial] one rank, the whole batch of {SPATIAL_BATCH} at {h}x{w}: steps "
+        f"{', '.join(f'{t:.2f}' for t in one_ms)} ms, peak memory {one_peak / 2**30:.2f} GiB, "
+        f"launches a step {one_launches}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    ranks, wall = run_ranks(_SPATIAL_RANK, ["flagship", data], 2, "gloo",
+                            os.path.join(work, "spatial_flagship_out.pt"))
+    for r, out in enumerate(ranks):
+        log(f"[spatial] rank {r} of (data=1, spatial=2) over gloo on cuda:0, its slab "
+            f"{out['image_slab']}: steps {', '.join(f'{t:.2f}' for t in out['step_ms'])} ms, "
+            f"peak memory {out['peak_bytes'] / 2**30:.2f} GiB ({out['peak_bytes'] / one_peak:.3f} "
+            f"of one rank's), launches a step {out['launches']}, total_loss {out['total_loss']}")
+        if any(launches != SPATIAL_LAUNCHES for launches in out["launches"]):
+            raise AssertionError(f"spatial rank {r} launched {out['launches']} a step, want "
+                                 f"{SPATIAL_LAUNCHES}")
+        if not all(np.isfinite(out["total_loss"])):
+            raise AssertionError(f"spatial rank {r}: non-finite losses {out['total_loss']}")
+    if ranks[0]["total_loss"] != ranks[1]["total_loss"]:
+        raise AssertionError("the spatial ranks' losses differ")
+    log(f"[spatial] two ranks ({wall:.1f} s with their start): every recorded kernel call of "
+        f"each rank's warm-up equals its plain version: {ranks[0]['shapes']}")
+    return dict(one_rank=dict(step_ms=one_ms, peak_bytes=one_peak, launches=one_launches),
+                ranks=ranks, wall_s=wall)
+
+
+def grid_steps(work: str, data: str, backend: str):
+    """_SPATIAL_RANK's "grids" on four ranks over `backend`; every grid's
+    ranks bitwise equal."""
+    ranks, wall = run_ranks(_SPATIAL_RANK, ["grids", data], 4, backend,
+                            os.path.join(work, f"grids_{backend}_out.pt"))
+    for grid in ("spatial", "hybrid", "flat"):
+        same_params([r[grid] for r in ranks], f"the {grid} grid over {backend}")
+    log(f"[spatial] the (data=2, spatial=2), (data_dcn=2, data=2) and flat grids over "
+        f"{backend} ({wall:.1f} s): each grid's ranks' parameters bitwise equal")
+    return ranks[0], wall
+
+
+def step_rel(got, want):
+    """(loss, sum of |parameter|) of `got` relative to `want`'s."""
+    loss = [float(got["metrics"]["total_loss"]), float(want["metrics"]["total_loss"])]
+    checksum = [sum(float(v.double().abs().sum()) for v in r["params"].values())
+                for r in (got, want)]
+    return [abs(a - b) / max(abs(b), 1e-30) for a, b in (loss, checksum)]
+
+
+def check_grids_on_cards(work: str, seed: int, backends=("gloo",)):
+    """One float32 step (TF32 off) of the resnet10 MTL model at 128x128 on
+    a global batch of 4 over the (data=2, spatial=2), (data_dcn=2, data=2)
+    and flat four-rank grids, each over gloo on cuda:0 (and NCCL, rank r on
+    cuda:r, where named): the ranks bitwise equal, the loss and the sum of
+    |parameter| within 1e-4 relative of one rank on the whole batch, and
+    NCCL within 1e-6 of gloo."""
+    import dataclasses
+
+    from mtlx_torch.detector.faster_rcnn import FasterRCNN, flagship_train_config
+    from mtlx_torch.train import train_step as ts
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(flagship_train_config(torch.float32), backbone="resnet10",
+                                  canvas_size=GRID_CANVAS)
+        model = FasterRCNN(cfg, device="cuda")
+        model.init_weights(torch.Generator().manual_seed(seed))
+        batch = train_batch(np.random.RandomState(seed + 20), 4, canvas=GRID_CANVAS, max_gt=8,
+                            sizes=((96, 128), (100, 128)))
+        calibrate_batch_norm_on(model, batch["image"], batch["true_shape"])
+        draws = ts.make_draws(model, 4, GRID_CANVAS,
+                              torch.Generator(device="cuda").manual_seed(seed + 21), num_gt=8)
+        lr = 0.01
+        data = os.path.join(work, "grids.pt")
+        torch.save({"cfg": cfg, "lr": lr, "draws": {k: v.cpu() for k, v in draws.items()},
+                    "weights": {k: v.detach().cpu() for k, v in model.modules.state_dict().items()},
+                    "batch": {k: v.cpu() for k, v in batch.items()}}, data)
+        state = ts.create_train_state(model, ts.make_optimizer(learning_rate=lr))
+        _, metrics = ts.make_train_step(model)(state, batch, draws=draws)
+        one = {"metrics": {k: v.cpu() for k, v in metrics.items()},
+               "params": {k: v.detach().cpu() for k, v in model.modules.state_dict().items()}}
+        del model, state
+        torch.cuda.empty_cache()
+        out, runs = {}, {}
+        for backend in backends:
+            runs[backend], wall = grid_steps(work, data, backend)
+            out[f"{backend}_wall_s"] = wall
+            for grid, got in runs[backend].items():
+                rel = step_rel(got, one)
+                out[f"{grid}_{backend}_vs_one"] = rel
+                log(f"[spatial] {grid} grid over {backend} vs one rank: total_loss and sum "
+                    f"|param| within {rel[0]:.3g} and {rel[1]:.3g} relative (tolerance 1e-4)")
+                if max(rel) > 1e-4:
+                    raise AssertionError(f"the {grid} grid over {backend} is off one rank by "
+                                         f"{rel}")
+        if "nccl" in runs:
+            for grid, got in runs["nccl"].items():
+                rel = step_rel(got, runs["gloo"][grid])
+                out[f"{grid}_nccl_vs_gloo"] = rel
+                log(f"[spatial] {grid} grid over NCCL vs gloo: within {rel[0]:.3g} and "
+                    f"{rel[1]:.3g} relative (tolerance 1e-6)")
+                if max(rel) > 1e-6:
+                    raise AssertionError(f"the {grid} grid over NCCL is off gloo by {rel}")
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def space_to_depth_on_card(seed: int):
+    """SpaceToDepthConv1 at the flagship's 640x1024 bucket, batch 16: in
+    float32 (TF32 off) within 1e-5 of the largest magnitude of the plain
+    stem; the bf16 forward + backward of both timed (CUDA events)."""
+    from mtlx_torch.backbones.resnet import SpaceToDepthConv1
+    from mtlx_torch.layers import Conv2d
+
+    gen = torch.Generator().manual_seed(seed + 22)
+    x = torch.randn(16, 3, 640, 1024, generator=gen).cuda()
+    weight = torch.randn(64, 3, 7, 7, generator=gen) * 0.08
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        stems = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            plain = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dtype)
+            s2d = SpaceToDepthConv1(64, compute_dtype=dtype)
+            for m in (plain, s2d):
+                m.weight.data.copy_(weight)
+                m.cuda().to(memory_format=torch.channels_last)
+            stems[dtype] = plain, s2d
+        with torch.no_grad():
+            want = stems[torch.float32][0](x)
+            got = stems[torch.float32][1](x)
+        rel = float((got - want).abs().max() / want.abs().max())
+        if not rel <= 1e-5:
+            raise AssertionError(f"SpaceToDepthConv1 is off the plain stem by {rel} of the "
+                                 "largest magnitude (tolerance 1e-5)")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    xc = x.to(memory_format=torch.channels_last)
+    dout = torch.randn(want.shape, generator=gen).cuda().to(torch.bfloat16)
+    ms = {}
+    for name, stem in zip(("plain", "space_to_depth"), stems[torch.bfloat16]):
+        def fwd_bwd(stem=stem):
+            stem.weight.grad = None
+            stem(xc).backward(dout)
+        ms[name] = cuda_ms(fwd_bwd, 20)
+    log(f"[spatial] SpaceToDepthConv1 at 16 x 640 x 1024: f32 within {rel:.3g} of the plain "
+        f"stem's largest magnitude; bf16 forward + backward {ms['space_to_depth']:.4f} ms, the "
+        f"plain stem {ms['plain']:.4f} ms")
+    del stems
+    torch.cuda.empty_cache()
+    return dict(f32_rel=rel, bf16_fwd_bwd_ms=ms)
+
+
+def remat_on_card(seed: int):
+    """backbone_remat: the flagship at batch 16 (640x1024, bf16) with and
+    without it, a warm-up and two timed steps each (ms, peak memory); and
+    one float32 resnet10 step (TF32 off, cuDNN deterministic) with and
+    without it on the same batch and draws: the gradients within 1e-6 of
+    each tensor's largest magnitude."""
+    import dataclasses
+
+    from mtlx_torch.detector.faster_rcnn import FasterRCNN, flagship_train_config
+    from mtlx_torch.train import train_step as ts
+
+    out = {}
+    batch = train_batch(np.random.RandomState(seed + 23), 16)
+    for remat in (False, True):
+        model = FasterRCNN(dataclasses.replace(flagship_train_config(), backbone_remat=remat),
+                           device="cuda")
+        model.init_weights(torch.Generator().manual_seed(seed))
+        calibrate_batch_norm_on(model, batch["image"], batch["true_shape"])
+        state = ts.create_train_state(model, ts.make_optimizer(learning_rate=0.003))
+        gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+        times, peak, _, _ = timed_steps(ts.make_train_step(model), state, batch, gen, 2)
+        out["remat" if remat else "plain"] = dict(step_ms=times, peak_bytes=peak)
+        del model, state
+        torch.cuda.empty_cache()
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        small = train_batch(np.random.RandomState(seed + 25), 2, canvas=GRID_CANVAS, max_gt=8,
+                            sizes=((96, 128), (100, 128)))
+        grads = {}
+        for remat in (False, True):
+            cfg = dataclasses.replace(flagship_train_config(torch.float32), backbone="resnet10",
+                                      canvas_size=GRID_CANVAS, backbone_remat=remat)
+            model = FasterRCNN(cfg, device="cuda")
+            model.init_weights(torch.Generator().manual_seed(seed))
+            calibrate_batch_norm_on(model, small["image"], small["true_shape"])
+            draws = ts.make_draws(model, 2, GRID_CANVAS,
+                                  torch.Generator(device="cuda").manual_seed(seed + 26), num_gt=8)
+            state = ts.create_train_state(model, ts.make_optimizer(learning_rate=0.01))
+            ts.make_train_step(model)(state, small, draws=draws)
+            grads[remat] = {n: p.grad.detach().clone() for n, p in model.modules.named_parameters()}
+        worst = max(float((grads[True][n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                    for n, g in grads[False].items())
+        bitwise = sum(torch.equal(grads[True][n], g) for n, g in grads[False].items())
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    log(f"[spatial] backbone_remat, flagship at batch 16: steps "
+        f"{', '.join(f'{t:.2f}' for t in out['remat']['step_ms'])} ms and peak "
+        f"{out['remat']['peak_bytes'] / 2**30:.2f} GiB with it, "
+        f"{', '.join(f'{t:.2f}' for t in out['plain']['step_ms'])} ms and "
+        f"{out['plain']['peak_bytes'] / 2**30:.2f} GiB without; f32 resnet10 gradients with "
+        f"and without within {worst:.3g} of each tensor's largest magnitude, {bitwise} of "
+        f"{len(grads[False])} bitwise equal")
+    if worst > 1e-6:
+        raise AssertionError(f"remat's gradients are off by {worst} (tolerance 1e-6)")
+    out["f32_grad_rel"], out["f32_bitwise"] = worst, bitwise
+    return out
+
+
+def multibox_on_card(seed: int):
+    """The Multibox preset at SSD's shape: 32 images x 100 ground-truth
+    boxes (1-100 valid) against the 1917 anchors of a 300x300 SSD; the
+    matches on the card equal the CPU's exactly, ms a call."""
+    from mtlx_torch.anchors.multi_grid import create_ssd_anchors
+    from mtlx_torch.assign.target_assigner import create_target_assigner
+    from mtlx_torch.detector.ssd import SSD
+
+    anchors = create_ssd_anchors().generate(SSD._feature_shapes((300, 300), 6))
+    rs = np.random.RandomState(seed + 27)
+    corners = np.sort(rs.uniform(0, 1, (32, 100, 2, 2)), axis=-1)
+    gt = torch.from_numpy(corners.reshape(32, 100, 4)[..., [0, 2, 1, 3]].astype(np.float32))
+    mask = torch.from_numpy(np.arange(100)[None] < rs.randint(1, 101, (32, 1)))
+    assigner = create_target_assigner("Multibox")
+    want = assigner.assign(anchors, gt, gt_mask=mask)
+    args = anchors.cuda(), gt.cuda()
+    got = assigner.assign(*args, gt_mask=mask.cuda())
+    if not torch.equal(got.match.cpu(), want.match):
+        raise AssertionError("the Multibox matches on the card differ from the CPU's")
+    ms = cuda_ms(lambda: assigner.assign(*args, gt_mask=mask.cuda()), 5)
+    log(f"[spatial] Multibox preset at 32 x 100 x {anchors.shape[0]}: the matches equal the "
+        f"CPU's ({int((got.match >= 0).sum())} matched), {ms:.3f} ms a call")
+    return dict(anchors=anchors.shape[0], matched=int((got.match >= 0).sum()), ms=ms)
+
+
+def phase_spatial(seed: int, results):
+    """Spatial partitioning at full width, the spatial and hybrid grids
+    against one rank, SpaceToDepthConv1, backbone remat, SSD Inception-v2
+    at depth multiplier 0.5 and the Multibox preset."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mtlx_spatial_")
+    try:
+        out = {"flagship": spatial_flagship(work, seed),
+               "grids": check_grids_on_cards(work, seed),
+               "space_to_depth": space_to_depth_on_card(seed),
+               "remat": remat_on_card(seed),
+               "ssd_inception_v2_half": ssd_card_vs_cpu("ssd_inception_v2_voc", seed, 0.5),
+               "multibox": multibox_on_card(seed)}
+        out["wall_s"] = time.perf_counter() - t_phase
+        log(f"[spatial] phase 17: {out['wall_s']:.1f} s")
+        results["spatial"] = out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_parallel", type=int, default=0,
                    help="N > 1: only build the kernels and hold the R101 COCO train CLI over "
-                        "NCCL at world size N to world size 1 (needs N cards)")
+                        "NCCL at world size N to world size 1, and the spatial and hybrid "
+                        "grids over NCCL to gloo (needs N cards, N = 4 for the grids)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -5156,6 +5599,7 @@ def main(argv=None) -> int:
     phase_refine(args.seed, results)
     phase_masks(args.seed, results)
     phase_classifier(args.seed, results)
+    phase_spatial(args.seed, results)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -5271,6 +5715,10 @@ def main(argv=None) -> int:
     kernels[1]["classification_crop"] = dict(
         launches_per_call={tag: c["launches"] for tag, c in classifier["crops"]["calls"].items()},
         **classifier["crops"]["timed"])
+    spatial = results["spatial"]["flagship"]
+    for k in kernels:
+        k["spatial_launches_per_step_per_rank"] = spatial["ranks"][0]["launches"][0][k["name"]]
+        k["spatial_shapes"] = spatial["ranks"][0]["shapes"].get(k["name"], [])
     kernels[0]["coco_postprocess"] = coco["postprocess_nms"]
     library = coco["library"]
     if library is not None:

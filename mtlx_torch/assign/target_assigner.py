@@ -79,19 +79,32 @@ class TargetAssigner(NamedTuple):
         return AssignResult(cls_targets, cls_weights, reg_targets, reg_weights, match)
 
 
-def create_target_assigner(reference: str, stage: Optional[str] = None) -> TargetAssigner:
-    """The Faster R-CNN presets of mtlx: ('FasterRCNN', 'proposal') IoU
-    argmax 0.7/0.3 with force-match; ('FasterRCNN', 'detection') 0.5/0.5.
-    The others (FastRCNN, SSD's Multibox) are not ported: ROADMAP.md
-    queue 1, SSD."""
+def create_target_assigner(reference: str, stage: Optional[str] = None,
+                           negative_class_weight: float = 1.0) -> TargetAssigner:
+    """mtlx's presets: ('FasterRCNN', 'proposal') IoU argmax 0.7/0.3 with
+    force-match; ('FasterRCNN', 'detection') 0.5/0.5; ('FastRCNN', any
+    stage) 0.5/0.1 without force-match; ('Multibox', any stage), SSD's:
+    the negative squared distance of the corners, greedy bipartite
+    matching and the mean-stddev coder."""
+    if reference == "Multibox":
+        return TargetAssigner(
+            similarity_fn=sim_lib.neg_sq_dist_similarity,
+            matcher_fn=lambda s, row_mask=None: matcher_lib.greedy_bipartite_match(
+                s, row_mask=row_mask),
+            box_coder=box_coders.make_mean_stddev_coder(),
+            negative_class_weight=negative_class_weight,
+        )
     if reference == "FasterRCNN" and stage == "proposal":
         matcher_fn = matcher_lib.make_argmax_matcher(0.7, 0.3, force_match_for_each_row=True)
     elif reference == "FasterRCNN" and stage == "detection":
         matcher_fn = matcher_lib.make_argmax_matcher(0.5, 0.5)
+    elif reference == "FastRCNN":
+        matcher_fn = matcher_lib.make_argmax_matcher(0.5, 0.1)
     else:
-        raise ValueError(f"unknown or unported target assigner preset {reference}/{stage}")
+        raise ValueError(f"unknown target assigner preset {reference}/{stage}")
     return TargetAssigner(
         similarity_fn=sim_lib.iou_similarity,
         matcher_fn=matcher_fn,
         box_coder=box_coders.make_faster_rcnn_coder(),
+        negative_class_weight=negative_class_weight,
     )

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from mtlx_torch.backbones.resnet import BNSpec, _nchw, _nhwc, make_norm, same_pad
+from mtlx_torch import layers
 from mtlx_torch.layers import Conv2d
 
 # slim's inception arg_scope batch norm (inception v2 / v3 / v4 and
@@ -54,14 +55,14 @@ def max_pool_same(x: Tensor, stride: int, window: int = 3) -> Tensor:
     """flax `max_pool(x, (k, k), strides=(s, s), padding="SAME")` on NCHW
     (k = window)."""
     if stride == 1 and window % 2:
-        return F.max_pool2d(x, window, 1, padding=window // 2)  # pads with -inf
+        return layers.max_pool2d(x, window, 1, padding=window // 2)  # pads with -inf
     return F.max_pool2d(same_pad(x, window, stride, value=float("-inf")), window, stride)
 
 
 def avg_pool_same(x: Tensor) -> Tensor:
     """flax `avg_pool(x, (3, 3), strides=(1, 1), padding="SAME")` on NCHW:
     the zero padding counts in the mean."""
-    return F.avg_pool2d(x, 3, 1, padding=1, count_include_pad=True)
+    return layers.avg_pool2d(x, 3, 1, padding=1)
 
 
 class ConvBN(nn.Module):

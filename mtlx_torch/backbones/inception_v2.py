@@ -16,13 +16,17 @@ Mixed_4e; XLA drops the dead Mixed_5a-5c. The port keeps those
 parameters, so mtlx's variable tree loads path for path, and does not
 compute them.
 
+Every width is d(c) = max(int(c * depth_multiplier), min_depth), as in
+mtlx (ssd_inception_v2's feature_extractor.depth_multiplier; the stem's
+channel multiplier follows d(64)).
+
 NHWC in and out; names, SAME padding, pools and batch norm as in
 inception_resnet_v2.py, whose ConvBN and BNKnobs this trunk shares.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 from torch import Tensor, nn
@@ -102,16 +106,23 @@ class SeparableStem(nn.Module):
         return self.pointwise(self.depthwise(same_pad(x, 7, 2)))
 
 
-# Mixed_4e's width: the proposal features' channels and the input of the
-# box classifier's Mixed_5a.
-MIXED_4E_CHANNELS = 576
+def _widths(depth_multiplier: float, min_depth: int) -> Callable[[int], int]:
+    return lambda c: max(int(c * depth_multiplier), min_depth)
 
 
-def _mixed_5(in_channels: int, kw) -> List[Tuple[str, nn.Module]]:
+def mixed_4e_channels(depth_multiplier: float = 1.0, min_depth: int = 16) -> int:
+    """Mixed_4e's width (576 at depth multiplier 1): the proposal features'
+    channels and the input of the box classifier's Mixed_5a."""
+    d = _widths(depth_multiplier, min_depth)
+    return d(96) + d(192) + d(192) + d(96)
+
+
+def _mixed_5(in_channels: int, d, kw) -> List[Tuple[str, nn.Module]]:
     """Mixed_5a (stride 2) through Mixed_5c."""
-    a = ReductionBlock(in_channels, (128, 192), (192, 256), **kw)
-    b = InceptionBlock(a.out_channels, 352, (192, 320), (160, 224), 128, **kw)
-    c = InceptionBlock(b.out_channels, 352, (192, 320), (192, 224), 128, True, **kw)
+    a = ReductionBlock(in_channels, (d(128), d(192)), (d(192), d(256)), **kw)
+    b = InceptionBlock(a.out_channels, d(352), (d(192), d(320)), (d(160), d(224)), d(128), **kw)
+    c = InceptionBlock(b.out_channels, d(352), (d(192), d(320)), (d(192), d(224)), d(128), True,
+                       **kw)
     return [("mixed_5a", a), ("mixed_5b", b), ("mixed_5c", c)]
 
 
@@ -119,28 +130,36 @@ class InceptionV2(nn.Module):
     """[B, H, W, 3] -> [Mixed_4e (stride 16), Mixed_5c (stride 32)], NHWC;
     `stride16_only` stops after Mixed_4e."""
 
-    def __init__(self, dtype: torch.dtype = torch.bfloat16, bn: BNKnobs = BNKnobs()):
+    def __init__(self, dtype: torch.dtype = torch.bfloat16, bn: BNKnobs = BNKnobs(),
+                 depth_multiplier: float = 1.0, min_depth: int = 16):
         super().__init__()
         self.dtype = dtype
         kw = dict(dtype=dtype, bn=bn)
-        self.conv1 = SeparableStem(3, 64, **kw)
-        self.conv2a = ConvBN(64, 64, 1, **kw)
-        self.conv2b = ConvBN(64, 192, 3, **kw)
-        c = 192
+        d = _widths(depth_multiplier, min_depth)
+        self.conv1 = SeparableStem(3, d(64), **kw)
+        self.conv2a = ConvBN(d(64), d(64), 1, **kw)
+        self.conv2b = ConvBN(d(64), d(192), 3, **kw)
+        c = d(192)
         for name, make in (
-            ("mixed_3b", lambda c: InceptionBlock(c, 64, (64, 64), (64, 96), 32, **kw)),
-            ("mixed_3c", lambda c: InceptionBlock(c, 64, (64, 96), (64, 96), 64, **kw)),
-            ("mixed_4a", lambda c: ReductionBlock(c, (128, 160), (64, 96), **kw)),
-            ("mixed_4b", lambda c: InceptionBlock(c, 224, (64, 96), (96, 128), 128, **kw)),
-            ("mixed_4c", lambda c: InceptionBlock(c, 192, (96, 128), (96, 128), 128, **kw)),
-            ("mixed_4d", lambda c: InceptionBlock(c, 160, (128, 160), (128, 160), 96, **kw)),
-            ("mixed_4e", lambda c: InceptionBlock(c, 96, (128, 192), (160, 192), 96, **kw)),
+            ("mixed_3b", lambda c: InceptionBlock(c, d(64), (d(64), d(64)), (d(64), d(96)),
+                                                  d(32), **kw)),
+            ("mixed_3c", lambda c: InceptionBlock(c, d(64), (d(64), d(96)), (d(64), d(96)),
+                                                  d(64), **kw)),
+            ("mixed_4a", lambda c: ReductionBlock(c, (d(128), d(160)), (d(64), d(96)), **kw)),
+            ("mixed_4b", lambda c: InceptionBlock(c, d(224), (d(64), d(96)), (d(96), d(128)),
+                                                  d(128), **kw)),
+            ("mixed_4c", lambda c: InceptionBlock(c, d(192), (d(96), d(128)), (d(96), d(128)),
+                                                  d(128), **kw)),
+            ("mixed_4d", lambda c: InceptionBlock(c, d(160), (d(128), d(160)),
+                                                  (d(128), d(160)), d(96), **kw)),
+            ("mixed_4e", lambda c: InceptionBlock(c, d(96), (d(128), d(192)), (d(160), d(192)),
+                                                  d(96), **kw)),
         ):
             block = make(c)
             self.add_module(name, block)
             c = block.out_channels
         self.channels_16 = c
-        for name, block in _mixed_5(c, kw):
+        for name, block in _mixed_5(c, d, kw):
             self.add_module(name, block)
         self.channels_32 = self.mixed_5c.out_channels
 
@@ -162,10 +181,11 @@ class InceptionV2(nn.Module):
 class InceptionV2ProposalFeatures(nn.Module):
     """The stem through Mixed_4e: [B, H, W, 3] -> [B, H/16, W/16, 576]."""
 
-    def __init__(self, dtype: torch.dtype = torch.bfloat16, bn: BNKnobs = BNKnobs()):
+    def __init__(self, dtype: torch.dtype = torch.bfloat16, bn: BNKnobs = BNKnobs(),
+                 depth_multiplier: float = 1.0, min_depth: int = 16):
         super().__init__()
-        self.body = InceptionV2(dtype, bn)
-        self.out_channels = MIXED_4E_CHANNELS
+        self.body = InceptionV2(dtype, bn, depth_multiplier, min_depth)
+        self.out_channels = self.body.channels_16
 
     def forward(self, images: Tensor) -> Tensor:
         return self.body(images, stride16_only=True)[0]
@@ -175,10 +195,13 @@ class InceptionV2BoxClassifierFeatures(nn.Module):
     """Mixed_5a (stride 2, as in mtlx) through Mixed_5c on ROI crops:
     [N, 7, 7, 576] -> [N, 4, 4, 1024]."""
 
-    def __init__(self, dtype: torch.dtype = torch.bfloat16, bn: BNKnobs = BNKnobs()):
+    def __init__(self, dtype: torch.dtype = torch.bfloat16, bn: BNKnobs = BNKnobs(),
+                 depth_multiplier: float = 1.0, min_depth: int = 16):
         super().__init__()
         self.dtype = dtype
-        for name, block in _mixed_5(MIXED_4E_CHANNELS, dict(dtype=dtype, bn=bn)):
+        d = _widths(depth_multiplier, min_depth)
+        for name, block in _mixed_5(mixed_4e_channels(depth_multiplier, min_depth), d,
+                                    dict(dtype=dtype, bn=bn)):
             self.add_module(name, block)
         self.out_channels = self.mixed_5c.out_channels
 

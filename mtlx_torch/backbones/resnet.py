@@ -22,17 +22,28 @@ Parameters are float32 and cast to the compute type at use, as flax's
 Padding follows flax exactly: `padding="SAME"` on a strided conv pads
 (0, 1) on even inputs and (1, 1) on odd ones, which a symmetric
 `nn.Conv2d(padding=1)` cannot express, so `same_pad` pads explicitly
-before a `padding=0` conv.
+before a `padding=0` conv. Every padding goes through mtlx_torch/layers.py,
+so a trunk runs on an H-slab of the image under a spatial context
+(parallel/spatial.py) unchanged.
+
+`remat` (the config's backbone_remat) recomputes each bottleneck in the
+backward pass instead of keeping its activations, as mtlx's `nn.remat`
+does: the same gradients and statistics with less activation memory.
+`SpaceToDepthConv1` (conv0_space_to_depth) is the stem as a 4x4/1 conv
+over a 2x2 space-to-depth input, owning the plain stem's weight.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+from torch.utils.checkpoint import checkpoint
 
+from mtlx_torch import layers
 from mtlx_torch.layers import Conv2d, Linear
 
 BLOCK_SIZES = {
@@ -61,12 +72,39 @@ def same_pad(x: Tensor, kernel: int, stride: int, dilation: int = 1,
     pixel after."""
     k_eff = (kernel - 1) * dilation + 1
     pads = []
-    for n in (x.shape[3], x.shape[2]):  # F.pad lists the last axis first
+    for n in (x.shape[2], x.shape[3]):
         total = max((-(-n // stride) - 1) * stride + k_eff - n, 0)
         pads += [total // 2, total - total // 2]
     if not any(pads):
         return x
-    return F.pad(x, pads, value=value)
+    return layers.pad_hw(x, *pads, k_eff, stride, value)
+
+
+class SpaceToDepthConv1(Conv2d):
+    """The 7x7/2 stem conv (no bias) computed as a 4x4/1 VALID conv over
+    the 2x2 space-to-depth of the input padded (4, 2), with the kernel
+    padded in front to 8x8 and folded the same way (mtlx's
+    SpaceToDepthConv1: equal to the plain stem but for the order of the
+    sums). Its parameter is the plain stem's `weight` [64, 3, 7, 7], so
+    checkpoints load into either form. An odd canvas takes the plain form,
+    as in mtlx."""
+
+    def __init__(self, features: int = 64, compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(3, features, 7, stride=2, padding=3, bias=False,
+                         compute_dtype=compute_dtype)
+
+    def forward(self, x: Tensor) -> Tensor:  # NCHW
+        b, c, h, w = x.shape
+        if h % 2 or w % 2:
+            return super().forward(x)
+        dt, f = self.compute_dtype, self.out_channels
+        xq = layers.pad_hw(x.to(dt), 4, 2, 4, 2, 8, 2)
+        hq, wq = xq.shape[2] // 2, xq.shape[3] // 2
+        s = (xq.reshape(b, c, hq, 2, wq, 2).permute(0, 3, 5, 1, 2, 4)
+             .reshape(b, 4 * c, hq, wq))  # channel (dy, dx, c), as mtlx's
+        k8 = F.pad(self.weight, (1, 0, 1, 0))
+        k12 = k8.reshape(f, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4).reshape(f, 4 * c, 4, 4)
+        return F.conv2d(s, k12.to(dt))
 
 
 class FrozenBatchNorm(nn.Module):
@@ -158,6 +196,43 @@ class _BatchNormTrain(torch.autograd.Function):
         return dx, dgamma, dbeta, None, None
 
 
+# set while a rematerialized unit recomputes its forward in the backward
+# pass: its live batch norms keep the first forward's statistics
+_recomputing = False
+
+
+@contextlib.contextmanager
+def _recompute(halo):
+    global _recomputing
+    before = _recomputing, layers._halo
+    _recomputing, layers._halo = True, halo
+    try:
+        yield
+    finally:
+        _recomputing, layers._halo = before
+
+
+def rematerialized(module: nn.Module, x: Tensor) -> Tensor:
+    """module(x) with its activations recomputed in the backward pass
+    (mtlx's `nn.remat`): autograd keeps only x. With grad off it is the
+    plain call. The recomputation runs under the forward's spatial context
+    (its halo exchanges) and does not record live batch norm statistics
+    again, so the step commits them once, as flax's functional remat
+    updates them once."""
+    if not torch.is_grad_enabled():
+        return module(x)
+    calls, halo = [], layers._halo
+
+    def run(t: Tensor) -> Tensor:
+        calls.append(None)
+        if len(calls) == 1:
+            return module(t)
+        with _recompute(halo):
+            return module(t)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class LiveBatchNorm(nn.Module):
     """Trainable batch norm (port of mtlx's LiveBatchNorm): the folded
     affine in the compute type, with batch statistics in training and the
@@ -197,7 +272,8 @@ class LiveBatchNorm(nn.Module):
             dt = x.dtype
             return x * inv.to(dt)[:, None, None] + shift.to(dt)[:, None, None]
         y, mean, var = _BatchNormTrain.apply(x, gamma, beta, self.epsilon, self.replicas)
-        self.batch_stats = (mean.detach(), var.detach())
+        if not _recomputing:
+            self.batch_stats = (mean.detach(), var.detach())
         return y
 
     @torch.no_grad()
@@ -253,7 +329,7 @@ class Bottleneck(nn.Module):
     def forward(self, x: Tensor) -> Tensor:  # NCHW
         y = F.relu(self.bn1(self.conv1(x)))
         if self.stride > 1 and self.slim_padding:
-            y = F.pad(y, (1, 1, 1, 1))
+            y = layers.pad_hw(y, 1, 1, 1, 1, 3, self.stride)
         else:
             y = same_pad(y, 3, self.stride)
         y = F.relu(self.bn2(self.conv2(y)))
@@ -269,12 +345,15 @@ class Bottleneck(nn.Module):
 
 class ResNetStage(nn.Sequential):
     """A stack of bottleneck units `unit1..unitN`. The stride goes on the
-    FIRST unit, or on the LAST with slim_stride_order (slim resnet_v1)."""
+    FIRST unit, or on the LAST with slim_stride_order (slim resnet_v1).
+    With `remat` each unit is recomputed in the backward pass."""
 
     def __init__(self, num_units: int, in_depth: int, depth: int, stride: int,
                  dtype: torch.dtype = torch.bfloat16, bn_trainable: bool = False,
-                 slim_stride_order: bool = False, bn: BNSpec = BNSpec()):
+                 slim_stride_order: bool = False, bn: BNSpec = BNSpec(),
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         stride_unit = num_units - 1 if slim_stride_order else 0
         for i in range(num_units):
             self.add_module(f"unit{i + 1}", Bottleneck(
@@ -282,6 +361,11 @@ class ResNetStage(nn.Sequential):
                 stride=stride if i == stride_unit else 1, dtype=dtype,
                 bn_trainable=bn_trainable, slim_padding=slim_stride_order, bn=bn,
             ))
+
+    def forward(self, x: Tensor) -> Tensor:
+        for unit in self:
+            x = rematerialized(unit, x) if self.remat else unit(x)
+        return x
 
 
 def _nchw(x: Tensor) -> Tensor:
@@ -299,22 +383,23 @@ class ResNetProposalFeatures(nn.Module):
 
     def __init__(self, depth: int = 50, dtype: torch.dtype = torch.bfloat16,
                  bn_trainable: bool = False, slim_stride_order: bool = False,
-                 conv0_space_to_depth: bool = False, bn: BNSpec = BNSpec()):
+                 conv0_space_to_depth: bool = False, bn: BNSpec = BNSpec(),
+                 remat: bool = False):
         super().__init__()
-        if conv0_space_to_depth:
-            raise NotImplementedError(
-                "SpaceToDepthConv1 (conv0_space_to_depth) is not ported: "
-                "ROADMAP.md queue 1 item 15 (SpaceToDepthConv1)"
-            )
         sizes = BLOCK_SIZES[depth]
         self.dtype = dtype
         self.slim_stride_order = so = slim_stride_order
-        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dtype)
+        if conv0_space_to_depth:
+            self.conv1 = SpaceToDepthConv1(64, compute_dtype=dtype)
+        else:
+            self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dtype)
         self.bn1 = make_norm(64, bn_trainable, bn)
         strides = (2, 2, 1) if so else (1, 2, 2)
-        self.block1 = ResNetStage(sizes[0], 64, 256, strides[0], dtype, bn_trainable, so, bn)
-        self.block2 = ResNetStage(sizes[1], 256, 512, strides[1], dtype, bn_trainable, so, bn)
-        self.block3 = ResNetStage(sizes[2], 512, 1024, strides[2], dtype, bn_trainable, so, bn)
+        stage = lambda i, cin, cout: ResNetStage(sizes[i], cin, cout, strides[i], dtype,
+                                                 bn_trainable, so, bn, remat)
+        self.block1 = stage(0, 64, 256)
+        self.block2 = stage(1, 256, 512)
+        self.block3 = stage(2, 512, 1024)
 
     def forward(self, images: Tensor) -> Tensor:
         x = _nchw(images.to(self.dtype))
@@ -322,7 +407,7 @@ class ResNetProposalFeatures(nn.Module):
         if self.slim_stride_order:  # slim pools with SAME padding
             x = F.max_pool2d(same_pad(x, 3, 2, value=float("-inf")), 3, 2)
         else:  # symmetric (1, 1), padded with -inf
-            x = F.max_pool2d(x, 3, 2, padding=1)
+            x = layers.max_pool2d(x, 3, 2, padding=1)
         x = self.block3(self.block2(self.block1(x)))
         return _nhwc(x)
 
@@ -334,11 +419,11 @@ class ResNetBoxClassifierFeatures(nn.Module):
 
     def __init__(self, depth: int = 50, dtype: torch.dtype = torch.bfloat16,
                  bn_trainable: bool = False, slim_stride_order: bool = False,
-                 bn: BNSpec = BNSpec()):
+                 bn: BNSpec = BNSpec(), remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.block4 = ResNetStage(BLOCK_SIZES[depth][3], 1024, 2048, 1, dtype,
-                                  bn_trainable, slim_stride_order, bn)
+                                  bn_trainable, slim_stride_order, bn, remat)
 
     def forward(self, x: Tensor) -> Tensor:
         return _nhwc(self.block4(_nchw(x.to(self.dtype))))

@@ -1,7 +1,9 @@
-"""Faster R-CNN box coder (port of mtlx/coders/box_coders.py): anchor-relative
-`[ty, tx, th, tw]` codes with scale factors `[10, 10, 5, 5]`, and the
-keypoint coder that extends them with each keypoint's anchor-relative
-offset."""
+"""Box coders (port of mtlx/coders/box_coders.py): Faster R-CNN's
+anchor-relative `[ty, tx, th, tw]` codes with scale factors `[10, 10, 5,
+5]`, the keypoint coder that extends them with each keypoint's
+anchor-relative offset, the mean-stddev coder (corner offsets over a
+stddev, the Multibox preset's) and the square coder (`[ty, tx, tl]` on
+the side of the square of equal area)."""
 
 from __future__ import annotations
 
@@ -62,6 +64,54 @@ def make_faster_rcnn_coder(scale_factors=(10.0, 10.0, 5.0, 5.0)) -> BoxCoder:
         encode=lambda b, a: faster_rcnn_encode(b, a, scale_factors),
         decode=lambda c, a: faster_rcnn_decode(c, a, scale_factors),
         code_size=4,
+    )
+
+
+def mean_stddev_encode(boxes: Tensor, anchors: Tensor, stddev: float = 0.01) -> Tensor:
+    """(box - anchor) / stddev, per corner coordinate."""
+    return (boxes - anchors) / stddev
+
+
+def mean_stddev_decode(codes: Tensor, anchors: Tensor, stddev: float = 0.01) -> Tensor:
+    return codes * stddev + anchors
+
+
+def make_mean_stddev_coder(stddev: float = 0.01) -> BoxCoder:
+    return BoxCoder(
+        encode=lambda b, a: mean_stddev_encode(b, a, stddev),
+        decode=lambda c, a: mean_stddev_decode(c, a, stddev),
+        code_size=4,
+    )
+
+
+def square_encode(boxes: Tensor, anchors: Tensor,
+                  scale_factors: Sequence[float] = (1.0, 1.0, 1.0)) -> Tensor:
+    """[ty, tx, tl] with l = sqrt(h * w), relative to the anchor's l."""
+    ycenter_a, xcenter_a, ha, wa = box_ops.center_coordinates_and_sizes(anchors)
+    la = torch.sqrt((ha + EPSILON) * (wa + EPSILON))
+    ycenter, xcenter, h, w = box_ops.center_coordinates_and_sizes(boxes)
+    side = torch.sqrt((h + EPSILON) * (w + EPSILON))
+    ty = (ycenter - ycenter_a) / la * scale_factors[0]
+    tx = (xcenter - xcenter_a) / la * scale_factors[1]
+    tl = torch.log(side / la) * scale_factors[2]
+    return torch.stack([ty, tx, tl], dim=-1)
+
+
+def square_decode(codes: Tensor, anchors: Tensor,
+                  scale_factors: Sequence[float] = (1.0, 1.0, 1.0)) -> Tensor:
+    ycenter_a, xcenter_a, ha, wa = box_ops.center_coordinates_and_sizes(anchors)
+    la = torch.sqrt((ha + EPSILON) * (wa + EPSILON))
+    side = torch.exp(codes[..., 2] / scale_factors[2]) * la
+    ycenter = codes[..., 0] / scale_factors[0] * la + ycenter_a
+    xcenter = codes[..., 1] / scale_factors[1] * la + xcenter_a
+    return box_ops.from_center_coordinates(ycenter, xcenter, side, side)
+
+
+def make_square_coder(scale_factors=(1.0, 1.0, 1.0)) -> BoxCoder:
+    return BoxCoder(
+        encode=lambda b, a: square_encode(b, a, scale_factors),
+        decode=lambda c, a: square_decode(c, a, scale_factors),
+        code_size=3,
     )
 
 

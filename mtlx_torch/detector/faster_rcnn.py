@@ -40,6 +40,11 @@ miner (losses.hard_example_mining_mask) keeps the hardest sampled ROIs
 of each image in the second-stage loss, one more NMS launch a step
 without a negatives cap, one more IoU launch with one.
 
+Spatial partitioning (parallel/spatial.py): with `spatial` set to a
+SpatialMesh, the images are this rank's H-slab, the trunk runs on it
+with halo exchanges, and its output is gathered into the whole stride-16
+map; everything after the trunk sees the whole canvas.
+
 Randomness: mtlx draws `jax.random.uniform` inside the step. The port
 takes the draws as a dict of tensors (`mtlx_torch.train.train_step
 .make_draws` makes them; a test can inject JAX's):
@@ -76,6 +81,7 @@ from mtlx_torch.labels import recycle
 from mtlx_torch.losses import losses as loss_lib
 from mtlx_torch.ops import nms as nms_lib
 from mtlx_torch.ops import roi as roi_lib
+from mtlx_torch.parallel import spatial as spatial_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +157,7 @@ class FasterRCNNConfig:
     rpn_atrous_rate: int = 1
     second_stage_fc_initializer: Any = None
     hard_example_miner: Any = None
-    backbone_remat: bool = False  # a training option; no effect at inference
+    backbone_remat: bool = False  # ResNet trunks: recompute each bottleneck in backward
     conv0_space_to_depth: bool = False
     batch_norm_trainable: bool = False
     batch_norm_params: Any = None  # (decay, epsilon, center, scale) or None
@@ -263,18 +269,16 @@ def make_trunk(cfg: FasterRCNNConfig) -> Tuple[nn.Module, nn.Module]:
                     irv2.InceptionResnetV2BoxClassifierFeatures(cfg.dtype, bn))
         return (iv2.InceptionV2ProposalFeatures(dtype=cfg.dtype, bn=bn),
                 iv2.InceptionV2BoxClassifierFeatures(dtype=cfg.dtype, bn=bn))
-    if cfg.backbone not in ("resnet10", "resnet50", "resnet101", "resnet152"):
-        raise NotImplementedError(
-            f"backbone {cfg.backbone!r} is not ported: ROADMAP.md queue 1 item 15 "
-            "(the other backbones)"
-        )
+    # any other name builds the ResNet of resnet_depth (50 for an unknown
+    # name), as mtlx's does
     bn = (resnet.BNSpec(*cfg.batch_norm_params)
           if cfg.batch_norm_params is not None else resnet.BNSpec())
     depth = cfg.resnet_depth
     return (resnet.ResNetProposalFeatures(depth, cfg.dtype, cfg.batch_norm_trainable,
-                                          cfg.slim_stride_order, cfg.conv0_space_to_depth, bn),
+                                          cfg.slim_stride_order, cfg.conv0_space_to_depth, bn,
+                                          cfg.backbone_remat),
             resnet.ResNetBoxClassifierFeatures(depth, cfg.dtype, cfg.batch_norm_trainable,
-                                               cfg.slim_stride_order, bn))
+                                               cfg.slim_stride_order, bn, cfg.backbone_remat))
 
 
 class FasterRCNNModules(nn.Module):
@@ -369,6 +373,7 @@ class FasterRCNN:
     `device=None` means the CUDA device (raises without one)."""
 
     modules_class = FasterRCNNModules
+    spatial = None  # a parallel.spatial.SpatialMesh: the images are H-slabs
 
     def __init__(self, cfg: FasterRCNNConfig, device: DeviceLike = None):
         self.cfg = cfg
@@ -451,6 +456,17 @@ class FasterRCNN:
         """Channel-mean subtraction; resize/pad happens in the data layer."""
         return resnet.preprocess_images(images)
 
+    def _features(self, images: Tensor) -> Tuple[Tensor, Tuple[int, int]]:
+        """The trunk's stride-16 map of the batch and the compute canvas
+        (h, w). Under `spatial` the images are this rank's H-slab: the
+        trunk runs on it with halo exchanges and its output is gathered."""
+        hw = spatial_lib.canvas_hw(images, self.spatial)
+        if self.spatial is None:
+            return self.modules.backbone(images), hw
+        feats = spatial_lib.trunk_slab(self.modules.backbone, images, self.spatial,
+                                       self.cfg.feature_stride)
+        return spatial_lib.gather_slabs(feats, self.spatial), hw
+
     @torch.inference_mode()
     def predict(self, images: Tensor, true_shapes: Tensor,
                 training: bool = False) -> Dict[str, Tensor]:
@@ -465,9 +481,8 @@ class FasterRCNN:
             )
         c = self.cfg
         self.modules.eval()
-        canvas_hw = (int(images.shape[1]), int(images.shape[2]))
+        feats, canvas_hw = self._features(images)
         anchors = self.anchors_for(canvas_hw)
-        feats = self.modules.backbone(images)
         obj_logits, box_enc = self.modules.rpn(feats)
         proposals, proposal_scores, proposal_mask = self._postprocess_rpn(
             obj_logits, box_enc, true_shapes, anchors
@@ -502,9 +517,8 @@ class FasterRCNN:
         train step to commit, and dropout drops."""
         c = self.cfg
         self.modules.train()
-        canvas_hw = (int(images.shape[1]), int(images.shape[2]))
+        feats, canvas_hw = self._features(images)
         anchors = self.anchors_for(canvas_hw)
-        feats = self.modules.backbone(images)
         obj_logits, box_enc = self.modules.rpn(feats)
         with torch.no_grad():  # proposals are a constant of the second stage
             proposals, _, proposal_mask = self._proposals(

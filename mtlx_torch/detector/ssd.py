@@ -112,11 +112,7 @@ class SSDModules(nn.Module):
         bn = BNKnobs(cfg.batch_norm_trainable,
                      resnet.BNSpec(cfg.bn_momentum, cfg.bn_epsilon, cfg.bn_center, cfg.bn_scale))
         if cfg.feature_extractor == "ssd_inception_v2":
-            if cfg.depth_multiplier != 1.0:
-                raise NotImplementedError(
-                    "ssd_inception_v2 at a depth_multiplier other than 1 is not ported: "
-                    "ROADMAP.md queue 1 item 15 (the other backbone options)")
-            self.backbone = InceptionV2(cfg.dtype, bn)
+            self.backbone = InceptionV2(cfg.dtype, bn, cfg.depth_multiplier, cfg.min_depth)
             endpoints = [self.backbone.channels_16, self.backbone.channels_32]
         else:
             self.backbone = MobileNetV1(cfg.depth_multiplier, cfg.min_depth, cfg.dtype, bn)

@@ -38,6 +38,29 @@ def from_center_coordinates(ycenter, xcenter, h, w) -> Tensor:
     )
 
 
+def matched_intersection(boxes1: Tensor, boxes2: Tensor) -> Tensor:
+    """Elementwise intersection of aligned boxes. [..., N, 4] x2 -> [..., N]."""
+    ih = torch.clamp_min(torch.minimum(boxes1[..., 2], boxes2[..., 2])
+                         - torch.maximum(boxes1[..., 0], boxes2[..., 0]), 0.0)
+    iw = torch.clamp_min(torch.minimum(boxes1[..., 3], boxes2[..., 3])
+                         - torch.maximum(boxes1[..., 1], boxes2[..., 1]), 0.0)
+    return ih * iw
+
+
+def matched_iou(boxes1: Tensor, boxes2: Tensor) -> Tensor:
+    """Elementwise IoU of aligned boxes. [..., N]; 0 where the union is not
+    positive."""
+    inter = matched_intersection(boxes1, boxes2)
+    union = area(boxes1) + area(boxes2) - inter
+    return torch.where(union > 0, inter / torch.clamp_min(union, EPSILON), 0.0)
+
+
+def scale(boxes: Tensor, y_scale, x_scale) -> Tensor:
+    """Boxes with their y coordinates times y_scale and x times x_scale."""
+    return torch.stack([boxes[..., 0] * y_scale, boxes[..., 1] * x_scale,
+                        boxes[..., 2] * y_scale, boxes[..., 3] * x_scale], dim=-1)
+
+
 def intersection(boxes1: Tensor, boxes2: Tensor) -> Tensor:
     """Pairwise intersection areas. [..., N, 4] x [..., M, 4] -> [..., N, M]."""
     b1 = boxes1[..., :, None, :]

@@ -1,6 +1,8 @@
 """Detection losses (port of mtlx/losses/losses.py), in mtlx's formulas:
 each takes predictions, targets and per-anchor weights and returns the
-per-anchor loss; callers normalize.
+per-anchor loss; callers normalize. The L2, IoU and bootstrapped sigmoid
+losses are what a Loss proto reaches through
+builders/component_builders.py.
 
 `hard_example_mining_mask` is Faster R-CNN's NMS-based hard example
 miner (SSD mines in its loss, detector/ssd.py).
@@ -17,6 +19,18 @@ from mtlx_torch.geometry import box_ops
 from mtlx_torch.ops import nms as nms_lib
 
 _F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def weighted_l2_loss(pred: Tensor, target: Tensor, weights: Tensor) -> Tensor:
+    """0.5 * ||pred - target||^2 summed over the code, weighted. -> [..., A]."""
+    diff = pred - target
+    return (0.5 * (diff * diff)).sum(-1) * weights
+
+
+def weighted_iou_loss(pred_boxes: Tensor, target_boxes: Tensor, weights: Tensor) -> Tensor:
+    """-log(matched IoU) per anchor, the IoU floored at 1e-8, weighted."""
+    iou = box_ops.matched_iou(pred_boxes, target_boxes)
+    return -torch.log(torch.clamp_min(iou, 1e-8)) * weights
 
 
 def weighted_smooth_l1_loss(pred: Tensor, target: Tensor, weights: Tensor) -> Tensor:
@@ -51,9 +65,28 @@ def softmax_cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
 
 
 def weighted_softmax_classification_loss(logits: Tensor, targets: Tensor,
-                                         weights: Tensor) -> Tensor:
-    """Per-anchor softmax CE, weighted. -> [..., A]."""
+                                         weights: Tensor, logit_scale: float = 1.0) -> Tensor:
+    """Per-anchor softmax CE of logits / logit_scale, weighted. -> [..., A]."""
+    if logit_scale != 1.0:
+        logits = logits / logit_scale
     return softmax_cross_entropy(logits, targets) * weights
+
+
+def bootstrapped_sigmoid_classification_loss(logits: Tensor, targets: Tensor, weights: Tensor,
+                                             alpha: float = 0.5,
+                                             bootstrap_type: str = "soft") -> Tensor:
+    """Sigmoid CE against alpha * targets + (1 - alpha) * the prediction
+    (its sigmoid, "soft", or the sigmoid thresholded at 0.5, "hard"),
+    weighted per anchor; the gradient flows through the soft target, as
+    in mtlx. -> [..., A, K]."""
+    p = torch.sigmoid(logits)
+    if bootstrap_type == "soft":
+        boot = alpha * targets + (1.0 - alpha) * p
+    elif bootstrap_type == "hard":
+        boot = alpha * targets + (1.0 - alpha) * (p > 0.5).to(logits.dtype)
+    else:
+        raise ValueError(f"unknown bootstrap_type {bootstrap_type}")
+    return sigmoid_cross_entropy(logits, boot) * weights[..., None]
 
 
 class HardExampleMinerConfig(NamedTuple):

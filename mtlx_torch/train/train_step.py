@@ -57,6 +57,7 @@ from torch import Tensor
 
 from mtlx_torch.data import preprocessor
 from mtlx_torch.detector.faster_rcnn import FasterRCNN
+from mtlx_torch.parallel.spatial import canvas_hw
 from mtlx_torch.utils.bucketing import bucket_multiple
 
 
@@ -367,7 +368,7 @@ def make_draws(model, batch_size: int, canvas_hw: Tuple[int, int],
 
 def global_rows(rows: int, replicas=None) -> int:
     """The global batch's rows when each rank holds `rows` of them."""
-    return rows if replicas is None else rows * replicas.world_size
+    return rows if replicas is None else rows * replicas.batch_ranks
 
 
 def rank_rows(draws: Dict, replicas=None) -> Dict:
@@ -423,7 +424,8 @@ def make_train_step(model, regularization_fn: Optional[Callable] = None,
         draws = dict(draws or {})
         if generator is not None:
             made = make_draws(m, global_rows(images.shape[0], ranks),
-                              tuple(images.shape[1:3]), generator, num_gt=gt["boxes"].shape[1])
+                              canvas_hw(images, getattr(m, "spatial", None)), generator,
+                              num_gt=gt["boxes"].shape[1])
             draws = {**rank_rows(made, ranks), **draws}
         for p in state.params.values():
             p.grad = None
