@@ -18,7 +18,9 @@ warm-started from, and the flagship as a Mask R-CNN through the CLIs,
 and classifier pretraining warm-starting the flagship, the other
 classification backbones and the dataset record writers, and spatial
 partitioning of 2048x2048 images, the spatial and hybrid grids, the
-space-to-depth stem, backbone remat and the Multibox preset.
+space-to-depth stem, backbone remat and the Multibox preset, and the
+export CLI's --saved_model program of the flagship and of SSD
+MobileNet-v1, served from a fresh process under mtlx's three signatures.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --data_parallel 4    # on a machine with 4 cards
@@ -55,7 +57,12 @@ Phases (any failure exits non-zero):
      on the same input with bit-equal results; each timed with CUDA
      events beside its plain version and, where one PyTorch call computes
      the same function, that call (the crop and the IoU also beside a fill
-     of their output, the IoU also by the profiler's device time)
+     of their output, the IoU also by the profiler's device time); then
+     all four at the shapes phase 17's spatial step gives them, on inputs
+     of their own: NMS 2 x 6000 -> 300, the crop of 2 x 128 x 128 x 1024
+     bf16 with 64 boxes an image -> 14x14 and its backward, the IoU 2 x
+     100 x 196608, each held to its plain version and timed beside its
+     bound, plain version and library call
   4. serve: the full-width flagship R50 (bfloat16, seeded random weights)
      answers 600x800, 800x600 and 600x1000 requests one at a time and a
      batch of two, through both kernels (their launch counts must rise);
@@ -280,6 +287,22 @@ Phases (any failure exits non-zero):
      (within 1e-6); SSD Inception-v2 at depth multiplier 0.5, card vs CPU
      as phase 12; the Multibox preset at 32 x 100 x 1917, the card's
      matches equal to the CPU's, ms a call
+ 18. the serving program: the flagship (R50, keep-aspect 600 / 1024, the
+     1024x1024 canvas) and SSD MobileNet-v1 (300x300), each from a
+     checkpoint of its seeded init with batch norm calibrated on the
+     requests, through the export CLI with --saved_model (bf16 on the
+     card): the export seconds and the .pt2 size; a fresh process that
+     imports only the loader (no detector, builder, backbone or head)
+     loads each program and serves 600x800 and 800x600 noise JPEGs at
+     batch 1 and 2 through image_tensor (the host path's canvases),
+     encoded_image_string and tf_example, with the kernels' plain
+     versions refused: every result equal to the eager InferenceModel at
+     the same canvas and dtype in classes and num_detections, boxes and
+     scores within 1e-5 of the largest magnitude; each request launches
+     NMS 2 and the crop 1 inside the flagship's program, NMS 1 inside
+     SSD's; the load seconds, request ms on the host clock (ending in the
+     copy to the host) beside eager's, and the kernels' device ms inside
+     the program (profiler)
 
 The line before the last is one JSON object listing every kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -1083,6 +1106,69 @@ def check_roi_backward(gen, results):
         library_ms=library_ms, bound_ms=t_bound, bound_by=by,
         max_abs_err=float((got16.float() - ref32).abs().max()),
         f32_max_abs_err=float(err32.max()), f32_ms=ms32, dout_read_mb=read_mb)
+
+
+def time_crop_backward(dout, boxes, hw, tag: str):
+    """The crop backward kernel on bf16 dout: within one bf16 ulp of the
+    float32 plain result plus 1e-4 of each pixel's sum of term magnitudes,
+    timed beside its plain version, grid_sampler_2d_backward and its bound."""
+    from mtlx_torch.kernels import roi_cuda
+
+    b, n, cs, _, c = dout.shape
+    got = roi_cuda.crop_and_resize_backward(dout, boxes, hw)
+    ref = roi_cuda.crop_and_resize_backward_plain(dout.float(), boxes, hw)
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    err = (got.float() - ref).abs()
+    ratio = float((err / (ulp + _bwd_tolerance(roi_cuda, dout, boxes, hw))).max())
+    if ratio > 1.0:
+        raise AssertionError(f"crop backward at {tag} exceeds its tolerance: {ratio:.3g}x")
+    ms = cuda_ms(lambda: roi_cuda.crop_and_resize_backward(dout, boxes, hw), 20)
+    plain_ms = cuda_ms(lambda: roi_cuda.crop_and_resize_backward_plain(dout, boxes, hw), 3)
+    library_ms = grid_sample_backward_ms(dout, boxes, hw)
+    t_bound, by = bound_ms(nbytes=b * n * cs * cs * c * 2 + b * n * 16 + b * hw[0] * hw[1] * c * 2,
+                           ops=b * n * cs * cs * c * 8)
+    shape = f"{b}x{n}x{cs}x{cs}x{c}->{b}x{hw[0]}x{hw[1]}x{c} bf16"
+    log(f"[roi-bwd] {tag} {shape}: within {ratio:.3g} of its tolerance; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, grid_sampler_2d_backward {library_ms:.4f} ms, bound "
+        f"{t_bound:.4f} ms ({by})")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
+                bound_by=by, max_abs_err=float(err.max()))
+
+
+def time_spatial_shapes(seed: int, results):
+    """The four kernels at the shapes phase 17's spatial step gives them,
+    on inputs of their own: NMS 2 x 6000 -> 300 (IoU 0.7), the crop of
+    2 x 128 x 128 x 1024 bf16 with 64 boxes an image -> 14x14, its
+    backward, and the IoU of 2 x 100 ground truth boxes against the 196608
+    anchors of a 128x128 map; each held to its plain version."""
+    from mtlx_torch.kernels import nms_cuda
+
+    gen = torch.Generator().manual_seed(seed + 40)
+    p, n, k, thr = 2, 6000, 300, 0.7
+    boxes, scores, valid = nms_case(gen, p, n)
+    idx, keep = nms_cuda.non_max_suppression(boxes, scores, valid, k, thr, 0.0)
+    ref_idx, ref_keep = nms_cuda.non_max_suppression_plain(boxes, scores, valid, k, thr, 0.0)
+    if not (torch.equal(idx, ref_idx) and torch.equal(keep, ref_keep)):
+        raise AssertionError("NMS kernels differ from their plain version at 2x6000->300")
+    steps = int(torch.clamp(keep.sum(1) + 1, max=k).sum())
+    t_bound, by = bound_ms(nbytes=p * n * (16 + 4 + 1) + p * k * (4 + 1),
+                           ops=steps * n * NMS_OPS_PER_BOX_STEP)
+    ms, plain_ms, stage_ms, device_ms = time_nms(boxes, scores, valid, k, thr, "2x6000->300")
+    log(f"[nms] spatial step 2x6000->300 iou {thr}: selections equal (exact), "
+        f"{int(keep.sum())} picks; {ms:.4f} ms a call from a tight host loop, device "
+        f"{device_ms} ms, plain {plain_ms:.3f} ms, bound {t_bound:.5f} ms ({by}), library null")
+    nms = dict(shape="2x6000->300", ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+               max_abs_err=0.0, device_ms=device_ms, stage_ms=stage_ms)
+    b, h, w, c, n, cs = 2, 128, 128, 1024, 64, 14
+    feats = torch.randn(b, h, w, c, generator=gen).cuda().bfloat16()
+    boxes = random_boxes(gen, b, n).cuda()
+    crop = time_crop(feats, boxes, cs, "spatial step", plain_reps=3)
+    dout = torch.randn(b, n, cs, cs, c, generator=gen).cuda().bfloat16()
+    backward = time_crop_backward(dout, boxes, (h, w), "spatial step")
+    iou = time_iou(random_boxes(gen, b, 100).cuda(), random_boxes(gen, 1, h * w * 12).cuda(),
+                   "spatial step")
+    results["spatial_shapes"] = dict(nms=nms, roi_crop=crop, roi_crop_backward=backward,
+                                     iou=iou)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -5549,6 +5635,281 @@ def phase_spatial(seed: int, results):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 18
+
+# the configs exported with --saved_model, and the launches each request
+# makes inside the program
+SAVED_MODEL_CONFIGS = (("flagship", FLAGSHIP_CONFIG, {"nms": 2, "roi_crop": 1}),
+                       ("ssd_mobilenet_v1_voc", "configs/ssd_mobilenet_v1_voc.config",
+                        {"nms": 1, "roi_crop": 0}))
+SAVED_MODEL_SIZES = ((600, 800), (800, 600))
+SAVED_MODEL_SIGNATURES = ("image_tensor", "encoded_image_string", "tf_example")
+SAVED_MODEL_TOL = 1e-5
+SAVED_MODEL_REPS = 3
+
+# NMS's kernels (the single launch, and the banded pipeline's four) and the
+# crop forward's, by the names the profiler records
+SAVED_MODEL_KERNELS = {"nms": ("nms_small_kernel", "rank_kernel", "order_kernel", "mask_kernel",
+                               "scan_kernel"),
+                       "roi_crop": ("roi_crop_fwd_kernel",)}
+
+# a fresh process that imports only the loader. It is started first: it
+# imports and loads each program as the phase writes it, then waits for
+# `go` (everything else done) and serves each at batch 1 and 2 through the
+# three signatures with the kernels' plain versions refused, counting each
+# request's launches, timing the requests (host clock, ending in the copy
+# to the host) and profiling the kernels inside the program
+_SERVE_PROGRAMS = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+from mtlx_torch.export import saved_model
+import_s = time.perf_counter() - t0
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+work, names, reps = sys.argv[1], sys.argv[2].split(","), int(sys.argv[3])
+kernels = json.loads(sys.argv[4])
+
+def wait_for(path):
+    while not os.path.exists(path):
+        if os.path.exists(f"{work}/failed"):
+            sys.exit("the phase failed before serving")
+        time.sleep(0.05)
+
+def launches():
+    from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
+
+    return {"nms": nms_cuda.non_max_suppression.launches,
+            "roi_crop": roi_cuda.crop_and_resize.launches,
+            "roi_crop_backward": roi_cuda.crop_and_resize_backward.launches,
+            "iou": iou_cuda.iou_matrix.launches}
+
+programs, report = {}, {"import_s": import_s}
+for name in names:
+    wait_for(f"{work}/{name}/saved_model/ready")
+    t0 = time.perf_counter()
+    programs[name] = saved_model.load_saved_model(f"{work}/{name}/saved_model")
+    report[name] = {"load_s": time.perf_counter() - t0}
+wait_for(f"{work}/go")
+from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
+
+def refuse(*args, **kwargs):
+    raise AssertionError("a plain version ran inside the program on the card")
+
+nms_cuda.non_max_suppression_plain = roi_cuda.crop_and_resize_plain = refuse
+roi_cuda.crop_and_resize_backward_plain = iou_cuda.iou_matrix_plain = refuse
+for name, sm in programs.items():
+    data = np.load(f"{work}/{name}_requests.npz", allow_pickle=True)
+    r = dict(report[name], ms={}, launches={}, first_ms={})
+    out = {}
+    for b in (1, 2):
+        args = {"image_tensor": (data["canvas"][:b], data["shape"][:b]),
+                "encoded_image_string": (list(data["blobs"][:b]),),
+                "tf_example": (list(data["examples"][:b]),)}
+        for sig, a in args.items():
+            times, counts = [], []
+            for _ in range(reps + 1):
+                before = launches()
+                t0 = time.perf_counter()
+                got = sm.signatures[sig](*a)
+                times.append((time.perf_counter() - t0) * 1e3)
+                after = launches()
+                counts.append({k: after[k] - before[k] for k in after})
+            r["first_ms"][f"{sig}/{b}"] = times[0]
+            r["ms"][f"{sig}/{b}"] = times[1:]
+            r["launches"][f"{sig}/{b}"] = counts
+            out.update({f"{sig}/{b}/{k}": v for k, v in got.items()})
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            sm.signatures["image_tensor"](data["canvas"][:1], data["shape"][:1])
+        torch.cuda.synchronize()
+    r["kernel_ms"] = {k: sum(e.self_device_time_total for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA
+                             and any(n in e.key for n in names_)) / 1e4
+                      for k, names_ in kernels.items()}
+    r["meta"] = sm.meta
+    report[name] = r
+    np.savez(f"{work}/{name}_served.npz", **out)
+report["modules"] = sorted(m for m in sys.modules if m.startswith("mtlx_torch"))
+print(json.dumps(report))
+"""
+
+
+def saved_model_requests(rs, resizer, canvas):
+    """The phase's requests: noise JPEGs at SAVED_MODEL_SIZES, their
+    tf.Examples, and the canvases the host path makes of them."""
+    from mtlx_torch.data.example_decoder import build_example
+    from mtlx_torch.export import saved_model
+
+    blobs = [encode_jpeg(rs.randint(0, 256, (h, w, 3)).astype(np.uint8))
+             for h, w in SAVED_MODEL_SIZES]
+    examples = [build_example(b, b"jpeg", h, w, f"request{i}.jpg", np.zeros((0, 4)), [], [])
+                for i, (b, (h, w)) in enumerate(zip(blobs, SAVED_MODEL_SIZES))]
+    canvases, shapes = zip(*(saved_model.canvas_of(saved_model.decode_image(b), resizer, canvas)
+                             for b in blobs))
+    objects = lambda xs: np.array(xs + [None], object)[:-1]
+    return dict(blobs=objects(blobs), examples=objects(examples), canvas=np.stack(canvases),
+                shape=np.stack(shapes))
+
+
+def export_program(work: str, name: str, config: str, seed: int):
+    """One config through the export CLI with --saved_model from a
+    checkpoint of its seeded init with batch norm calibrated on the
+    phase's requests, and the eager InferenceModel's results and request
+    ms on the same canvases at the program's dtype."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.export import exporter
+    from mtlx_torch.export.exporter import InferenceModel
+    from mtlx_torch.export.saved_model import PROGRAM_FILE
+    from mtlx_torch.train import checkpoints as ckpt_lib
+    from mtlx_torch.train import train_step as ts
+
+    configs = config_util.get_configs_from_pipeline_file(os.path.join(REPO, config))
+    resizer = model_builder.resizer_params(model_builder.image_resizer(configs["model"]))
+    model = model_builder.build(configs["model"], is_training=True, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(seed))
+    canvas = tuple(model.cfg.canvas_size)
+    requests = saved_model_requests(np.random.RandomState(seed + 30), resizer, canvas)
+    np.savez(os.path.join(work, f"{name}_requests.npz"), **requests)
+    calibrate_batch_norm_on(model, torch.from_numpy(requests["canvas"]).cuda(),
+                            torch.from_numpy(requests["shape"]).cuda())
+    train_dir, out_dir = os.path.join(work, f"{name}_train"), os.path.join(work, name)
+    manager = ckpt_lib.CheckpointManager(train_dir)
+    manager.save(1, ts.create_train_state(model, ts.make_optimizer()))
+    manager.wait()
+    del model, manager
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_cli(exporter.main, ["--pipeline_config_path", os.path.join(REPO, config),
+                            "--trained_checkpoint_dir", train_dir, "--output_directory", out_dir,
+                            "--saved_model"])
+    export_s = time.perf_counter() - t0
+    program = os.path.join(out_dir, "saved_model", PROGRAM_FILE)
+    open(os.path.join(out_dir, "saved_model", "ready"), "w").close()
+
+    eager = InferenceModel.load(out_dir, device="cuda", dtype=torch.bfloat16)  # as the program
+    want, eager_ms = {}, {}
+    for b in (1, 2):
+        times = []
+        for _ in range(SAVED_MODEL_REPS + 1):
+            t0 = time.perf_counter()
+            out = eager._postprocess_output(eager._serve(requests["canvas"][:b],
+                                                         requests["shape"][:b]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        want[b], eager_ms[b] = out, times[1:]
+    del eager
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, size_mb=os.path.getsize(program) / 2**20, canvas=canvas,
+                want=want, eager_ms=eager_ms)
+
+
+def check_served(name: str, exported, served, launches, want_launches):
+    """The fresh process's results against the eager InferenceModel, and
+    its launches a request; the worst box or score difference over the
+    largest magnitude."""
+    worst = 0.0
+    for sig in SAVED_MODEL_SIGNATURES:
+        for b in (1, 2):
+            got = {k.split("/")[-1]: v for k, v in served.items() if k.startswith(f"{sig}/{b}/")}
+            w = exported["want"][b]
+            for key in ("detection_classes", "num_detections"):
+                if not np.array_equal(got[key], w[key].astype(np.float32)):
+                    raise AssertionError(f"{name} {sig} batch {b}: {key} differs from eager")
+            for key in ("detection_boxes", "detection_scores"):
+                scale = max(float(np.abs(w[key]).max()), 1e-30)
+                err = float(np.abs(got[key] - w[key]).max()) / scale
+                worst = max(worst, err)
+                if not err <= SAVED_MODEL_TOL:
+                    raise AssertionError(f"{name} {sig} batch {b}: {key} off eager by {err:.3g} "
+                                         f"of the largest magnitude (tolerance {SAVED_MODEL_TOL})")
+            for count in launches[f"{sig}/{b}"]:
+                made = {k: count[k] for k in want_launches}
+                if made != want_launches or count["roi_crop_backward"] or count["iou"]:
+                    raise AssertionError(f"{name} {sig} batch {b}: a request launched {count}, "
+                                         f"want {want_launches}")
+    return worst
+
+
+def phase_saved_model(seed: int, results, smi: str):
+    """The export CLI's --saved_model for the flagship and SSD MobileNet-v1,
+    both programs served from one fresh process through mtlx's three
+    signatures and held to the eager InferenceModel."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mtlx_saved_model_")
+    names = [name for name, _, _ in SAVED_MODEL_CONFIGS]
+    server_out = open(os.path.join(work, "server.out"), "w+")
+    server_err = open(os.path.join(work, "server.err"), "w+")
+    server = subprocess.Popen(
+        [sys.executable, "-c", _SERVE_PROGRAMS, work, ",".join(names), str(SAVED_MODEL_REPS),
+         json.dumps(SAVED_MODEL_KERNELS)],
+        stdout=server_out, stderr=server_err, text=True, env=repo_env(), cwd=REPO)
+    try:
+        exported = {name: export_program(work, name, config, seed)
+                    for name, config, _ in SAVED_MODEL_CONFIGS}
+        open(os.path.join(work, "go"), "w").close()
+        server.wait(timeout=600)
+        server_out.seek(0)
+        server_err.seek(0)
+        if server.returncode != 0:
+            raise AssertionError(f"the serving process failed:\n{server_err.read()[-4000:]}")
+        report = json.loads(server_out.read().strip().splitlines()[-1])
+        loaded = [m for m in report["modules"]
+                  if m.split(".")[1:2] in (["detector"], ["builders"], ["backbones"], ["heads"])]
+        if loaded:
+            raise AssertionError(f"the serving process imported model code: {loaded}")
+        out = {}
+        for name, _, want_launches in SAVED_MODEL_CONFIGS:
+            e, r = exported[name], report[name]
+            served = dict(np.load(os.path.join(work, f"{name}_served.npz")))
+            worst = check_served(name, e, served, r["launches"], want_launches)
+            num = [int(n) for n in e["want"][2]["num_detections"]]
+            log(f"[saved_model] {name} ({smi}): export CLI with --saved_model "
+                f"{e['export_s']:.1f} s, model.pt2 {e['size_mb']:.1f} MiB, canvas "
+                f"{e['canvas'][0]}x{e['canvas'][1]} {r['meta']['dtype']}; the fresh process "
+                f"loaded it in {r['load_s']:.2f} s (beside the phase's other work) after "
+                f"importing the loader in {report['import_s']:.2f} s, no model code imported")
+            log(f"[saved_model] {name}: every signature at batch 1 and 2 equal to the eager "
+                f"InferenceModel in classes and num_detections ({num} at batch 2), boxes and "
+                f"scores within {worst:.3g} of the largest magnitude (tolerance "
+                f"{SAVED_MODEL_TOL}); each request launched {want_launches} inside the "
+                f"program, no plain version ran")
+            for b in (1, 2):
+                ms = ", ".join(f"{sig} {' '.join(f'{t:.2f}' for t in r['ms'][f'{sig}/{b}'])}"
+                               for sig in SAVED_MODEL_SIGNATURES)
+                log(f"[saved_model] {name} batch {b} ({smi}): request ms on the host clock, "
+                    f"ending in the copy to the host: {ms}; the first image_tensor call "
+                    f"{r['first_ms'][f'image_tensor/{b}']:.2f}; eager InferenceModel at the "
+                    f"canvas {' '.join(f'{t:.2f}' for t in e['eager_ms'][b])}")
+            log(f"[saved_model] {name} ({smi}): device ms a batch-1 request in the "
+                f"program's kernels (profiler): {r['kernel_ms']}")
+            out[name] = dict(export_s=e["export_s"], size_mb=e["size_mb"],
+                             import_s=report["import_s"], load_s=r["load_s"], ms=r["ms"],
+                             first_ms=r["first_ms"], eager_ms=e["eager_ms"], max_rel_err=worst,
+                             launches_per_request=want_launches, kernel_ms=r["kernel_ms"],
+                             num_detections=num)
+        out["wall_s"] = time.perf_counter() - t_phase
+        log(f"[saved_model] phase 18: {out['wall_s']:.1f} s")
+        results["saved_model"] = out
+    finally:
+        if server.poll() is None:
+            open(os.path.join(work, "failed"), "w").close()
+            try:
+                server.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait()
+        server_out.close()
+        server_err.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5586,6 +5947,7 @@ def main(argv=None) -> int:
     check_roi_cases(args.seed)
     check_iou(gen, results)
     check_roi_backward(gen, results)
+    time_spatial_shapes(args.seed, results)
     phase_serve(args.seed, results)
     phase_card_vs_cpu(args.seed)
     phase_train(args.seed, results)
@@ -5600,6 +5962,7 @@ def main(argv=None) -> int:
     phase_masks(args.seed, results)
     phase_classifier(args.seed, results)
     phase_spatial(args.seed, results)
+    phase_saved_model(args.seed, results, smi)
 
     nms_rpn = results["nms"][0]
     roi = results["roi_crop"]
@@ -5719,6 +6082,14 @@ def main(argv=None) -> int:
     for k in kernels:
         k["spatial_launches_per_step_per_rank"] = spatial["ranks"][0]["launches"][0][k["name"]]
         k["spatial_shapes"] = spatial["ranks"][0]["shapes"].get(k["name"], [])
+    saved = {name: r for name, r in results["saved_model"].items() if name != "wall_s"}
+    for k in kernels:
+        k["spatial_shapes_timed"] = results["spatial_shapes"][k["name"]]
+        k["saved_model_launches_per_request"] = {
+            name: r["launches_per_request"].get(k["name"], 0) for name, r in saved.items()}
+        if k["name"] in SAVED_MODEL_KERNELS:
+            k["saved_model_device_ms"] = {name: r["kernel_ms"][k["name"]]
+                                          for name, r in saved.items()}
     kernels[0]["coco_postprocess"] = coco["postprocess_nms"]
     library = coco["library"]
     if library is not None:

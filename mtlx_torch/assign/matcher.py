@@ -105,6 +105,18 @@ def greedy_bipartite_match(similarity: Tensor, row_mask: Optional[Tensor] = None
     return matches.reshape(*lead, num_cols)
 
 
+def matched_column_mask(match: Tensor) -> Tensor:
+    return match >= 0
+
+
+def unmatched_column_mask(match: Tensor) -> Tensor:
+    return match == UNMATCHED
+
+
+def ignored_column_mask(match: Tensor) -> Tensor:
+    return match == IGNORED
+
+
 def take_rows(x: Tensor, index: Tensor) -> Tensor:
     """x [..., G, *tail] gathered at index [..., C] along G ->
     [..., C, *tail] (jnp.take per problem)."""

@@ -79,6 +79,16 @@ class TargetAssigner(NamedTuple):
         return AssignResult(cls_targets, cls_weights, reg_targets, reg_weights, match)
 
 
+def batch_assign(assigner: TargetAssigner, anchors: Tensor, **batched_kwargs) -> AssignResult:
+    """`assign` over a leading batch dim of the ground truth arrays with
+    shared anchors (mtlx vmaps `assign`; here it batches already). A
+    batched `unmatched_cls_target` [B, K] applies per image."""
+    target = batched_kwargs.get("unmatched_cls_target")
+    if target is not None:
+        batched_kwargs["unmatched_cls_target"] = target[..., None, :]
+    return assigner.assign(anchors, **batched_kwargs)
+
+
 def create_target_assigner(reference: str, stage: Optional[str] = None,
                            negative_class_weight: float = 1.0) -> TargetAssigner:
     """mtlx's presets: ('FasterRCNN', 'proposal') IoU argmax 0.7/0.3 with

@@ -140,3 +140,8 @@ def keypoint_decode(codes: Tensor, anchors: Tensor, num_keypoints: int,
     ky = kp[..., 0] / scale_factors[0] * (ha + EPSILON)[..., None] + ycenter_a[..., None]
     kx = kp[..., 1] / scale_factors[1] * (wa + EPSILON)[..., None] + xcenter_a[..., None]
     return boxes, torch.stack([ky, kx], dim=-1)
+
+
+def batch_decode(decode_fn, batch_codes: Tensor, anchors: Tensor) -> Tensor:
+    """Decode [B, N, code_size] against shared [N, 4] anchors."""
+    return decode_fn(batch_codes, anchors.expand(*batch_codes.shape[:-1], 4))

@@ -52,6 +52,47 @@ def save_pipeline_config(pipeline, directory: str, filename: str = "pipeline.con
     return path
 
 
+def merge_external_params_with_configs(configs: Dict, **kwargs) -> Dict:
+    """Apply simple overrides in place (mtlx's subset of the reference's
+    merge_external_params_with_configs): batch_size, train_steps,
+    learning_rate, train_input_path, eval_input_path, label_map_path; a
+    None value is skipped."""
+    for key, value in kwargs.items():
+        if value is None:
+            continue
+        if key == "batch_size":
+            configs["train_config"].batch_size = int(value)
+        elif key == "train_steps":
+            configs["train_config"].num_steps = int(value)
+        elif key == "learning_rate":
+            _set_initial_learning_rate(configs["train_config"].optimizer, float(value))
+        elif key in ("train_input_path", "eval_input_path"):
+            reader = configs[key.replace("_path", "_config")].tf_record_input_reader
+            reader.input_path[:] = [value]
+            reader.SetInParent()
+        elif key == "label_map_path":
+            configs["train_input_config"].label_map_path = value
+            configs["eval_input_config"].label_map_path = value
+        else:
+            raise ValueError(f"unknown override {key}")
+    return configs
+
+
+# the field that holds the initial rate, per learning-rate schedule
+_INITIAL_RATE_FIELDS = {"constant_learning_rate": "learning_rate",
+                        "exponential_decay_learning_rate": "initial_learning_rate",
+                        "manual_step_learning_rate": "initial_learning_rate",
+                        "cosine_decay_learning_rate": "learning_rate_base"}
+
+
+def _set_initial_learning_rate(optimizer, lr: float) -> None:
+    opt = getattr(optimizer, optimizer.WhichOneof("optimizer"))
+    sched = opt.learning_rate.WhichOneof("learning_rate")
+    field = _INITIAL_RATE_FIELDS.get(sched)
+    if field is not None:
+        setattr(getattr(opt.learning_rate, sched), field, lr)
+
+
 # TF1 queue-runner / parameter-server knobs with no equivalent in the
 # port's input pipeline; accepted for config compatibility and reported
 # as ignored (mtlx's compatibility_notes)

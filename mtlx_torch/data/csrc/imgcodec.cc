@@ -2,8 +2,9 @@
  * pipeline, with a plain C interface bound through ctypes
  * (mtlx_torch/data/imgcodec.py). The port's copy of mtlx/data/_imgcodec.cc:
  * the same DCT-scaled decode and the same resize, so the pixels are
- * bit-equal; the CPython module around them is replaced by three C
- * functions that write into buffers the caller owns. ctypes releases the
+ * bit-equal; the CPython module around them is replaced by C functions
+ * that write into buffers the caller owns, one of which decodes with
+ * TensorFlow's decode_jpeg settings instead. ctypes releases the
  * interpreter lock for the call, and decode_batch runs a std::thread pool.
  * Built at first use by mtlx_torch/kernels/build.py with g++, against the
  * libjpeg-turbo headers in jpeg/ and the libjpeg-turbo of Pillow's wheel.
@@ -85,7 +86,7 @@ void resize_bilinear(const unsigned char* src, int sh, int sw,
 // (th, tw). Returns false with `err` set on corrupt input.
 bool decode_impl(const unsigned char* data, size_t len, int th, int tw,
                  unsigned char* out, size_t out_cap, int* dims,
-                 std::string& err, int legacy) {
+                 std::string& err, int legacy, bool ifast = false) {
     if (th < 1 || tw < 1 || static_cast<size_t>(th) * tw * 3 > out_cap) {
         err = "decode target " + std::to_string(th) + "x" + std::to_string(tw) +
               " does not fit the output buffer";
@@ -107,6 +108,7 @@ bool decode_impl(const unsigned char* data, size_t len, int th, int tw,
     const int src_h = static_cast<int>(cinfo.image_height);
     const int src_w = static_cast<int>(cinfo.image_width);
     cinfo.out_color_space = JCS_RGB;  // grayscale/YCbCr -> RGB in-decode
+    if (ifast) cinfo.dct_method = JDCT_IFAST;
     // legacy (TF1-parity) mode decodes at full resolution: the reference
     // resized from the full image, so DCT-scaled decode would change the
     // input to the resize
@@ -176,6 +178,24 @@ int mtlx_jpeg_decode(const unsigned char* data, size_t len, int th, int tw,
     std::string msg;
     if (!decode_impl(data, len, th, tw, out, out_cap, dims, msg, legacy)) {
         set_err(err, errlen, msg);
+        return 1;
+    }
+    return 0;
+}
+
+// decode one JPEG at its own (h, w) = (th, tw) as TensorFlow's decode_jpeg
+// does by default (the fast integer inverse DCT, fancy upsampling), into
+// out; dims <- (h, w, h, w)
+int mtlx_jpeg_decode_tf(const unsigned char* data, size_t len, int th, int tw,
+                        unsigned char* out, size_t out_cap, int* dims,
+                        char* err, int errlen) {
+    std::string msg;
+    if (!decode_impl(data, len, th, tw, out, out_cap, dims, msg, 1, true)) {
+        set_err(err, errlen, msg);
+        return 1;
+    }
+    if (dims[0] != th || dims[1] != tw) {
+        set_err(err, errlen, "the JPEG is not " + std::to_string(th) + "x" + std::to_string(tw));
         return 1;
     }
     return 0;

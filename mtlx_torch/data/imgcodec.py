@@ -76,6 +76,21 @@ def decode_jpeg(encoded: bytes, th: int = 0, tw: int = 0, tf1_resize: bool = Fal
     return out
 
 
+def decode_jpeg_tf(encoded: bytes) -> np.ndarray:
+    """[h, w, 3] uint8 RGB at the JPEG's own size, as TensorFlow's
+    `decode_jpeg` (and `decode_image`) decodes it by default: the fast
+    integer inverse DCT where `decode_jpeg` above takes the accurate one."""
+    th, tw = jpeg_dims(encoded)
+    data = _view(encoded)
+    out = np.empty((th, tw, 3), np.uint8)
+    dims = (ctypes.c_int * 4)()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if _codec().mtlx_jpeg_decode_tf(data.ctypes.data, data.size, th, tw, out.ctypes.data,
+                                    out.nbytes, dims, err, _ERRLEN):
+        raise ValueError(f"JPEG decode: {err.value.decode(errors='replace')}")
+    return out
+
+
 def decode_jpeg_batch(blobs: Sequence[bytes], ths: Sequence[int], tws: Sequence[int],
                       threads: int = 4, tf1_resize: bool = False) -> List[np.ndarray]:
     """decode_jpeg of each blob onto its target, on `threads` threads."""

@@ -8,7 +8,12 @@ directory's checkpoint, also as a CLI:
 
     python -m mtlx_torch.export.exporter --pipeline_config_path=... \
         --trained_checkpoint_dir=... --output_directory=... \
-        [--checkpoint_step N] [--bucket_multiple M]
+        [--checkpoint_step N] [--bucket_multiple M] [--saved_model [--device D]]
+
+With `--saved_model` it also writes `<output_directory>/saved_model`:
+`model.pt2`, a `torch.export` program of the detector with frozen weights
+that `saved_model.load_saved_model` serves under mtlx's three signatures
+(`export_saved_model`), and its `pipeline.config`.
 
 `InferenceModel.load` rebuilds the eval-mode detector from a bundle,
 reading the pipeline text with the port's own reader (no protobuf), and
@@ -201,6 +206,36 @@ class InferenceModel:
         return served
 
 
+def _restored_model(pipeline_config_path: str, trained_checkpoint_dir: str,
+                    checkpoint_step: Optional[int], bucket_multiple: int):
+    """(configs with the resolved bucket granularity, the eval-mode detector
+    in host memory with the checkpoint's serving weights, its step, the
+    pipeline text): mtlx's `_load_trained`."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util, text_format
+    from mtlx_torch.train.checkpoints import CheckpointManager
+    from mtlx_torch.train.train_step import TrainState
+    from mtlx_torch.utils.bucketing import resolve_bucketing
+
+    configs = config_util.get_configs_from_pipeline_file(pipeline_config_path)
+    # serving computes every bucket it meets: the bound on the variants is
+    # the train and eval CLIs' (mtlx's exporter ignores it too)
+    configs["bucketing"].bucket_multiple = resolve_bucketing(configs["bucketing"],
+                                                             bucket_multiple)[0]
+    # restoring only copies weights from the checkpoint: it computes
+    # nothing, so it needs no card and holds the detector in host memory
+    model = model_builder.build(configs["model"], is_training=False, device="cpu")
+    # eval_config.use_moving_averages exports the moving average of the
+    # weights, where the checkpoint has one
+    restored = CheckpointManager(trained_checkpoint_dir).restore(
+        TrainState(0, model, None, None), checkpoint_step, params_only=True,
+        use_ema=configs["eval_config"].use_moving_averages)
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint in {trained_checkpoint_dir}")
+    text = text_format.to_text(config_util.create_pipeline_proto_from_configs(configs))
+    return configs, model, int(restored.step), text
+
+
 def export_inference_graph(pipeline_config_path: str, trained_checkpoint_dir: str,
                            output_directory: str, checkpoint_step: Optional[int] = None,
                            bucket_multiple: int = 0) -> str:
@@ -215,34 +250,109 @@ def export_inference_graph(pipeline_config_path: str, trained_checkpoint_dir: st
     the pipeline's `mtl.refine` keeps them in serving (then the bundle
     holds them and its pipeline.config says `refine: true`)."""
     from mtlx_torch.builders import model_builder
-    from mtlx_torch.config import config_util, text_format
-    from mtlx_torch.train.checkpoints import CheckpointManager
-    from mtlx_torch.train.train_step import TrainState
-    from mtlx_torch.utils.bucketing import resolve_bucketing
 
-    configs = config_util.get_configs_from_pipeline_file(pipeline_config_path)
-    # serving computes every bucket it meets: the bound on the variants is
-    # the train and eval CLIs' (mtlx's exporter ignores it too)
-    configs["bucketing"].bucket_multiple = resolve_bucketing(configs["bucketing"],
-                                                             bucket_multiple)[0]
-    # the export only copies weights from the checkpoint into the bundle:
-    # it computes nothing, so it needs no card and holds the detector in
-    # host memory; `InferenceModel.load` puts the bundle on the card
-    model = model_builder.build(configs["model"], is_training=False, device="cpu")
-    # eval_config.use_moving_averages exports the moving average of the
-    # weights, where the checkpoint has one
-    restored = CheckpointManager(trained_checkpoint_dir).restore(
-        TrainState(0, model, None, None), checkpoint_step, params_only=True,
-        use_ema=configs["eval_config"].use_moving_averages)
-    if restored is None:
-        raise FileNotFoundError(f"no checkpoint in {trained_checkpoint_dir}")
-    text = text_format.to_text(
-        config_util.create_pipeline_proto_from_configs(configs))
+    configs, model, step, text = _restored_model(pipeline_config_path, trained_checkpoint_dir,
+                                                 checkpoint_step, bucket_multiple)
+    # the bundle holds the weights in host memory; `InferenceModel.load`
+    # puts it on the card
     resizer = model_builder.resizer_params(model_builder.image_resizer(configs["model"]))
     InferenceModel(model, resizer, bucket_multiple=configs["bucketing"].bucket_multiple,
                    device="cpu", pipeline_text=text).save(output_directory)
     with open(os.path.join(output_directory, METADATA_FILE), "w") as f:
-        json.dump({"step": int(restored.step), "format": EXPORT_FORMAT}, f)
+        json.dump({"step": step, "format": EXPORT_FORMAT}, f)
+    return output_directory
+
+
+class ServingForward(torch.nn.Module):
+    """The function mtlx's SavedModel converts: uint8 images on the canvas
+    and their int32 true sizes -> preprocess -> predict -> postprocess ->
+    detection_boxes, detection_scores, detection_classes (1-based, float32)
+    and num_detections (float32)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+        self.detector = model.modules  # registers the weights
+
+    def forward(self, images: torch.Tensor, true_shape: torch.Tensor):
+        model = self.model
+        pre = model.preprocess(images.float())
+        pred = model.predict(pre, true_shape, training=False)
+        out = model.postprocess(pred, true_shape)
+        return {"detection_boxes": out["detection_boxes"],
+                "detection_scores": out["detection_scores"],
+                "detection_classes": (out["detection_classes"] + 1).float(),
+                "num_detections": out["num_detections"].float()}
+
+
+def trace_serving_program(model, example_batch: int = 2) -> torch.export.ExportedProgram:
+    """`ServingForward(model)` exported with a dynamic batch at the model
+    canvas, its weights frozen (no gradient). One eager call first fills
+    the model's caches (the anchor grid) with real tensors, which the
+    program keeps as constants. The example batch is at least 2:
+    torch.export specialises sizes 0 and 1."""
+    if example_batch < 2:
+        raise ValueError(f"trace with a batch of at least 2, not {example_batch}")
+    for p in model.modules.parameters():
+        p.requires_grad_(False)
+    forward = ServingForward(model).eval()
+    ch, cw = model.cfg.canvas_size
+    images = torch.zeros((example_batch, ch, cw, 3), dtype=torch.uint8, device=model.device)
+    true_shape = torch.tensor([[ch, cw]] * example_batch, dtype=torch.int32, device=model.device)
+    with torch.no_grad():
+        forward(images, true_shape)
+    batch = torch.export.Dim("batch", min=1)
+    return torch.export.export(forward, (images, true_shape),
+                               dynamic_shapes=({0: batch}, {0: batch}), strict=False)
+
+
+def export_saved_model(pipeline_config_path: str, trained_checkpoint_dir: str,
+                       output_directory: str, checkpoint_step: Optional[int] = None,
+                       bucket_multiple: int = 0, device: DeviceLike = None) -> str:
+    """The serving program of a train directory's checkpoint (port of
+    mtlx's export_saved_model): `output_directory/model.pt2`, a
+    `torch.export` program of the eval-mode detector restored as
+    `export_inference_graph` restores it (the moving average where
+    `eval_config.use_moving_averages` asks for it), and its
+    `pipeline.config`. `saved_model.load_saved_model` serves it under
+    mtlx's three signatures.
+
+    The program holds the weights frozen and the graph in one file (mtlx's
+    frozen_inference_graph.pb, a GraphDef for TF1 sessions, has no
+    counterpart), takes any batch at the model canvas, and calls the
+    kernels as the `mtlx::` ops. It bakes in the device it is exported on,
+    `device` (the card by default), and serves only there; the compute
+    type is bfloat16 on the card (as `InferenceModel.load`) and float32 on
+    the CPU."""
+    from mtlx_torch.builders import model_builder
+
+    configs, restored, step, text = _restored_model(pipeline_config_path, trained_checkpoint_dir,
+                                                    checkpoint_step, bucket_multiple)
+    device = resolve_device(device)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model = model_builder.build(configs["model"], is_training=False, dtype=dtype, device=device)
+    model.modules.load_state_dict(restored.modules.state_dict())
+    resizer = model_builder.resizer_params(model_builder.image_resizer(configs["model"]))
+    return save_serving_program(model, resizer, output_directory, step=step, pipeline_text=text)
+
+
+def save_serving_program(model, resizer, output_directory: str, step: Optional[int] = None,
+                         pipeline_text: Optional[str] = None) -> str:
+    """Trace `model` (`trace_serving_program`, on its own device and in its
+    own compute type) and write `output_directory/model.pt2`, with the
+    serving facts the loader needs inside it, and `pipeline.config` where
+    `pipeline_text` is given."""
+    from mtlx_torch.export import saved_model
+
+    program = trace_serving_program(model)
+    meta = saved_model.program_meta(model.cfg.canvas_size, resizer, model.device,
+                                    model.cfg.dtype, step)
+    os.makedirs(output_directory, exist_ok=True)
+    torch.export.save(program, os.path.join(output_directory, saved_model.PROGRAM_FILE),
+                      extra_files={saved_model.META_FILE: json.dumps(meta)})
+    if pipeline_text is not None:
+        with open(os.path.join(output_directory, PIPELINE_FILE), "w") as f:
+            f.write(pipeline_text)
     return output_directory
 
 
@@ -255,19 +365,27 @@ def main(argv=None) -> str:
     p.add_argument("--output_directory", required=True)
     p.add_argument("--checkpoint_step", type=int, default=None)
     p.add_argument("--saved_model", action="store_true",
-                   help="a TF SavedModel (jax2tf): not ported")
+                   help="also write the serving program (torch.export, frozen weights, three "
+                        "signatures) under <output_directory>/saved_model: model.pt2 and its "
+                        "pipeline.config")
+    p.add_argument("--device", default=None,
+                   help="the device the --saved_model program is exported for and served on "
+                        "(default: the CUDA device; 'cpu' runs the plain versions)")
     p.add_argument("--bucket_multiple", type=bucket_multiple_arg, default=0,
                    help="serving compute-bucket granularity in pixels (a multiple of 32); "
                         "overrides the pipeline's `bucketing {}` block and is recorded in the "
                         "export's pipeline.config; default 128")
     args = p.parse_args(argv)
-    if args.saved_model:
-        raise NotImplementedError("--saved_model: the TF SavedModel export goes through jax2tf, "
-                                  "which is out of the port's scope")
     out = export_inference_graph(args.pipeline_config_path, args.trained_checkpoint_dir,
                                  args.output_directory, args.checkpoint_step,
                                  bucket_multiple=args.bucket_multiple)
     print(f"[export] wrote {out}", flush=True)
+    if args.saved_model:
+        sm = export_saved_model(args.pipeline_config_path, args.trained_checkpoint_dir,
+                                os.path.join(args.output_directory, "saved_model"),
+                                args.checkpoint_step, bucket_multiple=args.bucket_multiple,
+                                device=args.device)
+        print(f"[export] wrote the serving program {sm}", flush=True)
     return out
 
 

@@ -22,6 +22,11 @@ def area(boxes: Tensor) -> Tensor:
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 
 
+def height_width(boxes: Tensor):
+    """[..., N, 4] -> (heights, widths), each [..., N]."""
+    return boxes[..., 2] - boxes[..., 0], boxes[..., 3] - boxes[..., 1]
+
+
 def center_coordinates_and_sizes(boxes: Tensor):
     """[..., N, 4] -> (ycenter, xcenter, h, w), each [..., N]."""
     ymin, xmin, ymax, xmax = boxes.unbind(-1)
@@ -81,17 +86,18 @@ def iou(boxes1: Tensor, boxes2: Tensor) -> Tensor:
     dims broadcast). Pairs whose union is not positive (zero-area padding
     rows) get 0.
 
-    CPU tensors take the plain version; on CUDA tensors the leading dims
-    fold into the problems of one launch of the IoU kernel (a side whose
-    leading dims are all 1 is shared by every problem)."""
-    if boxes1.device.type == "cpu":
-        return iou_cuda.iou_matrix_plain(boxes1, boxes2)
+    The leading dims fold into the problems of one call of the IoU op (a
+    side whose leading dims are all 1 is shared by every problem): on CUDA
+    tensors one launch of the IoU kernel, which takes float32, on CPU
+    tensors its plain version in the boxes' own type."""
     lead = torch.broadcast_shapes(boxes1.shape[:-2], boxes2.shape[:-2])
+    on_card = boxes1.device.type != "cpu"
 
     def fold(b: Tensor) -> Tensor:
+        b = b.float() if on_card else b
         if b.shape[:-2].numel() == 1:
-            return b.reshape(1, *b.shape[-2:]).float().contiguous()
-        return b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:]).float().contiguous()
+            return b.reshape(1, *b.shape[-2:]).contiguous()
+        return b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:]).contiguous()
 
     out = iou_cuda.iou_matrix(fold(boxes1), fold(boxes2))
     return out.reshape(*lead, boxes1.shape[-2], boxes2.shape[-2])
@@ -123,6 +129,23 @@ def clip_to_window(boxes: Tensor, window: Tensor) -> Tensor:
     )
 
 
+def outside_window_mask(boxes: Tensor, window: Tensor) -> Tensor:
+    """True where a box falls at least partly outside `window` [..., 4]
+    (mtlx's static-shape form of the reference's prune_outside_window:
+    callers AND its negation into their validity mask). [..., N]."""
+    wy0, wx0, wy1, wx1 = (window[..., i, None] for i in range(4))
+    return ((boxes[..., 0] < wy0) | (boxes[..., 1] < wx0) | (boxes[..., 2] > wy1)
+            | (boxes[..., 3] > wx1))
+
+
+def completely_outside_window_mask(boxes: Tensor, window: Tensor) -> Tensor:
+    """True where a box lies entirely outside `window` (the static-shape
+    form of prune_completely_outside_window). [..., N]."""
+    wy0, wx0, wy1, wx1 = (window[..., i, None] for i in range(4))
+    return ((boxes[..., 0] >= wy1) | (boxes[..., 2] <= wy0) | (boxes[..., 1] >= wx1)
+            | (boxes[..., 3] <= wx0))
+
+
 def change_coordinate_frame(boxes: Tensor, window: Tensor) -> Tensor:
     """Express boxes relative to window, normalized by the window size."""
     wy0 = window[..., 0:1]
@@ -138,3 +161,23 @@ def change_coordinate_frame(boxes: Tensor, window: Tensor) -> Tensor:
         ],
         dim=-1,
     )
+
+
+def _as_tensor(value, like: Tensor) -> Tensor:
+    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+def to_normalized_coordinates(boxes: Tensor, height, width) -> Tensor:
+    """Absolute pixel coordinates -> normalized [0, 1] coordinates."""
+    return scale(boxes, 1.0 / _as_tensor(height, boxes), 1.0 / _as_tensor(width, boxes))
+
+
+def to_absolute_coordinates(boxes: Tensor, height, width) -> Tensor:
+    """Normalized [0, 1] coordinates -> absolute pixel coordinates."""
+    return scale(boxes, _as_tensor(height, boxes), _as_tensor(width, boxes))
+
+
+def normalized_to_image_coordinates(boxes: Tensor, image_shape) -> Tensor:
+    """`to_absolute_coordinates` by an image shape's (height, width) (the
+    reference utils/ops.py helper's name)."""
+    return to_absolute_coordinates(boxes, image_shape[0], image_shape[1])

@@ -74,6 +74,7 @@ HOST_SOURCES = {
                   "-lpthread"), {
         "mtlx_jpeg_dims": ([_P, _S, _P, _P, ctypes.c_char_p, _I], _I),
         "mtlx_jpeg_decode": ([_P, _S, _I, _I, _I, _P, _S, _P, ctypes.c_char_p, _I], _I),
+        "mtlx_jpeg_decode_tf": ([_P, _S, _I, _I, _P, _S, _P, ctypes.c_char_p, _I], _I),
         "mtlx_jpeg_decode_batch": ([_I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
                                     ctypes.c_char_p, _I], _I),
     }),

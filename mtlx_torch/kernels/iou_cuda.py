@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from mtlx_torch.kernels import build
+from mtlx_torch.kernels import build, ops
 
 EPSILON = 1e-30  # mtlx.geometry.box_ops.EPSILON
 
@@ -43,8 +43,9 @@ def iou_matrix_plain(boxes1: Tensor, boxes2: Tensor) -> Tensor:
 
 
 def iou_matrix(boxes1: Tensor, boxes2: Tensor) -> Tensor:
-    """[P|1, N, 4] x [P|1, M, 4] -> [P, N, M]: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """[P|1, N, 4] x [P|1, M, 4] -> [P, N, M]: the `mtlx::iou_matrix` op
+    (`kernels/ops.py`), the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
     if boxes1.dim() != 3 or boxes2.dim() != 3 or boxes1.shape[-1] != 4 or (
         boxes2.shape[-1] != 4
     ):
@@ -53,21 +54,30 @@ def iou_matrix(boxes1: Tensor, boxes2: Tensor) -> Tensor:
     p1, p2 = boxes1.shape[0], boxes2.shape[0]
     if p1 != p2 and 1 not in (p1, p2):
         raise ValueError(f"problem counts {p1} and {p2} do not broadcast")
-    if boxes1.device.type == "cpu":
-        return iou_matrix_plain(boxes1, boxes2)
-    if boxes1.device.type != "cuda":
+    if boxes1.device.type == "cuda":
+        build.load_library("iou")  # raises without CUDA or nvcc
+        if boxes2.device != boxes1.device:
+            raise ValueError(f"boxes are on {boxes1.device} and {boxes2.device}")
+        if boxes1.dtype != torch.float32 or boxes2.dtype != torch.float32:
+            raise TypeError(f"the IoU kernel takes float32 boxes, got {boxes1.dtype}, "
+                            f"{boxes2.dtype}")
+        if not (boxes1.is_contiguous() and boxes2.is_contiguous()):
+            raise ValueError("boxes must be contiguous")
+        p, n, m = max(p1, p2), boxes1.shape[1], boxes2.shape[1]
+        if p > 65535 or n > 16 * 65535 or n * m >= 2**31:
+            raise ValueError(f"too many problems, rows or outputs for one launch: "
+                             f"P={p}, N={n}, M={m}")
+    elif boxes1.device.type != "cpu":
         raise ValueError(f"unsupported device {boxes1.device}")
-    lib = build.load_library("iou")  # raises without CUDA or nvcc
-    if boxes2.device != boxes1.device:
-        raise ValueError(f"boxes are on {boxes1.device} and {boxes2.device}")
-    if boxes1.dtype != torch.float32 or boxes2.dtype != torch.float32:
-        raise TypeError(f"the IoU kernel takes float32 boxes, got {boxes1.dtype}, {boxes2.dtype}")
-    if not (boxes1.is_contiguous() and boxes2.is_contiguous()):
-        raise ValueError("boxes must be contiguous")
+    return ops.iou_matrix(boxes1, boxes2)
+
+
+def _launch(boxes1: Tensor, boxes2: Tensor) -> Tensor:
+    """The kernel on CUDA tensors that `iou_matrix` checked (the op's CUDA
+    implementation)."""
+    lib = build.load_library("iou")
+    p1, p2 = boxes1.shape[0], boxes2.shape[0]
     p, n, m = max(p1, p2), boxes1.shape[1], boxes2.shape[1]
-    if p > 65535 or n > 16 * 65535 or n * m >= 2**31:
-        raise ValueError(f"too many problems, rows or outputs for one launch: "
-                         f"P={p}, N={n}, M={m}")
     out = torch.empty((p, n, m), dtype=torch.float32, device=boxes1.device)
     if out.numel() == 0:
         return out

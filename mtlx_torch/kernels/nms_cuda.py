@@ -22,9 +22,10 @@ over bands of rows so that what the scan never reads is never computed
 (see the header of `csrc/nms.cu`).
 
 CPU tensors take `non_max_suppression_plain`; CUDA tensors launch the
-kernels or raise. The two agree exactly: the kernels order by the same
-key, evaluate IoU in the plain version's operation order and are compiled
-without fused multiply-add.
+kernels or raise. Both go through the `mtlx::non_max_suppression` op of
+`kernels/ops.py`, which `torch.export` keeps as one call. The two agree
+exactly: the kernels order by the same key, evaluate IoU in the plain
+version's operation order and are compiled without fused multiply-add.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import ctypes
 import torch
 from torch import Tensor
 
-from mtlx_torch.kernels import build
+from mtlx_torch.kernels import build, ops
 
 _NEG = -1e10  # mtlx.ops.nms._NEG: the score of a dead row
 # the largest N of one problem: the scan keeps `removed` in 128 words of
@@ -95,7 +96,9 @@ def _dispatch(boxes, scores, valid, max_out, iou_threshold, score_threshold, for
     """`non_max_suppression` with the form of the kernels given: by N (what
     every caller gets), the single launch, or the banded pipeline (which
     also takes a small N; the smoke run holds both forms to the plain
-    version)."""
+    version). Checks the arguments, then calls the `mtlx::non_max_suppression`
+    op (`kernels/ops.py`): the plain version on the CPU, the kernels on the
+    card."""
     if scores.dim() != 2 or boxes.shape != (*scores.shape, 4) or valid.shape != scores.shape:
         raise ValueError(
             f"want boxes [P, N, 4], scores [P, N], valid [P, N]; got "
@@ -103,26 +106,32 @@ def _dispatch(boxes, scores, valid, max_out, iou_threshold, score_threshold, for
         )
     if valid.dtype != torch.bool:
         raise TypeError(f"valid must be bool, got {valid.dtype}")
-    if boxes.device.type == "cpu":
-        return non_max_suppression_plain(
-            boxes, scores, valid, max_out, iou_threshold, score_threshold
-        )
-    if boxes.device.type != "cuda":
+    if boxes.device.type == "cuda":
+        build.load_library("nms")  # raises without CUDA or nvcc
+        for name, t in (("boxes", boxes), ("scores", scores), ("valid", valid)):
+            if t.device != boxes.device:
+                raise ValueError(f"{name} is on {t.device}, boxes on {boxes.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+            raise TypeError(
+                f"the NMS kernel takes float32 boxes and scores, got "
+                f"{boxes.dtype} and {scores.dtype}"
+            )
+        if scores.shape[1] > MAX_BOXES:
+            raise ValueError(f"N={scores.shape[1]} boxes are more than the NMS kernels take "
+                             f"({MAX_BOXES})")
+    elif boxes.device.type != "cpu":
         raise ValueError(f"unsupported device {boxes.device}")
-    lib = build.load_library("nms")  # raises without CUDA or nvcc
-    for name, t in (("boxes", boxes), ("scores", scores), ("valid", valid)):
-        if t.device != boxes.device:
-            raise ValueError(f"{name} is on {t.device}, boxes on {boxes.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
-        raise TypeError(
-            f"the NMS kernel takes float32 boxes and scores, got "
-            f"{boxes.dtype} and {scores.dtype}"
-        )
+    return ops.non_max_suppression(boxes, scores, valid, int(max_out), float(iou_threshold),
+                                   float(score_threshold), form)
+
+
+def _launch(boxes, scores, valid, max_out, iou_threshold, score_threshold, form):
+    """The kernels on CUDA tensors that `_dispatch` checked (the op's CUDA
+    implementation)."""
+    lib = build.load_library("nms")
     p, n = scores.shape
-    if n > MAX_BOXES:
-        raise ValueError(f"N={n} boxes are more than the NMS kernels take ({MAX_BOXES})")
     idx = torch.empty((p, max_out), dtype=torch.int32, device=boxes.device)
     keep = torch.empty((p, max_out), dtype=torch.bool, device=boxes.device)
     if p == 0 or max_out == 0:

@@ -16,16 +16,19 @@ for d(features); the boxes get no gradient (mtlx returns a zero
 cotangent for them, and every caller passes constant boxes).
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
-raise. The forward kernel and its plain version agree bit for bit, in
-float32 and bfloat16 (the kernel repeats the plain version's operation
-order and is compiled without fused multiply-add; it walks a box's sample
-rows in order and reuses the x-blend of a source row that two sample
-rows share, which has the same bits as a fresh one). The backward kernel is a gather:
-one warp owns each pixel of d(features) and adds the terms of the samples
-that touch it in a fixed order (box, sample row, sample column) in
-float32 registers, with no atomics and no scratch map, so two runs give
-the same bits. The plain version adds the same terms tap by tap
-(`index_add_`), so the two agree to float32 rounding of each sum.
+raise. Both go through the ops `mtlx::crop_and_resize` and
+`mtlx::crop_and_resize_backward` of `kernels/ops.py`, which
+`torch.export` keeps as one call each. The forward kernel and its plain
+version agree bit for bit, in float32 and bfloat16 (the kernel repeats
+the plain version's operation order and is compiled without fused
+multiply-add; it walks a box's sample rows in order and reuses the
+x-blend of a source row that two sample rows share, which has the same
+bits as a fresh one). The backward kernel is a gather: one warp owns
+each pixel of d(features) and adds the terms of the samples that touch
+it in a fixed order (box, sample row, sample column) in float32
+registers, with no atomics and no scratch map, so two runs give the same
+bits. The plain version adds the same terms tap by tap (`index_add_`),
+so the two agree to float32 rounding of each sum.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from mtlx_torch.kernels import build
+from mtlx_torch.kernels import build, ops
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward kernel keeps one box's ch + cw sample positions (8 bytes
@@ -131,18 +134,31 @@ def _check_cuda(what: str, tensors, boxes: Tensor):
         raise TypeError(f"the crop kernels take float32 boxes, got {boxes.dtype}")
     if not (tensors.is_contiguous() and boxes.is_contiguous()):
         raise ValueError(f"{what} and boxes must be contiguous")
+
+
+def _check_aligned(what: str, tensors: Tensor):
+    """The kernels read 16 bytes at a time; a traced tensor has no address
+    yet, so the launch checks this."""
     if tensors.data_ptr() % 16:
         raise ValueError(f"{what} must start on a 16-byte boundary")
 
 
 def _forward(features: Tensor, boxes: Tensor, ch: int, cw: int) -> Tensor:
-    """The forward kernel for CUDA tensors, the plain version for CPU."""
-    if features.device.type == "cpu":
-        return crop_and_resize_plain(features, boxes, (ch, cw))
-    if features.device.type != "cuda":
+    """The `mtlx::crop_and_resize` op (`kernels/ops.py`): the forward
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if features.device.type == "cuda":
+        build.load_library("roi_crop")  # raises without CUDA or nvcc
+        _check_cuda("features (NHWC)", features, boxes)
+    elif features.device.type != "cpu":
         raise ValueError(f"unsupported device {features.device}")
-    lib = build.load_library("roi_crop")  # raises without CUDA or nvcc
-    _check_cuda("features (NHWC)", features, boxes)
+    return ops.crop_and_resize(features, boxes, ch, cw)
+
+
+def _launch_forward(features: Tensor, boxes: Tensor, ch: int, cw: int) -> Tensor:
+    """The forward kernel on CUDA tensors that `_forward` checked (the op's
+    CUDA implementation)."""
+    lib = build.load_library("roi_crop")
+    _check_aligned("features (NHWC)", features)
     b, h, w, c = features.shape
     n = boxes.shape[1]
     out = torch.empty((b, n, ch, cw, c), dtype=features.dtype, device=features.device)
@@ -160,22 +176,30 @@ def _forward(features: Tensor, boxes: Tensor, ch: int, cw: int) -> Tensor:
 
 
 def crop_and_resize_backward(dout: Tensor, boxes: Tensor, image_hw: Tuple[int, int]) -> Tensor:
-    """d(features) [B, H, W, C] of the crop, in dout's type: the backward
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    """d(features) [B, H, W, C] of the crop, in dout's type: the
+    `mtlx::crop_and_resize_backward` op, the backward kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if dout.dim() != 5 or boxes.dim() != 3 or tuple(boxes.shape[:2]) != tuple(dout.shape[:2]):
         raise ValueError(f"want dout [B, N, ch, cw, C] and boxes [B, N, 4]; got "
                          f"{tuple(dout.shape)} and {tuple(boxes.shape)}")
-    if dout.device.type == "cpu":
-        return crop_and_resize_backward_plain(dout, boxes, image_hw)
-    if dout.device.type != "cuda":
+    if dout.device.type == "cuda":
+        build.load_library("roi_crop")  # raises without CUDA or nvcc
+        _check_cuda("dout", dout, boxes)
+        ch, cw = dout.shape[2], dout.shape[3]
+        if ch + cw > _MAX_CROP_EXTENT:
+            raise ValueError(f"crop {ch} x {cw} is past the backward kernel's sample tables "
+                             f"(ch + cw <= {_MAX_CROP_EXTENT})")
+    elif dout.device.type != "cpu":
         raise ValueError(f"unsupported device {dout.device}")
-    lib = build.load_library("roi_crop")  # raises without CUDA or nvcc
-    _check_cuda("dout", dout, boxes)
+    return ops.crop_and_resize_backward(dout, boxes, int(image_hw[0]), int(image_hw[1]))
+
+
+def _launch_backward(dout: Tensor, boxes: Tensor, h: int, w: int) -> Tensor:
+    """The backward kernel on CUDA tensors that `crop_and_resize_backward`
+    checked (the op's CUDA implementation)."""
+    lib = build.load_library("roi_crop")
+    _check_aligned("dout", dout)
     b, n, ch, cw, c = dout.shape
-    h, w = int(image_hw[0]), int(image_hw[1])
-    if ch + cw > _MAX_CROP_EXTENT:
-        raise ValueError(f"crop {ch} x {cw} is past the backward kernel's sample tables "
-                         f"(ch + cw <= {_MAX_CROP_EXTENT})")
     out = torch.empty((b, h, w, c), dtype=dout.dtype, device=dout.device)
     if out.numel() == 0:
         return out
@@ -234,7 +258,7 @@ def crop_and_resize(
         raise ValueError(f"crop_size must be positive, got {crop_size}")
     if torch.is_grad_enabled() and features.requires_grad:
         return _CropAndResize.apply(features, boxes.detach(), ch, cw)
-    return _forward(features, boxes, ch, cw)
+    return _forward(features, boxes.detach(), ch, cw)
 
 
 crop_and_resize.launches = 0

@@ -14,7 +14,9 @@ against mtlx's `InferenceModel` and `export_inference_graph` on the CPU.
   * The export CLI against mtlx's export_inference_graph on the same
     checkpoint steps: the same step chosen, the same pipeline.config
     (parsed with protobuf, bucket_multiple resolved), the same step in
-    export_metadata.json.
+    export_metadata.json; with --saved_model it also writes the serving
+    program and its pipeline.config under saved_model/ (held to mtlx in
+    tests/test_torch_saved_model.py).
 """
 
 import dataclasses
@@ -267,9 +269,17 @@ def test_export_cli_matches_mtlx(tmp_path, _mtlx_init_once):
         bias = loaded.model.modules.box_predictor.class_logits.bias
         assert torch.equal(bias, torch.full_like(bias, step or steps[-1]))
 
-    with pytest.raises(NotImplementedError, match="jax2tf"):
-        texporter.main(["--pipeline_config_path", pipeline, "--trained_checkpoint_dir", tdir,
-                        "--output_directory", str(tmp_path / "sm"), "--saved_model"])
+    # --saved_model writes the serving program and its pipeline.config beside
+    # the bundle, as mtlx writes its SavedModel
+    sm_out = str(tmp_path / "sm")
+    texporter.main(["--pipeline_config_path", pipeline, "--trained_checkpoint_dir", tdir,
+                    "--output_directory", sm_out, "--saved_model", "--device", "cpu"])
+    assert sorted(os.listdir(os.path.join(sm_out, "saved_model"))) == ["model.pt2",
+                                                                       "pipeline.config"]
+    with open(os.path.join(sm_out, "saved_model", "pipeline.config")) as f:
+        sm_text = f.read()
+    with open(os.path.join(sm_out, "pipeline.config")) as f:
+        assert sm_text == f.read()
     # eval_config.use_moving_averages exports the moving average where the
     # checkpoint has one, the weights where it has none, as mtlx's export
     from mtlx.export.exporter import _load_trained
