@@ -20,7 +20,9 @@ classification backbones and the dataset record writers, and spatial
 partitioning of 2048x2048 images, the spatial and hybrid grids, the
 space-to-depth stem, backbone remat and the Multibox preset, and the
 export CLI's --saved_model program of the flagship and of SSD
-MobileNet-v1, served from a fresh process under mtlx's three signatures.
+MobileNet-v1, served from a fresh process under mtlx's three signatures,
+and live batch norm's train mode on its two kernels wherever a path
+trains with batch_norm_trainable.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --data_parallel 4    # on a machine with 4 cards
@@ -62,7 +64,19 @@ Phases (any failure exits non-zero):
      of their own: NMS 2 x 6000 -> 300, the crop of 2 x 128 x 128 x 1024
      bf16 with 64 boxes an image -> 14x14 and its backward, the IoU 2 x
      100 x 196608, each held to its plain version and timed beside its
-     bound, plain version and library call
+     bound, plain version and library call; then live batch norm's two
+     kernels (paired_sums, bn_affine) at SSD MobileNet's largest batch
+     norm, 32 x 64 x 150 x 150 channels-last in bf16 and f32, at 16 x 96 x
+     75 x 75 contiguous NCHW, at 19 channels and at the ResNet-50
+     classifier's largest, 64 x 256 x 56 x 56 bf16: the sums of (x, x) and
+     (dy, x) within 1e-5 of each channel's sum of term magnitudes, the
+     forward's and the backward's affine bit-equal to their plain
+     versions given the same vectors, every call twice with equal bits
+     and one launch a call, each timed beside its bound, its plain version
+     and the one PyTorch call of the same work (torch.batch_norm_stats,
+     torch.batch_norm_backward_reduce, torch.addcmul,
+     torch.batch_norm_backward_elemt), with the host ms a call of the
+     wrapper, of the registered op and of the plain version
   4. serve: the full-width flagship R50 (bfloat16, seeded random weights)
      answers 600x800, 800x600 and 600x1000 requests one at a time and a
      batch of two, through both kernels (their launch counts must rise);
@@ -178,7 +192,14 @@ Phases (any failure exits non-zero):
      float32 (TF32 off, live batch norm) on the card against the CPU
      within 1e-4 of the largest magnitude; LiveBatchNorm at MobileNet's
      largest batch norm (32 x 64 x 150 x 150) in float32 against the CPU
-     and in bfloat16 timed beside F.batch_norm with its bound; two gloo
+     and in bfloat16, forward + backward on the kernels, on their plain
+     versions and as F.batch_norm, timed in turns with their bound (CUDA
+     events, the profiler's device time and the host's enqueue), and SSD
+     MobileNet's bf16 train step at batch 32 on the kernels and on the
+     plain versions in two pairs of turns (ms a step, kernel time a
+     step); live batch norm's launches a
+     step in each train CLI run equal to the recorded step's calls, each
+     call of which is held to its plain version; two gloo
      ranks on cuda:0 against one rank for one float32 SSD MobileNet step
      on a global batch of 4 (loss and sum of |parameter| within 1e-4
      relative). Phase 9 also runs the tool's SSD mode (MobileNet x 0.5,
@@ -219,7 +240,8 @@ Phases (any failure exits non-zero):
      both losses) through the train CLI for 4 steps without a negatives
      cap (the miner's walk one more NMS launch a step) and with 3 (one
      more IoU launch), one recorded step of each held to the plain
-     versions and the moving statistics' change after it; one refine
+     versions (live batch norm's calls too, as many as the CLI launched
+     a step) and the moving statistics' change after it; one refine
      request and one refine train step of a resnet10 model in float32
      (TF32 off) on the card against the CPU (phases 5 and 7's tolerances)
 
@@ -258,7 +280,10 @@ Phases (any failure exits non-zero):
      (batch 4, TF32 off) on the card against the CPU (logits and moving
      statistics within 1e-4 of the largest magnitude, the loss within 1e-4
      relative, the gradients against the CPU's float64 ones within twice
-     the CPU's own float32 error plus 1e-3); vgg_preprocess and
+     the CPU's own float32 error plus 1e-3); one step of each
+     classifier CLI's network (bf16, batch 64) with every live batch norm
+     call held to its plain version, as many calls as the CLI launched a
+     step (its summary line); vgg_preprocess and
      inception_preprocess, train and eval, on 64 256x256 images: one crop
      launch a call, the card's result within 1e-5 of the CPU's, the crop
      at each call's boxes bit-equal to its plain version and timed beside
@@ -322,6 +347,7 @@ same over gloo, and each within 1e-4 of one rank.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -341,6 +367,11 @@ F32_FLOP_PER_S = 67e12
 NMS_OPS_PER_BOX_STEP = 17
 # operations per crop output element: three lerps (sub, mul, add)
 ROI_OPS_PER_ELEMENT = 9
+# the detection kernels, whose launches every phase holds to exact counts
+# a step or a batch (kernel_counts), and live batch norm's two, counted on
+# the paths that train with batch_norm_trainable (bn_counts)
+DETECTION_KERNELS = ("nms", "roi_crop", "roi_crop_backward", "iou")
+BN_KERNELS = ("paired_sums", "bn_affine")
 
 
 def log(*args):
@@ -1171,6 +1202,247 @@ def time_spatial_shapes(seed: int, results):
                                      iou=iou)
 
 
+# live batch norm's two kernels at the main path's shapes: SSD MobileNet's
+# largest batch norm (conv1_pw, 32 x 64 x 150 x 150, channels-last) in bf16
+# and f32, one contiguous-NCHW case (H * W = 5625, not a multiple of the
+# 16-byte vector: scalar heads and tails), one of 19 channels (the
+# channel-by-channel loads of the channels-last walk) and the ResNet-50
+# classifier's largest (block1, 64 x 256 x 56 x 56)
+BN_CASES = (
+    ((32, 64, 150, 150), torch.bfloat16, "channels_last"),
+    ((32, 64, 150, 150), torch.float32, "channels_last"),
+    ((16, 96, 75, 75), torch.float32, "nchw"),
+    ((8, 19, 75, 75), torch.bfloat16, "channels_last"),
+    ((64, 256, 56, 56), torch.bfloat16, "channels_last"),
+)
+BN_SUMS_TOL = 1e-5  # of each channel's sum of term magnitudes
+# operations an element: the paired sums a product and two adds; the
+# affine a multiply and an add, with q a second multiply and add
+BN_SUMS_OPS, BN_AFFINE_OPS, BN_AFFINE_Q_OPS = 3, 2, 4
+
+
+def bn_tag(t) -> str:
+    from mtlx_torch.kernels import batch_norm_cuda as bn
+
+    layout = {bn.CHANNELS_LAST: "channels-last", bn.NCHW: "nchw"}.get(bn.layout_of(t))
+    return f"{'x'.join(map(str, t.shape))} {str(t.dtype)[6:]} {layout}"
+
+
+def check_paired_sums(a, b, got, tag: str):
+    """The kernel's sums `got` against the plain version on the same
+    inputs: within BN_SUMS_TOL of each channel's sum of term magnitudes
+    (another summation order than torch.sum). Returns (max abs error, the
+    largest error over its channel's magnitude)."""
+    from mtlx_torch.kernels import batch_norm_cuda as bn
+
+    ref = bn.paired_sums_plain(a, b)
+    af = a.float()
+    mag = torch.stack([af.abs().sum((0, 2, 3)), (af * b.float()).abs().sum((0, 2, 3))])
+    err = (got - ref).abs()
+    if not bool((err <= BN_SUMS_TOL * mag).all()):
+        raise AssertionError(f"paired_sums {tag}: off by {float((err / mag).max())} of a "
+                             f"channel's sum of term magnitudes (tolerance {BN_SUMS_TOL})")
+    return float(err.max()), float((err / mag.clamp_min(1e-30)).max())
+
+
+@contextlib.contextmanager
+def bn_swapped(paired_sums, bn_affine):
+    """Live batch norm's two wrappers replaced, inside the block, by these
+    (`_BatchNormTrain` calls them by the module's names)."""
+    from mtlx_torch.kernels import batch_norm_cuda as bn
+
+    real = bn.paired_sums, bn.bn_affine
+    bn.paired_sums, bn.bn_affine = paired_sums, bn_affine
+    try:
+        yield
+    finally:
+        bn.paired_sums, bn.bn_affine = real
+
+
+def bn_plain():
+    """Live batch norm on the plain versions inside the block."""
+    from mtlx_torch.kernels import batch_norm_cuda as bn
+
+    return bn_swapped(bn.paired_sums_plain, bn.bn_affine_plain)
+
+
+def enqueue_ms(fn, reps: int) -> float:
+    """Mean host milliseconds a call of fn takes to enqueue its work, over
+    reps calls after a warm-up and a synchronize: the host's cost a call
+    where the card keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def record_bn_calls(fn):
+    """Run fn() with every call of live batch norm's two kernel wrappers
+    held, as it is made, to its plain version on the same inputs (the sums
+    within BN_SUMS_TOL of each channel's sum of term magnitudes, the affine
+    bit-equal): {kernel: [{shape, ...}]}. For a reading outside the runs
+    whose launches are counted."""
+    from mtlx_torch.kernels import batch_norm_cuda as bn
+
+    real_sums, real_affine = bn.paired_sums, bn.bn_affine
+    calls = {"paired_sums": [], "bn_affine": []}
+
+    def sums(a, b):
+        got = real_sums(a, b)
+        err, rel = check_paired_sums(a, b, got, bn_tag(a))
+        calls["paired_sums"].append(dict(shape=bn_tag(a), same=a is b, max_abs_err=err,
+                                         rel_err=rel))
+        return got
+
+    def affine(p, a, c, q=None, b=None):
+        got = real_affine(p, a, c, q, b)
+        if not torch.equal(got, bn.bn_affine_plain(p, a, c, q, b)):
+            raise AssertionError(f"bn_affine {bn_tag(p)} differs from its plain version")
+        calls["bn_affine"].append(dict(shape=bn_tag(p), q=q is not None))
+        return got
+
+    sums.launches = affine.launches = 0  # the wrappers count on the module's names
+    with bn_swapped(sums, affine):
+        fn()
+    return calls
+
+
+def bn_calls_summary(calls):
+    """{kernel: {calls, shapes: {shape: count}}} of record_bn_calls' calls,
+    and the sums' largest relative error."""
+    out = {}
+    for name in BN_KERNELS:
+        if calls.get(name):
+            shapes = {}
+            for call in calls[name]:
+                shapes[call["shape"]] = shapes.get(call["shape"], 0) + 1
+            out[name] = dict(calls=len(calls[name]), shapes=shapes)
+    if "paired_sums" in out:
+        out["paired_sums"]["max_rel_err"] = max(c["rel_err"] for c in calls["paired_sums"])
+    return out
+
+
+def check_bn_launches(runs_per_step, recorded, tag: str):
+    """Live batch norm's launches a step in each counted CLI run
+    (runs_per_step) equal to its calls in the recorded step of the same
+    model (check_kernels_on's summary), and not 0: the path went through
+    the kernels."""
+    want = {k: recorded.get(k, {}).get("calls", 0) for k in BN_KERNELS}
+    for got in runs_per_step:
+        if got != want or not all(want.values()):
+            raise AssertionError(f"{tag}: live batch norm launches a step {got}, the recorded "
+                                 f"step's calls {want}")
+    log(f"[bn] {tag}: live batch norm launched {want} a step, as its recorded step called them")
+
+
+def time_bn(run_k, run_op, run_p, run_lib, nbytes: float, ops: float):
+    """A kernel's timings: ms by CUDA events over a host loop, its device
+    ms by the profiler (both kernels of a paired_sums call), the plain
+    version's ms, the library call's ms (None without one), the bound and
+    what bounds it, and the host ms a call of the wrapper, of the
+    registered op (run_op) and of the plain version. A call's host
+    dispatch can set the loop's pace at these sizes: the device ms is what
+    the card spends."""
+    t_bound, by = bound_ms(nbytes=nbytes, ops=ops)
+    return dict(ms=cuda_ms(run_k, 50),
+                device_ms=sum(t for _, t, _ in profiled_kernels(run_k, reps=20)),
+                plain_ms=cuda_ms(run_p, 5),
+                library_ms=cuda_ms(run_lib, 50) if run_lib is not None else None,
+                bound_ms=t_bound, bound_by=by, host_ms=enqueue_ms(run_k, 50),
+                op_host_ms=enqueue_ms(run_op, 50), plain_host_ms=enqueue_ms(run_p, 5))
+
+
+def check_batch_norm(seed: int, results):
+    """Both live batch norm kernels against their plain versions at
+    BN_CASES: the sums of (x, x) and of (dy, x) within BN_SUMS_TOL of each
+    channel's sum of term magnitudes, the affine of the forward (x, a, c)
+    and of the backward (dy, a, c, x, b) bit-equal and in x's layout; each
+    call twice with equal bits, each call one launch; each timed beside its
+    plain version, its bound and the one PyTorch call of the same work (the
+    forward sums torch.batch_norm_stats, the backward's
+    torch.batch_norm_backward_reduce, the forward affine torch.addcmul, the
+    backward's torch.batch_norm_backward_elemt: timed, never used by the
+    port)."""
+    from mtlx_torch.kernels import batch_norm_cuda as bn
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 45)
+    out = {}
+    for shape, dtype, layout in BN_CASES:
+        fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        x = x.contiguous(memory_format=fmt)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(
+            memory_format=fmt)
+        a, b, c = (torch.randn(shape[1], generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        tag = bn_tag(x)
+        row = {}
+        # the library's statistics of x, and its backward sums over dy and x
+        mean, invstd = torch.batch_norm_stats(x, 1e-3)
+        sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(dy, x, mean, invstd, None,
+                                                                   True, False, False)
+        count = torch.full((1,), x.numel() // shape[1], dtype=torch.int32, device="cuda")
+        library = dict(
+            paired_sums_forward=lambda: torch.batch_norm_stats(x, 1e-3),
+            paired_sums_backward=lambda: torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, None, True, False, False),
+            bn_affine_forward=lambda: torch.addcmul(c[:, None, None], x, a[:, None, None]),
+            bn_affine_backward=lambda: torch.batch_norm_backward_elemt(
+                dy, x, mean, invstd, None, sum_dy, sum_dy_xmu, count))
+        for form, args in (("forward", (x, x)), ("backward", (dy, x))):
+            before = bn.paired_sums.launches
+            got = bn.paired_sums(*args)
+            again = bn.paired_sums(*args)
+            torch.cuda.synchronize()
+            if bn.paired_sums.launches - before != 2:
+                raise AssertionError(f"paired_sums {tag}: {bn.paired_sums.launches - before} "
+                                     "launches for two calls")
+            if not torch.equal(got, again):
+                raise AssertionError(f"paired_sums {tag} {form}: two calls differ")
+            err, rel = check_paired_sums(*args, got, tag)
+            n_in = x.numel() * x.element_size() * (1 if form == "forward" else 2)
+            row[f"paired_sums_{form}"] = dict(time_bn(
+                lambda: bn.paired_sums(*args), lambda: torch.ops.mtlx.paired_sums(*args),
+                lambda: bn.paired_sums_plain(*args), library[f"paired_sums_{form}"],
+                nbytes=n_in + 2 * shape[1] * 4, ops=x.numel() * BN_SUMS_OPS),
+                max_abs_err=err, rel_err=rel)
+        for form, args in (("forward", (x, a, c)), ("backward", (dy, a, c, x, b))):
+            before = bn.bn_affine.launches
+            got = bn.bn_affine(*args)
+            again = bn.bn_affine(*args)
+            torch.cuda.synchronize()
+            if bn.bn_affine.launches - before != 2:
+                raise AssertionError(f"bn_affine {tag}: {bn.bn_affine.launches - before} "
+                                     "launches for two calls")
+            if not (torch.equal(got, again) and torch.equal(got, bn.bn_affine_plain(*args))):
+                raise AssertionError(f"bn_affine {tag} {form}: not bit-equal to its plain "
+                                     "version or to itself")
+            if bn.layout_of(got) != bn.layout_of(x):
+                raise AssertionError(f"bn_affine {tag} {form}: output strides {got.stride()}")
+            passes = 2 if form == "forward" else 3
+            row[f"bn_affine_{form}"] = dict(time_bn(
+                lambda: bn.bn_affine(*args), lambda: torch.ops.mtlx.bn_affine(*args),
+                lambda: bn.bn_affine_plain(*args), library[f"bn_affine_{form}"],
+                nbytes=passes * x.numel() * x.element_size(),
+                ops=x.numel() * (BN_AFFINE_OPS if form == "forward" else BN_AFFINE_Q_OPS)),
+                max_abs_err=0.0)
+        del x, dy, library, mean, invstd, sum_dy, sum_dy_xmu
+        torch.cuda.empty_cache()
+        log(f"[bn] {tag}: the sums within {BN_SUMS_TOL} of each channel's sum of term "
+            f"magnitudes (worst {max(r['rel_err'] for k, r in row.items() if 'sums' in k):.3g}), "
+            "the affine bit-equal, two calls equal, one launch a call; " + "; ".join(
+                f"{k} {r['ms']:.4f} ms (device {r['device_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+                f"bound {r['bound_ms']:.4f} {r['bound_by']}, library {r['library_ms']:.4f}; "
+                f"host a call: wrapper {r['host_ms']:.4f}, op {r['op_host_ms']:.4f}, plain "
+                f"{r['plain_host_ms']:.4f})" for k, r in row.items()))
+        out[tag] = row
+    results["batch_norm"] = out
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -1447,16 +1719,22 @@ def train_batch(rs, b: int, canvas=(640, 1024), max_gt: int = 100, sizes=((560, 
             "gt_classes": to(classes), "gt_mask": to(mask)}
 
 
-def kernel_counts():
+def kernel_counts(names=DETECTION_KERNELS):
     from mtlx_torch.train.train import kernel_launches
 
-    return kernel_launches()
+    counts = kernel_launches()
+    return {k: counts[k] for k in names}
+
+
+def bn_counts():
+    return kernel_counts(BN_KERNELS)
 
 
 def reset_kernel_counts():
-    from mtlx_torch.train.train import set_kernel_launches
+    """Every hand-written kernel's count to 0."""
+    from mtlx_torch.train.train import kernel_launches, set_kernel_launches
 
-    set_kernel_launches(dict.fromkeys(kernel_counts(), 0))
+    set_kernel_launches(dict.fromkeys(kernel_launches(), 0))
 
 
 def profile_train_step(step_fn, state, batch, gen):
@@ -2061,9 +2339,12 @@ def check_profile_trace(train_dir: str, step: int):
 
 
 def record_kernel_inputs(fn):
-    """Run fn() with the inputs of every call of the four kernel wrappers
-    recorded (record_calls): {kernel: [(args, kwargs)]}. For a reading
-    outside the runs whose launches are counted."""
+    """Run fn() with the inputs of every call of the four detection kernel
+    wrappers recorded (record_calls): {kernel: [(args, kwargs)]}, and
+    every call of live batch norm's two held to its plain version as it is
+    made (record_bn_calls: {kernel: [{shape, ...}]}; their full-size inputs
+    are too many to keep). For a reading outside the runs whose launches
+    are counted."""
     from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
 
     targets = [("nms", nms_cuda, "non_max_suppression"),
@@ -2074,7 +2355,8 @@ def record_kernel_inputs(fn):
 
     def run(i):
         if i == len(targets):
-            return fn()
+            calls.update(record_bn_calls(fn))
+            return
         name, module, attr = targets[i]
         calls[name] = record_calls(lambda: run(i + 1), module, attr)
 
@@ -2085,7 +2367,8 @@ def record_kernel_inputs(fn):
 def check_kernels_on(calls, tag: str):
     """Each recorded kernel call against its plain version on the same
     inputs: NMS selections and the crop and IoU bit-equal, the crop
-    backward within its stated tolerance."""
+    backward within its stated tolerance; live batch norm's calls, held as
+    they were made, counted by shape."""
     from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
 
     shapes = {}
@@ -2119,6 +2402,7 @@ def check_kernels_on(calls, tag: str):
         if not torch.equal(iou_cuda.iou_matrix(b1, b2), iou_cuda.iou_matrix_plain(b1, b2)):
             raise AssertionError(f"the IoU differs from its plain version at {tag}")
         shapes.setdefault("iou", []).append(f"{b1.shape[0]}x{b1.shape[1]}x{b2.shape[1]}")
+    shapes.update(bn_calls_summary(calls))
     torch.cuda.synchronize()
     log(f"[check] {tag}: every recorded kernel call equals its plain version: {shapes}")
     return shapes
@@ -2739,7 +3023,7 @@ def check_distributed_train(pipeline: str, train_dir: str, seed: int, nproc: int
     if f"world size {nproc} over nccl" not in out or "[train] done at step 6" not in out:
         raise AssertionError(f"the train CLI did not run 6 steps over NCCL at world size {nproc}")
     summary = json.loads(out.split("[train] summary ", 1)[1].splitlines()[0])
-    per_step = {k: v / 6 for k, v in summary["kernel_launches"].items()}
+    per_step = {k: summary["kernel_launches"][k] / 6 for k in DETECTION_KERNELS}
     want = {"nms": 1, "roi_crop": 1, "roi_crop_backward": 1, "iou": 3}
     lines = train_log_lines(out)
     for line in lines:
@@ -3358,9 +3642,12 @@ def live_batch_norm_on_card(seed: int):
     """LiveBatchNorm at SSD MobileNet's largest batch norm (conv1_pw_bn:
     32 x 64 x 150 x 150, channels-last as the model lays it out): in
     float32 its output, input and parameter gradients and moving
-    statistics on the card within 1e-4 of the largest magnitude of the
-    same function on the CPU; in bfloat16 its forward and backward timed
-    beside F.batch_norm's (cuDNN) on the same tensors, with their bound."""
+    statistics on the card (the two kernels) within 1e-4 of the largest
+    magnitude of the same function on the CPU (the plain versions); in
+    bfloat16 its forward and backward on the kernels timed in turns beside
+    the same on the plain versions (the plain body) and F.batch_norm's
+    (cuDNN) on the same tensors, with their bound, and the host's time to
+    enqueue each."""
     from mtlx_torch.backbones.resnet import LiveBatchNorm
 
     gen = torch.Generator().manual_seed(seed + 20)
@@ -3412,19 +3699,110 @@ def live_batch_norm_on_card(seed: int):
         F.batch_norm(xr, *running, weight, bias, training=True, momentum=0.0003,
                      eps=1e-3).backward(dyb)
 
-    # in turns: library, live, live, library
-    lib = [cuda_ms(library, 20)]
-    ms = [cuda_ms(live, 20), cuda_ms(live, 20)]
-    lib.append(cuda_ms(library, 20))
+    def plain_ms():
+        with bn_plain():
+            return cuda_ms(live, 20)
+
+    def device_ms(fn):  # the profiler's kernel time and kernel launches a call
+        kernels = profiled_kernels(fn, reps=10)
+        return sum(t for _, t, _ in kernels), sum(n for _, _, n in kernels)
+
+    # in turns: plain, kernels, library, library, kernels, plain; CUDA
+    # events over a loop (the host's enqueue may set that pace) and the
+    # profiler's kernel time a call
+    plain = [plain_ms()]
+    ms = [cuda_ms(live, 20)]
+    lib = [cuda_ms(library, 20), cuda_ms(library, 20)]
+    ms.append(cuda_ms(live, 20))
+    plain.append(plain_ms())
+    with bn_plain():
+        plain_dev, plain_launches = device_ms(live)
+        plain_host = enqueue_ms(live, 10)
+    (dev, launches), (lib_dev, lib_launches) = device_ms(live), device_ms(library)
+    host, lib_host = enqueue_ms(live, 10), enqueue_ms(library, 10)
     n = xb.numel()
     t_bound, by = bound_ms(nbytes=5 * n * 2, ops=n * LIVE_BN_OPS_PER_ELEMENT)
     row = dict(name="live_batch_norm", shape="x".join(map(str, shape)) + " bfloat16 channels-last",
-               ms=min(ms), ms_runs=ms, library_ms=min(lib), library_runs=lib, bound_ms=t_bound,
-               bound_by=by, card_vs_cpu_f32=errs)
+               ms=min(ms), ms_runs=ms, plain_ms=min(plain), plain_runs=plain,
+               library_ms=min(lib), library_runs=lib, device_ms=dev, plain_device_ms=plain_dev,
+               library_device_ms=lib_dev, bound_ms=t_bound, bound_by=by, card_vs_cpu_f32=errs,
+               host_ms=host, plain_host_ms=plain_host, library_host_ms=lib_host,
+               kernel_launches=launches, plain_kernel_launches=plain_launches,
+               library_kernel_launches=lib_launches)
     log(f"[live-bn] {row['shape']}: float32 card vs CPU within {max(errs.values()):.3g} of the "
-        f"largest magnitude ({errs}); forward + backward {ms[0]:.4f} / {ms[1]:.4f} ms, "
-        f"F.batch_norm {lib[0]:.4f} / {lib[1]:.4f} ms, bound {t_bound:.4f} ms ({by})")
+        f"largest magnitude ({errs}); forward + backward on the kernels {ms[0]:.4f} / "
+        f"{ms[1]:.4f} ms (device {dev:.4f}), the plain body {plain[0]:.4f} / {plain[1]:.4f} ms "
+        f"(device {plain_dev:.4f}), F.batch_norm {lib[0]:.4f} / {lib[1]:.4f} ms (device "
+        f"{lib_dev:.4f}), bound {t_bound:.4f} ms ({by}); the device ms include the input "
+        f"gradient's accumulation, alike in all three; host ms to enqueue one: kernels "
+        f"{host:.4f}, plain body {plain_host:.4f}, F.batch_norm {lib_host:.4f}; kernel "
+        f"launches a forward + backward: {launches}, {plain_launches}, {lib_launches}")
     return row
+
+
+def ssd_step_kernels_vs_plain(seed: int, steps: int = 12):
+    """SSD MobileNet-v1's train step (bf16, batch 32 of 300x300 noise, seeded
+    weights) with live batch norm on its two kernels and on their plain
+    versions, in ten pairs of turns, alternating which runs first: each
+    run's median ms a step (host clock, synchronized each step) and median
+    ms until the step returns to the host, the pairs the kernels won, each
+    version's median and quartiles over its runs; then each one's kernel
+    time a step (the profiler). The end-to-end effect of the kernels on a
+    host-bound step."""
+    from mtlx_torch.builders import model_builder
+    from mtlx_torch.config import config_util
+    from mtlx_torch.train import train_step as ts
+
+    configs = config_util.get_configs_from_pipeline_file(
+        os.path.join(REPO, "configs", "ssd_mobilenet_v1_voc.config"))
+    model = model_builder.build(configs["model"], is_training=True, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(seed))
+    state = [ts.create_train_state(model, ts.make_optimizer(learning_rate=0.001))]
+    batch = train_batch(np.random.RandomState(seed + 47), 32, canvas=(300, 300),
+                        sizes=((300, 300), (300, 300)))
+    step = ts.make_train_step(model)
+
+    def one():
+        state[0], _ = step(state[0], batch)
+
+    def version(plain: bool):
+        return bn_plain() if plain else contextlib.nullcontext()
+
+    runs = []
+    for tag in ("plain", "kernels", "kernels", "plain") * 5:
+        with version(tag == "plain"):
+            one()
+            one()
+            torch.cuda.synchronize()
+            wall, host = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                one()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+                host.append((t1 - t0) * 1e3)
+        runs.append(dict(version=tag, step_ms=float(np.median(wall)),
+                         host_ms=float(np.median(host))))
+    busy = {}
+    for tag in ("kernels", "plain"):
+        with version(tag == "plain"):
+            busy[tag] = sum(t for _, t, _ in profiled_kernels(one, reps=3))
+    del model, state
+    torch.cuda.empty_cache()
+    pairs = [{r["version"]: r["step_ms"] for r in runs[i:i + 2]} for i in range(0, len(runs), 2)]
+    wins = sum(p["kernels"] < p["plain"] for p in pairs)
+    spread = {tag: [float(v) for v in np.percentile(
+        [r["step_ms"] for r in runs if r["version"] == tag], [25, 50, 75])]
+        for tag in ("plain", "kernels")}
+    log(f"[live-bn] SSD MobileNet-v1 train step, batch 32, in turns: " + "; ".join(
+        f"{r['version']} {r['step_ms']:.2f} ms a step (returns after {r['host_ms']:.2f})"
+        for r in runs) + f"; the kernels won {wins} of {len(pairs)} pairs; quartiles and "
+        f"median (25, 50, 75) plain {spread['plain']}, kernels {spread['kernels']}; kernel "
+        f"time a step {busy['kernels']:.2f} ms on the kernels, {busy['plain']:.2f} on the plain "
+        "versions")
+    return dict(runs=runs, kernel_ms=busy, kernel_wins=wins, pairs=len(pairs),
+                quartiles_ms=spread)
 
 
 def check_ssd_ranks(work: str, seed: int):
@@ -3514,18 +3892,20 @@ def run_ssd(name: str, train_want, eval_want, seed: int):
                                               train_dir, "--num_steps", str(steps),
                                               "--log_every", "1", "--seed", str(seed)])
             runs.append(dict(out=out, wall=time.perf_counter() - t0, counts=kernel_counts(),
-                             peak=torch.cuda.max_memory_allocated(), lines=train_log_lines(out)))
+                             bn=bn_counts(), peak=torch.cuda.max_memory_allocated(),
+                             lines=train_log_lines(out)))
         first, again = runs
         if f"resumed from step {SSD_STEPS[0]}" not in again["out"] or \
                 f"[train] done at step {SSD_STEPS[1]}" not in again["out"]:
             raise AssertionError(f"{name}: the restart did not resume and finish")
         if ckpt_lib.CheckpointManager(train_dir).all_steps() != [2, 4, 6]:
             raise AssertionError(f"{name}: checkpoints {ckpt_lib.CheckpointManager(train_dir).all_steps()}")
-        per_step = {}
+        per_step, bn_per_step = {}, []
         for run, n in zip(runs, (SSD_STEPS[0], SSD_STEPS[1] - SSD_STEPS[0])):
             per_step = {k: v / n for k, v in run["counts"].items()}
             if per_step != train_want:
                 raise AssertionError(f"{name}: train launches a step {per_step}, want {train_want}")
+            bn_per_step.append({k: v / n for k, v in run["bn"].items()})
             for line in run["lines"]:
                 bad = [k for k, v in line.items() if not np.isfinite(v)]
                 if bad:
@@ -3543,7 +3923,7 @@ def run_ssd(name: str, train_want, eval_want, seed: int):
             f"{[round(t, 2) for t in step_ms]}; img/s "
             f"{[round(ln['images_per_sec'], 2) for ln in lines]}; loader wait share "
             f"{[round(ln['loader_wait_share'], 4) for ln in lines]}; peak {peak_gib:.2f} GiB; "
-            f"launches a step {per_step}; total_loss "
+            f"launches a step {per_step}, live batch norm's {bn_per_step}; total_loss "
             f"{[round(ln['total_loss'], 5) for ln in lines]}")
 
         reset_kernel_counts()
@@ -3566,6 +3946,7 @@ def run_ssd(name: str, train_want, eval_want, seed: int):
         eval_calls = eval_batch_calls(pipeline, train_dir)
         shapes = {"train": check_kernels_on(calls, f"{name} train step"),
                   "eval": check_kernels_on(eval_calls, f"{name} eval batch")}
+        check_bn_launches(bn_per_step, shapes["train"], f"{name} train CLI")
         timed = {
             "roi_crop": [time_crop(f, b, int(cs[0]), f"{name} ssd_random_crop", plain_reps=3)
                          for (f, b, cs), _ in calls["roi_crop"]],
@@ -3604,7 +3985,8 @@ def run_ssd(name: str, train_want, eval_want, seed: int):
                     eval_img_per_s=metrics["eval/images_per_sec"],
                     eval_launches_per_batch=eval_per_batch, shapes=shapes, timed=timed,
                     train_profile=profile, export_s=export_s, request_ms=request_ms,
-                    detections=n_det)
+                    detections=n_det, bn_launches=runs[0]["bn"],
+                    bn_launches_per_step=bn_per_step[0])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3626,6 +4008,7 @@ def phase_ssd(seed: int, results):
         log(f"[ssd] {name}: {r['wall_s']:.1f} s")
         out[name] = r
     out["live_batch_norm"] = live_batch_norm_on_card(seed)
+    out["live_batch_norm"]["ssd_step"] = ssd_step_kernels_vs_plain(seed)
     work = tempfile.mkdtemp(prefix="mtlx_ssd_ranks_")
     try:
         out["two_ranks"] = check_ssd_ranks(work, seed)
@@ -3793,7 +4176,8 @@ def run_pipeline_cli(pipeline: str, train_dir: str, flags, seed: int, steps: int
         if run.returncode != 0:
             raise AssertionError(f"the train CLI exited {run.returncode}:\n{run.stderr[-4000:]}")
         summary = json.loads(out.split("[train] summary ", 1)[1].splitlines()[0])
-        counts, peak = summary["kernel_launches"], summary["peak_memory_gib"] * 2**30
+        counts = {k: summary["kernel_launches"][k] for k in DETECTION_KERNELS}
+        peak = summary["peak_memory_gib"] * 2**30
     else:
         out, _ = run_cli(train_cli.main, argv)
         counts, peak = kernel_counts(), torch.cuda.max_memory_allocated()
@@ -4004,7 +4388,9 @@ def train_cli_runs(pipeline: str, train_dir: str, steps_list, seed: int, tag: st
                                           "1", "--seed", str(seed)]
                          + list(flags_list[i] if flags_list else []))
         run = dict(out=out, wall=time.perf_counter() - t0, counts=kernel_counts(),
-                   peak=torch.cuda.max_memory_allocated(), lines=train_log_lines(out))
+                   bn=bn_counts(), peak=torch.cuda.max_memory_allocated(),
+                   lines=train_log_lines(out))
+        run["bn_per_step"] = {k: v / (steps - done) for k, v in run["bn"].items()}
         per_step = {k: v / (steps - done) for k, v in run["counts"].items()}
         if per_step != want:
             raise AssertionError(f"{tag}: train launches a step {per_step}, want {want}")
@@ -4304,6 +4690,7 @@ def phase_refine(seed: int, results):
                                   (OPTION_STEPS,), seed, tag, OPTION_LAUNCHES[cap])[0]
             ocalls, _, ostate, _, _ = train_step_calls(pipelines[cap], fine_tune, seed)
             oshapes = check_kernels_on(ocalls, f"{tag} step")
+            check_bn_launches([orun["bn_per_step"]], oshapes, f"{tag} train CLI")
             stats = moving_stats_change(ostate.model, fine_tune)
             miner = time_miner(ocalls, ostate.model.cfg.hard_example_miner, cap, seed, tag)
             del ocalls, ostate
@@ -4317,7 +4704,8 @@ def phase_refine(seed: int, results):
                 f"moving statistics after one step from the warm start {stats}")
             options[cap] = dict(step_ms=oms, peak_memory_gib=orun["peak"] / 2**30,
                                 launches_per_step=OPTION_LAUNCHES[cap], shapes=oshapes,
-                                moving_stats=stats, miner=miner)
+                                moving_stats=stats, miner=miner,
+                                bn_launches_per_step=orun["bn_per_step"])
 
         t0 = time.perf_counter()
         refine_card_vs_cpu(seed)
@@ -4865,6 +5253,8 @@ def run_classifier_cli(model: str, steps: int, record: str, work: str, export=No
         line = next(ln for ln in proc.stdout.splitlines() if marker in ln)
         exported = int(line.split(marker)[1].split()[0])
     steady = summary["step_ms"][1:]
+    bn_per_step = {k: summary["kernel_launches"][k] / steps for k in BN_KERNELS}
+    log(f"[classifier] {model} CLI: live batch norm's launches a step {bn_per_step}")
     log(f"[classifier] {model} CLI, {steps} steps at batch {CLASSIFIER_BATCH}, 224x224, 1000 "
         f"classes ({wall:.2f} s wall, its own process): step ms from step 2 (CUDA events) "
         f"{[round(t, 2) for t in steady]} (median {np.median(steady):.2f}, "
@@ -4878,7 +5268,7 @@ def run_classifier_cli(model: str, steps: int, record: str, work: str, export=No
                 device_images_per_sec=CLASSIFIER_BATCH / float(np.median(steady)) * 1e3,
                 cli_images_per_sec=lines[-1]["images_per_sec"],
                 peak_memory_bytes=summary["peak_memory_bytes"], wall_s=wall,
-                exported_tensors=exported)
+                exported_tensors=exported, bn_launches_per_step=bn_per_step)
 
 
 def _voc_xml(filename: str, h: int, w: int, objects) -> str:
@@ -5108,6 +5498,31 @@ def classifier_step_card_vs_cpu(seed: int):
     return {name: value for name, value, _ in checks}
 
 
+def classifier_step_calls(model: str, seed: int):
+    """One train step of the classifier CLI's network (bf16, channels-last,
+    seeded weights) at its batch (64 noise images of 224x224, 1000
+    classes) on the card, every kernel call held to its plain version
+    (check_kernels_on): live batch norm's calls a step and their shapes."""
+    from mtlx_torch.train import train_classifier as tcls
+    from mtlx_torch.train import train_step as ts
+
+    net, preprocess = tcls.build_classifier(model, 1000)
+    tcls.init_weights(net, torch.Generator().manual_seed(seed))
+    net.cuda().to(memory_format=torch.channels_last)
+    classifier = tcls.Classifier(net, preprocess)
+    state = ts.create_train_state(classifier, tcls.make_optimizer(0.1, 1000))
+    rs = np.random.RandomState(seed + 46)
+    images = torch.from_numpy(rs.uniform(0, 255, (CLASSIFIER_BATCH, 224, 224, 3))
+                              .astype(np.float32)).cuda()
+    labels = torch.from_numpy(rs.randint(0, 1000, CLASSIFIER_BATCH)).cuda()
+    step = tcls.make_classifier_step(classifier)
+    calls = record_kernel_inputs(lambda: step(state, images, labels))
+    shapes = check_kernels_on(calls, f"{model} classifier step")
+    del net, classifier, state, calls
+    torch.cuda.empty_cache()
+    return shapes
+
+
 def classification_crops(seed: int):
     """vgg_preprocess and inception_preprocess on 64 noise images of 256x256,
     train and eval: one crop launch a call, the result on the card within
@@ -5224,6 +5639,11 @@ def phase_classifier(seed: int, results):
         t0 = time.perf_counter()
         step_check = classifier_step_card_vs_cpu(seed)
         step_check_s = time.perf_counter() - t0
+        recorded = {}
+        for model, _ in CLASSIFIER_RUNS:
+            recorded[model] = classifier_step_calls(model, seed)
+            check_bn_launches([clis[model]["bn_launches_per_step"]], recorded[model],
+                              f"{model} classifier CLI")
         crops = classification_crops(seed)
         t0 = time.perf_counter()
         backbones = backbones_on_card(seed)
@@ -5235,7 +5655,7 @@ def phase_classifier(seed: int, results):
             f"{warm_s:.1f} s, card vs CPU {step_check_s:.1f} s, backbones {backbones_s:.1f} s)")
         results["classifier"] = dict(clis=clis, record_tools=tools, warm_start=warm,
                                      card_vs_cpu=step_check, crops=crops, backbones=backbones,
-                                     wall_s=wall)
+                                     recorded_steps=recorded, wall_s=wall)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5910,6 +6330,52 @@ def phase_saved_model(seed: int, results, smi: str):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def bn_kernel_rows(results):
+    """The kernels line's rows of live batch norm's two kernels: timed at
+    BN_CASES[0] (phase 3) in the forward's form, their launches from the
+    SSD MobileNet-v1 train CLI's first run (phase 12), and their launches
+    a step on every path that trains live batch norm. The counts are
+    calls: a paired_sums call launches two kernels (kernels_a_call)."""
+    cases = results["batch_norm"]
+    main_tag = next(iter(cases))
+    ssd, refine, classifier = results["ssd"], results["refine"], results["classifier"]
+    live = ssd["live_batch_norm"]
+    paths = dict(
+        forward_backward={k: live[k] for k in ("shape", "ms", "ms_runs", "plain_ms",
+                                               "plain_runs", "library_ms", "library_runs",
+                                               "device_ms", "plain_device_ms",
+                                               "library_device_ms", "bound_ms", "bound_by",
+                                               "ssd_step")},
+        ssd_train_launches_per_step={name: ssd[name]["bn_launches_per_step"]
+                                     for name, _, _ in SSD_CONFIGS},
+        refine_options_launches_per_step={f"miner cap {cap}": r["bn_launches_per_step"]
+                                          for cap, r in refine["options"].items()},
+        classifier_cli_launches_per_step={model: c["bn_launches_per_step"]
+                                          for model, c in classifier["clis"].items()})
+    rows = []
+    for name, args, per_call in (("paired_sums", "(x, x)", 2), ("bn_affine", "(x, a, c)", 1)):
+        main = cases[main_tag][f"{name}_forward"]
+        recorded = {f"ssd {n}": ssd[n]["shapes"]["train"].get(name) for n, _, _ in SSD_CONFIGS}
+        recorded.update({f"classifier {m}": r.get(name)
+                         for m, r in classifier["recorded_steps"].items()})
+        recorded.update({f"refine miner cap {cap}": r["shapes"].get(name)
+                         for cap, r in refine["options"].items()})
+        rows.append(dict(
+            name=name, route="cuda", source="mtlx_torch/kernels/csrc/batch_norm.cu",
+            replaces="mtlx/backbones/resnet.py:187",
+            launches=ssd["ssd_mobilenet_v1_voc"]["bn_launches"][name],
+            max_abs_err=max(r["max_abs_err"] for k, r in cases[main_tag].items()
+                            if k.startswith(name)),
+            ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"],
+            shape=f"{main_tag} {args}", device_ms=main["device_ms"], kernels_a_call=per_call,
+            host_ms=main["host_ms"], op_host_ms=main["op_host_ms"],
+            cases={tag: {k: r for k, r in case.items() if k.startswith(name)}
+                   for tag, case in cases.items()},
+            recorded_steps=recorded, **paths))
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5947,6 +6413,7 @@ def main(argv=None) -> int:
     check_roi_cases(args.seed)
     check_iou(gen, results)
     check_roi_backward(gen, results)
+    check_batch_norm(args.seed, results)
     time_spatial_shapes(args.seed, results)
     phase_serve(args.seed, results)
     phase_card_vs_cpu(args.seed)
@@ -6094,6 +6561,7 @@ def main(argv=None) -> int:
     library = coco["library"]
     if library is not None:
         kernels[0]["library_ms"] = library["nms_ms"]
+    kernels += bn_kernel_rows(results)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -44,6 +44,7 @@ from torch import Tensor, nn
 from torch.utils.checkpoint import checkpoint
 
 from mtlx_torch import layers
+from mtlx_torch.kernels import batch_norm_cuda
 from mtlx_torch.layers import Conv2d, Linear
 
 BLOCK_SIZES = {
@@ -135,14 +136,6 @@ class FrozenBatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def _paired_sums(a: Tensor, b: Tensor):
-    """sum(a) and sum(a * b) per channel of NCHW tensors, accumulated in
-    float32 (mtlx's `_paired_sums`; float64 tensors in float64)."""
-    dt = torch.promote_types(a.dtype, torch.float32)
-    af = a.to(dt)
-    return af.sum((0, 2, 3)), (af * b.to(dt)).sum((0, 2, 3))
-
-
 class _BatchNormTrain(torch.autograd.Function):
     """Train-mode batch norm as one folded affine with mtlx's hand-written
     backward (`_bn_train`, `_bn_train_fwd`, `_bn_train_bwd`).
@@ -151,6 +144,12 @@ class _BatchNormTrain(torch.autograd.Function):
     float32, inv = gamma * rsqrt(var + eps), y = x * inv + (beta - mean *
     inv) in the compute type. Backward: dx = dy * a_c + x * b_c + c_c with
     per-channel constants from the paired sums of dy and dy * x.
+
+    The full-size work is two ops of kernels/batch_norm_cuda.py, each
+    called once in each direction: `paired_sums` (mtlx's `_paired_sums`)
+    and the folded affine `bn_affine`, the CUDA kernels of
+    kernels/csrc/batch_norm.cu on the card and their plain versions on the
+    CPU. The per-channel constants between them are C-length torch ops.
 
     With `replicas` the paired sums are summed over the ranks, in the
     forward and in the backward, so every rank normalizes by the
@@ -161,7 +160,8 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, epsilon, replicas):
         n = x.numel() // x.shape[1]
-        s1, s2 = _paired_sums(x, x)
+        sums = batch_norm_cuda.paired_sums(x, x)
+        s1, s2 = sums[0], sums[1]  # two selects: unpacking unbinds, at 3 times the host cost
         if replicas is not None:
             s1, s2 = replicas.sums([s1, s2])
             n *= replicas.world_size
@@ -169,7 +169,7 @@ class _BatchNormTrain(torch.autograd.Function):
         var = torch.clamp_min(s2 / n - mean * mean, 0.0)
         inv = gamma * torch.rsqrt(var + epsilon)
         dt = x.dtype
-        y = x * inv.to(dt)[:, None, None] + (beta - mean * inv).to(dt)[:, None, None]
+        y = batch_norm_cuda.bn_affine(x, inv.to(dt), (beta - mean * inv).to(dt))
         ctx.save_for_backward(x, gamma, mean, var, inv)
         ctx.epsilon, ctx.n, ctx.replicas = epsilon, n, replicas
         return y, mean, var
@@ -179,7 +179,11 @@ class _BatchNormTrain(torch.autograd.Function):
         x, gamma, mean, var, inv = ctx.saved_tensors
         gmean = torch.zeros_like(mean) if gmean is None else gmean
         gvar = torch.zeros_like(var) if gvar is None else gvar
-        s1, sx = _paired_sums(gy, x)
+        # the incoming gradient in x's type and layout (the kernels read
+        # both operands in one layout)
+        gy = batch_norm_cuda.in_layout_of(gy.to(x.dtype), x)
+        sums = batch_norm_cuda.paired_sums(gy, x)
+        s1, sx = sums[0], sums[1]
         rsig = torch.rsqrt(var + ctx.epsilon)  # inv / gamma, but gamma may be 0
         dgamma = rsig * (sx - mean * s1)
         dbeta = s1
@@ -189,10 +193,8 @@ class _BatchNormTrain(torch.autograd.Function):
         gv = gvar - 0.5 * rsig * rsig * rsig * gamma * stot
         gmu = gmean - inv * s1 - 2.0 * mean * gv
         dt, n = x.dtype, ctx.n
-        a_c = inv.to(dt)[:, None, None]
-        b_c = (2.0 * gv / n).to(dt)[:, None, None]
-        c_c = (gmu / n).to(dt)[:, None, None]
-        dx = gy.to(dt) * a_c + x * b_c + c_c
+        dx = batch_norm_cuda.bn_affine(gy, inv.to(dt), (gmu / n).to(dt), q=x,
+                                       b=(2.0 * gv / n).to(dt))
         return dx, dgamma, dbeta, None, None
 
 

@@ -88,9 +88,11 @@ _INITIAL_RATE_FIELDS = {"constant_learning_rate": "learning_rate",
 def _set_initial_learning_rate(optimizer, lr: float) -> None:
     opt = getattr(optimizer, optimizer.WhichOneof("optimizer"))
     sched = opt.learning_rate.WhichOneof("learning_rate")
+    # no schedule: getattr(..., None) raises TypeError, as in mtlx
+    rate = getattr(opt.learning_rate, sched)
     field = _INITIAL_RATE_FIELDS.get(sched)
     if field is not None:
-        setattr(getattr(opt.learning_rate, sched), field, lr)
+        setattr(rate, field, lr)
 
 
 # TF1 queue-runner / parameter-server knobs with no equivalent in the

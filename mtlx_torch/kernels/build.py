@@ -35,6 +35,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # the C interface of each source: function -> (argtypes, restype)
 SIGNATURES = {
     "nms": {
@@ -47,6 +48,11 @@ SIGNATURES = {
     },
     "iou": {
         "mtlx_iou_f32": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "batch_norm": {
+        "mtlx_bn_sums_workspace": ([_I, _L, _I, _L, _I], _L),
+        "mtlx_bn_paired_sums": ([_P, _P, _P, _P, _I, _L, _I, _L, _I, _P], _I),
+        "mtlx_bn_affine": ([_P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _I, _P], _I),
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -1,4 +1,4 @@
-"""The four hand-written kernels as torch ops, namespace `mtlx`.
+"""The hand-written kernels as torch ops, namespace `mtlx`.
 
     torch.ops.mtlx.non_max_suppression(boxes, scores, valid, max_out,
                                        iou_threshold, score_threshold, form=0)
@@ -6,6 +6,8 @@
     torch.ops.mtlx.crop_and_resize(features, boxes, ch, cw) -> [B, N, ch, cw, C]
     torch.ops.mtlx.crop_and_resize_backward(dout, boxes, h, w) -> [B, H, W, C]
     torch.ops.mtlx.iou_matrix(boxes1, boxes2) -> [P, N, M]
+    torch.ops.mtlx.paired_sums(a, b) -> [2, C] float32
+    torch.ops.mtlx.bn_affine(p, a, c, q=None, b=None) -> p's shape, type and layout
 
 Each op has a CPU implementation (the kernel's plain version), a CUDA
 implementation (the kernel's `ctypes` launch on the current stream, which
@@ -15,12 +17,18 @@ that gives only the output's shape and type. The fake one is what
 runs the kernels when it is served on the card.
 
 The public wrappers (`nms_cuda.non_max_suppression`,
-`roi_cuda.crop_and_resize`, `iou_cuda.iou_matrix`) check their arguments
-and then call these ops on both devices; call the wrappers, not the ops.
+`roi_cuda.crop_and_resize`, `iou_cuda.iou_matrix`, `batch_norm_cuda.paired_sums`,
+`batch_norm_cuda.bn_affine`) check their arguments
+and then call these ops on both devices, except that an eager call of
+live batch norm's two on CUDA tensors launches its kernel without the
+op's dispatch (a host cost as large as the launch, paid four times a
+batch norm a step); call the wrappers, not the ops.
 Importing this module registers the ops: a process that loads an exported
 program imports it first. It imports nothing of the port at import time;
 the implementations import their kernel module at their first call.
 """
+
+from typing import Optional
 
 import torch
 from torch import Tensor
@@ -107,3 +115,42 @@ def _(boxes1, boxes2):
     p = torch.sym_max(boxes1.shape[0], boxes2.shape[0])
     dtype = torch.promote_types(boxes1.dtype, boxes2.dtype)
     return boxes1.new_empty((p, boxes1.shape[1], boxes2.shape[1]), dtype=dtype)
+
+
+@torch.library.custom_op("mtlx::paired_sums", mutates_args=(), device_types="cpu")
+def paired_sums(a: Tensor, b: Tensor) -> Tensor:
+    from mtlx_torch.kernels import batch_norm_cuda
+
+    return batch_norm_cuda.paired_sums_plain(a, b)
+
+
+@paired_sums.register_kernel("cuda")
+def _(a, b):
+    from mtlx_torch.kernels import batch_norm_cuda
+
+    return batch_norm_cuda._launch_sums(a, b)
+
+
+@paired_sums.register_fake
+def _(a, b):
+    return a.new_empty((2, a.shape[1]), dtype=torch.promote_types(a.dtype, torch.float32))
+
+
+@torch.library.custom_op("mtlx::bn_affine", mutates_args=(), device_types="cpu")
+def bn_affine(p: Tensor, a: Tensor, c: Tensor, q: Optional[Tensor] = None,
+              b: Optional[Tensor] = None) -> Tensor:
+    from mtlx_torch.kernels import batch_norm_cuda
+
+    return batch_norm_cuda.bn_affine_plain(p, a, c, q, b)
+
+
+@bn_affine.register_kernel("cuda")
+def _(p, a, c, q=None, b=None):
+    from mtlx_torch.kernels import batch_norm_cuda
+
+    return batch_norm_cuda._launch_affine(p, a, c, q, b)
+
+
+@bn_affine.register_fake
+def _(p, a, c, q=None, b=None):
+    return torch.empty_like(p)

@@ -297,22 +297,26 @@ def warm_up_buckets(model, step_fn, state, dataset, batch_size: int, host_geomet
 
 def kernel_launches() -> Dict[str, int]:
     """Each hand-written kernel's launches in this process so far."""
-    from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
+    from mtlx_torch.kernels import batch_norm_cuda, iou_cuda, nms_cuda, roi_cuda
 
     return {"nms": nms_cuda.non_max_suppression.launches,
             "roi_crop": roi_cuda.crop_and_resize.launches,
             "roi_crop_backward": roi_cuda.crop_and_resize_backward.launches,
-            "iou": iou_cuda.iou_matrix.launches}
+            "iou": iou_cuda.iou_matrix.launches,
+            "paired_sums": batch_norm_cuda.paired_sums.launches,
+            "bn_affine": batch_norm_cuda.bn_affine.launches}
 
 
 def set_kernel_launches(counts: Dict[str, int]) -> None:
     """Set each hand-written kernel's launch count (kernel_launches' keys)."""
-    from mtlx_torch.kernels import iou_cuda, nms_cuda, roi_cuda
+    from mtlx_torch.kernels import batch_norm_cuda, iou_cuda, nms_cuda, roi_cuda
 
     nms_cuda.non_max_suppression.launches = counts["nms"]
     roi_cuda.crop_and_resize.launches = counts["roi_crop"]
     roi_cuda.crop_and_resize_backward.launches = counts["roi_crop_backward"]
     iou_cuda.iou_matrix.launches = counts["iou"]
+    batch_norm_cuda.paired_sums.launches = counts["paired_sums"]
+    batch_norm_cuda.bn_affine.launches = counts["bn_affine"]
 
 
 def main(argv=None) -> None:

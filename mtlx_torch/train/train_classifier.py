@@ -40,7 +40,8 @@ and every `log_every` steps; the `classifier` checkpoint
 second-stage trunk), which `train/checkpoints.py restore_warm_start`
 takes with `from_detection_checkpoint` false. On the card a last line
 `[cls] summary {json}` gives each step's milliseconds (CUDA events), the
-host's decode milliseconds a batch and the peak device memory.
+host's decode milliseconds a batch, the peak device memory and each
+hand-written kernel's launches (live batch norm's two).
 """
 
 from __future__ import annotations
@@ -278,9 +279,12 @@ def main(argv=None) -> Dict[str, float]:
               f"({n} tensors)", flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        from mtlx_torch.train.train import kernel_launches
+
         summary = {"device": torch.cuda.get_device_name(device),
                    "step_ms": [s.elapsed_time(e) for s, e in events], "decode_ms": decode_ms,
-                   "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
+                   "kernel_launches": kernel_launches()}
         print("[cls] summary " + json.dumps(summary), flush=True)
     print("[cls] done", flush=True)
     return last

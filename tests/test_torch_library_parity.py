@@ -15,7 +15,9 @@ each held to its mtlx counterpart on the CPU on the same seeded inputs
   * config/config_util.py: merge_external_params_with_configs on the
     flagship's and SSD MobileNet's pipelines, every override and a
     skipped None, the port's text parsed by protobuf equal to mtlx's
-    message, and an unknown override refused by both.
+    message, and an unknown override refused by both; on the same
+    pipelines without a learning-rate schedule, a learning-rate override
+    refused by both with mtlx's TypeError.
 """
 
 import jax.numpy as jnp
@@ -185,3 +187,40 @@ def test_merge_external_params_equals_mtlx(config, override):
     assert parsed == jconfig.create_pipeline_proto_from_configs(want)
     with pytest.raises(ValueError, match="unknown override"):
         tconfig.merge_external_params_with_configs(got, num_workers=2)
+
+
+def _without_learning_rate_block(text: str) -> str:
+    """The pipeline text with its optimizer's `learning_rate { ... }` block
+    removed (braces matched)."""
+    start = text.index("learning_rate: {")
+    depth, i = 0, text.index("{", start)
+    while True:
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        i += 1
+        if depth == 0:
+            return text[:start] + text[i:]
+
+
+@pytest.mark.parametrize("config", ["faster_rcnn_resnet50_mtl_voc0712", "ssd_mobilenet_v1_voc"])
+def test_learning_rate_override_without_schedule_raises_as_mtlx(config, tmp_path):
+    """An optimizer with no learning-rate schedule: mtlx's
+    `_set_initial_learning_rate` raises TypeError (getattr of the None
+    oneof name); the port raises the same, and does not lose the
+    override without a word."""
+    with open(f"configs/{config}.config") as f:
+        text = _without_learning_rate_block(f.read())
+    path = tmp_path / "pipeline.config"
+    path.write_text(text)
+    jconfigs = jconfig.get_configs_from_pipeline_file(str(path))
+    tconfigs = tconfig.get_configs_from_pipeline_file(str(path))
+    jopt = jconfigs["train_config"].optimizer
+    assert getattr(jopt, jopt.WhichOneof("optimizer")).learning_rate.WhichOneof(
+        "learning_rate") is None
+    with pytest.raises(TypeError) as want:
+        jconfig.merge_external_params_with_configs(jconfigs, learning_rate=0.1)
+    with pytest.raises(TypeError) as got:
+        tconfig.merge_external_params_with_configs(tconfigs, learning_rate=0.1)
+    assert str(got.value) == str(want.value)
+    # the other overrides still apply without a schedule
+    merged = tconfig.merge_external_params_with_configs(tconfigs, batch_size=3)
+    assert merged["train_config"].batch_size == 3
