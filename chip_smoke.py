@@ -69,14 +69,20 @@ Phases (any failure exits non-zero):
      norm, 32 x 64 x 150 x 150 channels-last in bf16 and f32, at 16 x 96 x
      75 x 75 contiguous NCHW, at 19 channels and at the ResNet-50
      classifier's largest, 64 x 256 x 56 x 56 bf16: the sums of (x, x) and
-     (dy, x) within 1e-5 of each channel's sum of term magnitudes, the
-     forward's and the backward's affine bit-equal to their plain
-     versions given the same vectors, every call twice with equal bits
-     and one launch a call, each timed beside its bound, its plain version
+     (dy, x) within 1e-5 of each channel's sum of term magnitudes; the
+     sums folded into the forward's and the backward's per-channel
+     constants (with and without the incoming gradients of mean and var)
+     and the constants alone on complete sums (the data-parallel path)
+     within BN_CONST_ULPS (0: bit-equal) of the plain C-length ops on the
+     sums kernel's own sums; the forward's and the backward's affine
+     bit-equal to their plain versions given the same vectors; every call
+     twice with equal bits and one launch a call (the wrapper's count and
+     the profiler's trace), each timed beside its bound, its plain version
      and the one PyTorch call of the same work (torch.batch_norm_stats,
      torch.batch_norm_backward_reduce, torch.addcmul,
-     torch.batch_norm_backward_elemt), with the host ms a call of the
-     wrapper, of the registered op and of the plain version
+     torch.batch_norm_backward_elemt), by CUDA events and by the
+     profiler's device time, with the host ms a call of the wrapper, of
+     the registered op and of the plain version
   4. serve: the full-width flagship R50 (bfloat16, seeded random weights)
      answers 600x800, 800x600 and 600x1000 requests one at a time and a
      batch of two, through both kernels (their launch counts must rise);
@@ -194,7 +200,8 @@ Phases (any failure exits non-zero):
      largest batch norm (32 x 64 x 150 x 150) in float32 against the CPU
      and in bfloat16, forward + backward on the kernels, on their plain
      versions and as F.batch_norm, timed in turns with their bound (CUDA
-     events, the profiler's device time and the host's enqueue), and SSD
+     events, the profiler's device time and the host's enqueue), with
+     their kernel launches (at most 6 on the kernels), and SSD
      MobileNet's bf16 train step at batch 32 on the kernels and on the
      plain versions in two pairs of turns (ms a step, kernel time a
      step); live batch norm's launches a
@@ -350,6 +357,8 @@ import argparse
 import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1219,6 +1228,8 @@ BN_SUMS_TOL = 1e-5  # of each channel's sum of term magnitudes
 # operations an element: the paired sums a product and two adds; the
 # affine a multiply and an add, with q a second multiply and add
 BN_SUMS_OPS, BN_AFFINE_OPS, BN_AFFINE_Q_OPS = 3, 2, 4
+# operations a channel of the folded constants at most (the backward's)
+BN_CONST_OPS = 24
 
 
 def bn_tag(t) -> str:
@@ -1245,25 +1256,75 @@ def check_paired_sums(a, b, got, tag: str):
     return float(err.max()), float((err / mag.clamp_min(1e-30)).max())
 
 
+# live batch norm's wrappers (kernels/batch_norm_cuda.py): the sums, alone
+# or folded into the constants, and the affine; every one launches one
+# kernel, counted as a launch of BN_KERNELS' sums or affine
+BN_SUMS_WRAPPERS = ("paired_sums", "forward_sums", "backward_sums", "forward_constants",
+                    "backward_constants")
+BN_WRAPPERS = BN_SUMS_WRAPPERS + ("bn_affine",)
+
+
 @contextlib.contextmanager
-def bn_swapped(paired_sums, bn_affine):
-    """Live batch norm's two wrappers replaced, inside the block, by these
-    (`_BatchNormTrain` calls them by the module's names)."""
+def bn_swapped(**wrappers):
+    """Live batch norm's wrappers named in `wrappers` replaced, inside the
+    block, by those functions (`_BatchNormTrain` calls them by the
+    module's names)."""
     from mtlx_torch.kernels import batch_norm_cuda as bn
 
-    real = bn.paired_sums, bn.bn_affine
-    bn.paired_sums, bn.bn_affine = paired_sums, bn_affine
+    real = {name: getattr(bn, name) for name in wrappers}
+    for name, fn in wrappers.items():
+        setattr(bn, name, fn)
     try:
         yield
     finally:
-        bn.paired_sums, bn.bn_affine = real
+        for name, fn in real.items():
+            setattr(bn, name, fn)
 
 
 def bn_plain():
     """Live batch norm on the plain versions inside the block."""
     from mtlx_torch.kernels import batch_norm_cuda as bn
 
-    return bn_swapped(bn.paired_sums_plain, bn.bn_affine_plain)
+    return bn_swapped(**{name: getattr(bn, f"{name}_plain") for name in BN_WRAPPERS})
+
+
+def ulps(got, want) -> int:
+    """The largest distance in units in the last place between two float32
+    or bfloat16 tensors of one shape (0: bit-equal; NaNs of either never
+    equal)."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[got.dtype]
+
+    def ordered(t):  # the float's order as an integer's
+        i = t.contiguous().view(bits).long()
+        top = 1 << (8 * t.element_size() - 1)
+        return torch.where(i < 0, -(i + top), i)
+
+    if bool(torch.isnan(got).any() | torch.isnan(want).any()):
+        raise AssertionError("a NaN among the per-channel constants")
+    return int((ordered(got) - ordered(want)).abs().max()) if got.numel() else 0
+
+
+# the fused constants against the plain C-length ops on the same sums, on
+# the card: bit-equal where CUDA's operations round as ATen's do (a
+# multiplication by the float32 reciprocal of n, rsqrtf); BN_CONST_ULPS is
+# the most that any of them may differ by
+BN_CONST_ULPS = 0
+
+
+def check_bn_constants(got, want, tag: str) -> int:
+    """The fused per-channel values `got` (a (float32 [k, C], consts [k',
+    C]) pair) against the plain version's `want` on the same sums: within
+    BN_CONST_ULPS of each other. Returns the largest distance in ulps."""
+    worst = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{tag}: {g.dtype} {tuple(g.shape)} against {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        worst = max(worst, ulps(g, w))
+    if worst > BN_CONST_ULPS:
+        raise AssertionError(f"{tag}: the fused constants differ from the plain C-length ops "
+                             f"on the same sums by {worst} ulps (tolerance {BN_CONST_ULPS})")
+    return worst
 
 
 def enqueue_ms(fn, reps: int) -> float:
@@ -1281,48 +1342,92 @@ def enqueue_ms(fn, reps: int) -> float:
 
 
 def record_bn_calls(fn):
-    """Run fn() with every call of live batch norm's two kernel wrappers
-    held, as it is made, to its plain version on the same inputs (the sums
-    within BN_SUMS_TOL of each channel's sum of term magnitudes, the affine
-    bit-equal): {kernel: [{shape, ...}]}. For a reading outside the runs
-    whose launches are counted."""
+    """Run fn() with every call of live batch norm's kernel wrappers held,
+    as it is made, to its plain version on the same inputs: the raw sums
+    within BN_SUMS_TOL of each channel's sum of term magnitudes; a call
+    that folds the sums into the constants, to the plain constants on the
+    sums kernel's own sums of the same inputs (BN_CONST_ULPS); the affine
+    bit-equal. {kernel: [{shape, form, ...}]}, every sums wrapper's calls
+    under "paired_sums". For a reading outside the runs whose launches are
+    counted."""
     from mtlx_torch.kernels import batch_norm_cuda as bn
 
-    real_sums, real_affine = bn.paired_sums, bn.bn_affine
+    real = {name: getattr(bn, name) for name in BN_WRAPPERS}
     calls = {"paired_sums": [], "bn_affine": []}
 
+    def held(a, b, tag):  # the kernel's raw sums of (a, b), held to the plain version
+        raw = real["paired_sums"](a, b)
+        err, rel = check_paired_sums(a, b, raw, tag)
+        return raw, rel
+
     def sums(a, b):
-        got = real_sums(a, b)
-        err, rel = check_paired_sums(a, b, got, bn_tag(a))
-        calls["paired_sums"].append(dict(shape=bn_tag(a), same=a is b, max_abs_err=err,
-                                         rel_err=rel))
+        got, rel = held(a, b, bn_tag(a))
+        calls["paired_sums"].append(dict(shape=bn_tag(a), form="paired_sums", same=a is b,
+                                         rel_err=rel, ulps=0))
         return got
+
+    def forward_sums(x, gamma, beta, epsilon):
+        got = real["forward_sums"](x, gamma, beta, epsilon)
+        raw, rel = held(x, x, bn_tag(x))
+        want = bn.forward_constants_plain(raw, gamma, beta, epsilon, x.numel() // x.shape[1],
+                                          x.dtype)
+        u = check_bn_constants(got, want, f"forward_sums {bn_tag(x)}")
+        calls["paired_sums"].append(dict(shape=bn_tag(x), form="forward_sums", same=True,
+                                         rel_err=rel, ulps=u))
+        return got
+
+    def backward_sums(dy, x, *args):
+        got = real["backward_sums"](dy, x, *args)
+        raw, rel = held(dy, x, bn_tag(dy))
+        want = bn.backward_constants_plain(raw, raw, *args, x.dtype)
+        u = check_bn_constants(got, want, f"backward_sums {bn_tag(dy)}")
+        calls["paired_sums"].append(dict(shape=bn_tag(dy), form="backward_sums", same=False,
+                                         rel_err=rel, ulps=u))
+        return got
+
+    def constants(name):
+        def run(total, *args):
+            got = real[name](total, *args)
+            u = check_bn_constants(got, getattr(bn, f"{name}_plain")(total, *args),
+                                   f"{name} {tuple(total.shape)}")
+            calls["paired_sums"].append(dict(shape=f"{total.shape[1]} channels", form=name,
+                                             same=False, rel_err=0.0, ulps=u))
+            return got
+
+        return run
 
     def affine(p, a, c, q=None, b=None):
-        got = real_affine(p, a, c, q, b)
+        got = real["bn_affine"](p, a, c, q, b)
         if not torch.equal(got, bn.bn_affine_plain(p, a, c, q, b)):
             raise AssertionError(f"bn_affine {bn_tag(p)} differs from its plain version")
-        calls["bn_affine"].append(dict(shape=bn_tag(p), q=q is not None))
+        calls["bn_affine"].append(dict(shape=bn_tag(p), form="bn_affine", q=q is not None))
         return got
 
-    sums.launches = affine.launches = 0  # the wrappers count on the module's names
-    with bn_swapped(sums, affine):
+    # the real launchers count on the module's names: these take the
+    # recorded run's launches, which the counted runs leave out
+    sums.launches = affine.launches = 0
+    with bn_swapped(paired_sums=sums, forward_sums=forward_sums, backward_sums=backward_sums,
+                    forward_constants=constants("forward_constants"),
+                    backward_constants=constants("backward_constants"), bn_affine=affine):
         fn()
     return calls
 
 
 def bn_calls_summary(calls):
-    """{kernel: {calls, shapes: {shape: count}}} of record_bn_calls' calls,
-    and the sums' largest relative error."""
+    """{kernel: {calls, shapes: {shape: count}, forms: {wrapper: count}}} of
+    record_bn_calls' calls, and the sums' largest relative error and the
+    constants' largest distance in ulps."""
     out = {}
     for name in BN_KERNELS:
         if calls.get(name):
-            shapes = {}
+            shapes, forms = {}, {}
             for call in calls[name]:
                 shapes[call["shape"]] = shapes.get(call["shape"], 0) + 1
-            out[name] = dict(calls=len(calls[name]), shapes=shapes)
+                forms[call["form"]] = forms.get(call["form"], 0) + 1
+            out[name] = dict(calls=len(calls[name]), shapes=shapes, forms=forms)
     if "paired_sums" in out:
         out["paired_sums"]["max_rel_err"] = max(c["rel_err"] for c in calls["paired_sums"])
+        out["paired_sums"]["max_ulps"] = max(c["ulps"] for c in calls["paired_sums"])
     return out
 
 
@@ -1341,32 +1446,65 @@ def check_bn_launches(runs_per_step, recorded, tag: str):
 
 def time_bn(run_k, run_op, run_p, run_lib, nbytes: float, ops: float):
     """A kernel's timings: ms by CUDA events over a host loop, its device
-    ms by the profiler (both kernels of a paired_sums call), the plain
-    version's ms, the library call's ms (None without one), the bound and
-    what bounds it, and the host ms a call of the wrapper, of the
-    registered op (run_op) and of the plain version. A call's host
-    dispatch can set the loop's pace at these sizes: the device ms is what
-    the card spends."""
+    ms and kernel launches a call by the profiler, the plain version's ms,
+    the library call's ms by CUDA events and by the profiler (None without
+    one), the bound and what bounds it, and the host ms a call of the
+    wrapper, of the registered op (run_op) and of the plain version. A
+    call's host dispatch can set the loop's pace at these sizes: the
+    device ms is what the card spends, and the library's device ms is the
+    yardstick."""
     t_bound, by = bound_ms(nbytes=nbytes, ops=ops)
-    return dict(ms=cuda_ms(run_k, 50),
-                device_ms=sum(t for _, t, _ in profiled_kernels(run_k, reps=20)),
+
+    def traced(fn):  # a trace that holds no kernel at all is taken again
+        for _ in range(3):
+            kernels = profiled_kernels(fn, reps=20)
+            if kernels:
+                break
+        return kernels
+
+    kernels = traced(run_k)
+    lib = traced(run_lib) if run_lib is not None else None
+    return dict(ms=cuda_ms(run_k, 50), device_ms=sum(t for _, t, _ in kernels),
+                launches_a_call=sum(n for _, _, n in kernels),
                 plain_ms=cuda_ms(run_p, 5),
                 library_ms=cuda_ms(run_lib, 50) if run_lib is not None else None,
+                library_device_ms=sum(t for _, t, _ in lib) if lib is not None else None,
                 bound_ms=t_bound, bound_by=by, host_ms=enqueue_ms(run_k, 50),
                 op_host_ms=enqueue_ms(run_op, 50), plain_host_ms=enqueue_ms(run_p, 5))
 
 
+def bn_launch_check(name: str, run, tag: str, counter):
+    """Two calls of `run`: bit-identical outputs, and one launch each on
+    the wrapper's counter (`counter`: the kernel wrapper whose .launches
+    the call adds to). Returns the first call's output."""
+    before = counter.launches
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    if counter.launches - before != 2:
+        raise AssertionError(f"{name} {tag}: {counter.launches - before} launches for two calls")
+    flat = lambda t: t if isinstance(t, (tuple, list)) else (t,)
+    if not all(torch.equal(g, a) for g, a in zip(flat(got), flat(again))):
+        raise AssertionError(f"{name} {tag}: two calls differ")
+    return got
+
+
 def check_batch_norm(seed: int, results):
-    """Both live batch norm kernels against their plain versions at
-    BN_CASES: the sums of (x, x) and of (dy, x) within BN_SUMS_TOL of each
-    channel's sum of term magnitudes, the affine of the forward (x, a, c)
-    and of the backward (dy, a, c, x, b) bit-equal and in x's layout; each
-    call twice with equal bits, each call one launch; each timed beside its
-    plain version, its bound and the one PyTorch call of the same work (the
-    forward sums torch.batch_norm_stats, the backward's
-    torch.batch_norm_backward_reduce, the forward affine torch.addcmul, the
-    backward's torch.batch_norm_backward_elemt: timed, never used by the
-    port)."""
+    """Live batch norm's kernels against their plain versions at BN_CASES:
+    the raw sums of (x, x) and of (dy, x) within BN_SUMS_TOL of each
+    channel's sum of term magnitudes; the sums folded into the forward's
+    and the backward's constants (forward_sums, backward_sums, with the
+    incoming gradients of mean and var absent and given), and the
+    constants alone on complete sums (forward_constants,
+    backward_constants, the data-parallel path), within BN_CONST_ULPS of
+    the plain C-length ops on the sums kernel's own sums; the affine of
+    the forward (x, a, c) and of the backward (dy, a, c, x, b) bit-equal
+    and in x's layout; every call twice with equal bits and one launch,
+    also by the profiler; each timed beside its plain version, its bound
+    and the one PyTorch call of the same work, by CUDA events and by the
+    profiler's device time (the sums torch.batch_norm_stats and
+    torch.batch_norm_backward_reduce, the forward affine torch.addcmul,
+    the backward's torch.batch_norm_backward_elemt: timed, never used by
+    the port)."""
     from mtlx_torch.kernels import batch_norm_cuda as bn
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 45)
@@ -1379,65 +1517,108 @@ def check_batch_norm(seed: int, results):
             memory_format=fmt)
         a, b, c = (torch.randn(shape[1], generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
-        tag = bn_tag(x)
+        ch, count, eps = shape[1], x.numel() // shape[1], 1e-3
+        gamma = torch.rand(ch, generator=gen, device="cuda") + 0.5
+        beta, gmean, gvar = (torch.randn(ch, generator=gen, device="cuda") * 0.1
+                             for _ in range(3))
+        tag, es = bn_tag(x), x.element_size()
         row = {}
         # the library's statistics of x, and its backward sums over dy and x
-        mean, invstd = torch.batch_norm_stats(x, 1e-3)
+        mean, invstd = torch.batch_norm_stats(x, eps)
         sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(dy, x, mean, invstd, None,
                                                                    True, False, False)
-        count = torch.full((1,), x.numel() // shape[1], dtype=torch.int32, device="cuda")
+        lib_count = torch.full((1,), count, dtype=torch.int32, device="cuda")
+        stats_lib = lambda: torch.batch_norm_stats(x, eps)
+        reduce_lib = lambda: torch.batch_norm_backward_reduce(dy, x, mean, invstd, gamma, True,
+                                                              True, True)
         library = dict(
-            paired_sums_forward=lambda: torch.batch_norm_stats(x, 1e-3),
-            paired_sums_backward=lambda: torch.batch_norm_backward_reduce(
-                dy, x, mean, invstd, None, True, False, False),
+            paired_sums_forward=stats_lib, paired_sums_backward=reduce_lib,
+            forward_sums=stats_lib, backward_sums=reduce_lib,
+            forward_constants=None, backward_constants=None,
             bn_affine_forward=lambda: torch.addcmul(c[:, None, None], x, a[:, None, None]),
             bn_affine_backward=lambda: torch.batch_norm_backward_elemt(
-                dy, x, mean, invstd, None, sum_dy, sum_dy_xmu, count))
+                dy, x, mean, invstd, None, sum_dy, sum_dy_xmu, lib_count))
+        raw = {}
         for form, args in (("forward", (x, x)), ("backward", (dy, x))):
-            before = bn.paired_sums.launches
-            got = bn.paired_sums(*args)
-            again = bn.paired_sums(*args)
-            torch.cuda.synchronize()
-            if bn.paired_sums.launches - before != 2:
-                raise AssertionError(f"paired_sums {tag}: {bn.paired_sums.launches - before} "
-                                     "launches for two calls")
-            if not torch.equal(got, again):
-                raise AssertionError(f"paired_sums {tag} {form}: two calls differ")
+            got = bn_launch_check("paired_sums", lambda: bn.paired_sums(*args), tag,
+                                  bn.paired_sums)
             err, rel = check_paired_sums(*args, got, tag)
-            n_in = x.numel() * x.element_size() * (1 if form == "forward" else 2)
+            raw[form] = got
             row[f"paired_sums_{form}"] = dict(time_bn(
                 lambda: bn.paired_sums(*args), lambda: torch.ops.mtlx.paired_sums(*args),
                 lambda: bn.paired_sums_plain(*args), library[f"paired_sums_{form}"],
-                nbytes=n_in + 2 * shape[1] * 4, ops=x.numel() * BN_SUMS_OPS),
-                max_abs_err=err, rel_err=rel)
+                nbytes=len(set(map(id, args))) * x.numel() * es + 2 * ch * 4,
+                ops=x.numel() * BN_SUMS_OPS), max_abs_err=err, rel_err=rel)
+        # the folded forms: each against the plain C-length ops on the
+        # kernel's raw sums of the same inputs
+        fwd_args = (x, gamma, beta, eps)
+        got = bn_launch_check("forward_sums", lambda: bn.forward_sums(*fwd_args), tag,
+                              bn.paired_sums)
+        u_fwd = check_bn_constants(got, bn.forward_constants_plain(
+            raw["forward"], gamma, beta, eps, count, dtype), f"forward_sums {tag}")
+        stats = got[0]
+        bwd = [(stats[0], stats[1], stats[2], gamma, gm, gv, eps, count)
+               for gm, gv in ((None, None), (gmean, gvar))]
+        u_bwd = 0
+        for args in bwd:
+            got = bn_launch_check("backward_sums", lambda: bn.backward_sums(dy, x, *args), tag,
+                                  bn.paired_sums)
+            u_bwd = max(u_bwd, check_bn_constants(got, bn.backward_constants_plain(
+                raw["backward"], raw["backward"], *args, dtype), f"backward_sums {tag}"))
+        # the data-parallel path: the constants alone on sums added over
+        # two ranks (this rank's sums twice), dgamma and dbeta this rank's
+        total = raw["backward"] * 2
+        fc_args = (raw["forward"] * 2, gamma, beta, eps, 2 * count, dtype)
+        bc_args = (total, raw["backward"], *bwd[1][:-1], 2 * count, dtype)
+        u_const = 0
+        for name, args in (("forward_constants", fc_args), ("backward_constants", bc_args)):
+            got = bn_launch_check(name, lambda: getattr(bn, name)(*args), tag, bn.paired_sums)
+            u_const = max(u_const, check_bn_constants(
+                got, getattr(bn, f"{name}_plain")(*args), f"{name} {tag}"))
+        n_x = x.numel() * es
+        folded = dict(
+            forward_sums=(fwd_args, n_x + 2 * ch * 4 + 3 * ch * 4 + 2 * ch * es, u_fwd),
+            backward_sums=((dy, x, *bwd[0]), 2 * n_x + 4 * ch * 4 + 2 * ch * 4 + 3 * ch * es,
+                           u_bwd),
+            forward_constants=(fc_args, 4 * ch * 4 + 3 * ch * 4 + 2 * ch * es, u_const),
+            backward_constants=(bc_args, 8 * ch * 4 + 2 * ch * 4 + 3 * ch * es, u_const))
+        for name, (args, nbytes, u) in folded.items():
+            ops = x.numel() * BN_SUMS_OPS if name.endswith("sums") else 0
+            row[name] = dict(time_bn(
+                lambda: getattr(bn, name)(*args),
+                lambda: getattr(torch.ops.mtlx, f"bn_{name}")(*args),
+                lambda: getattr(bn, f"{name}_plain")(*args), library[name],
+                nbytes=nbytes, ops=ops + ch * BN_CONST_OPS), max_abs_err=0.0, ulps=u)
         for form, args in (("forward", (x, a, c)), ("backward", (dy, a, c, x, b))):
-            before = bn.bn_affine.launches
-            got = bn.bn_affine(*args)
-            again = bn.bn_affine(*args)
-            torch.cuda.synchronize()
-            if bn.bn_affine.launches - before != 2:
-                raise AssertionError(f"bn_affine {tag}: {bn.bn_affine.launches - before} "
-                                     "launches for two calls")
-            if not (torch.equal(got, again) and torch.equal(got, bn.bn_affine_plain(*args))):
+            got = bn_launch_check("bn_affine", lambda: bn.bn_affine(*args), tag, bn.bn_affine)
+            if not torch.equal(got, bn.bn_affine_plain(*args)):
                 raise AssertionError(f"bn_affine {tag} {form}: not bit-equal to its plain "
-                                     "version or to itself")
+                                     "version")
             if bn.layout_of(got) != bn.layout_of(x):
                 raise AssertionError(f"bn_affine {tag} {form}: output strides {got.stride()}")
             passes = 2 if form == "forward" else 3
             row[f"bn_affine_{form}"] = dict(time_bn(
                 lambda: bn.bn_affine(*args), lambda: torch.ops.mtlx.bn_affine(*args),
                 lambda: bn.bn_affine_plain(*args), library[f"bn_affine_{form}"],
-                nbytes=passes * x.numel() * x.element_size(),
+                nbytes=passes * n_x,
                 ops=x.numel() * (BN_AFFINE_OPS if form == "forward" else BN_AFFINE_Q_OPS)),
                 max_abs_err=0.0)
-        del x, dy, library, mean, invstd, sum_dy, sum_dy_xmu
+        for k, r in row.items():
+            if r["launches_a_call"] != 1:
+                raise AssertionError(f"{k} {tag}: {r['launches_a_call']} kernel launches a "
+                                     "call in the profiler's trace, not 1")
+        del x, dy, library, mean, invstd, sum_dy, sum_dy_xmu, raw, stats, bwd
         torch.cuda.empty_cache()
         log(f"[bn] {tag}: the sums within {BN_SUMS_TOL} of each channel's sum of term "
-            f"magnitudes (worst {max(r['rel_err'] for k, r in row.items() if 'sums' in k):.3g}), "
-            "the affine bit-equal, two calls equal, one launch a call; " + "; ".join(
-                f"{k} {r['ms']:.4f} ms (device {r['device_ms']:.4f}, plain {r['plain_ms']:.4f}, "
-                f"bound {r['bound_ms']:.4f} {r['bound_by']}, library {r['library_ms']:.4f}; "
-                f"host a call: wrapper {r['host_ms']:.4f}, op {r['op_host_ms']:.4f}, plain "
+            f"magnitudes (worst {max(r['rel_err'] for k, r in row.items() if 'rel_err' in r):.3g}"
+            f"), the folded constants within {max(u_fwd, u_bwd, u_const)} ulps of the plain "
+            "C-length ops on the same sums, the affine bit-equal, two calls equal, one launch "
+            "a call; device ms by the profiler: " + "; ".join(
+                f"{k} {r['device_ms']:.4f} (events {r['ms']:.4f}, plain {r['plain_ms']:.4f}, "
+                f"bound {r['bound_ms']:.4f} {r['bound_by']}, library "
+                + (f"{r['library_device_ms']:.4f} (events {r['library_ms']:.4f})"
+                   if r["library_ms"] is not None else "none")
+                + f"; host a call: wrapper {r['host_ms']:.4f}, op {r['op_host_ms']:.4f}, plain "
                 f"{r['plain_host_ms']:.4f})" for k, r in row.items()))
         out[tag] = row
     results["batch_norm"] = out
@@ -3537,6 +3718,10 @@ SSD_STEPS = (4, 6)  # the first run, then the restart to step 6
 # the backward's paired sums (a multiply and two adds) and its affine (two
 # multiply-adds and an add)
 LIVE_BN_OPS_PER_ELEMENT = 12
+# kernel launches a LiveBatchNorm forward + backward may take without
+# data-parallel ranks: the sums with their constants and the affine each
+# way (4), with room for two more
+LIVE_BN_MOST_LAUNCHES = 6
 
 
 def ssd_pipeline(name: str, record: str, label_map: str) -> str:
@@ -3646,8 +3831,9 @@ def live_batch_norm_on_card(seed: int):
     magnitude of the same function on the CPU (the plain versions); in
     bfloat16 its forward and backward on the kernels timed in turns beside
     the same on the plain versions (the plain body) and F.batch_norm's
-    (cuDNN) on the same tensors, with their bound, and the host's time to
-    enqueue each."""
+    (cuDNN) on the same tensors, with their bound, the host's time to
+    enqueue each and the kernel launches of each in the profiler's trace
+    (the kernels' at most LIVE_BN_MOST_LAUNCHES)."""
     from mtlx_torch.backbones.resnet import LiveBatchNorm
 
     gen = torch.Generator().manual_seed(seed + 20)
@@ -3688,7 +3874,10 @@ def live_batch_norm_on_card(seed: int):
     bn = LiveBatchNorm(64, momentum=0.9997, epsilon=1e-3).cuda().train()
     xr = xb.detach().requires_grad_()
 
+    # each call starts without gradients, as a step after zero_grad(set_to_none=True):
+    # no accumulation kernel in any of the three
     def live():
+        xr.grad = bn.scale.grad = bn.bias.grad = None
         bn(xr).backward(dyb)
 
     weight = torch.ones(64, device="cuda", requires_grad=True)
@@ -3696,6 +3885,7 @@ def live_batch_norm_on_card(seed: int):
     running = torch.zeros(64, device="cuda"), torch.ones(64, device="cuda")
 
     def library():
+        xr.grad = weight.grad = bias.grad = None
         F.batch_norm(xr, *running, weight, bias, training=True, momentum=0.0003,
                      eps=1e-3).backward(dyb)
 
@@ -3720,6 +3910,9 @@ def live_batch_norm_on_card(seed: int):
         plain_host = enqueue_ms(live, 10)
     (dev, launches), (lib_dev, lib_launches) = device_ms(live), device_ms(library)
     host, lib_host = enqueue_ms(live, 10), enqueue_ms(library, 10)
+    if launches > LIVE_BN_MOST_LAUNCHES:
+        raise AssertionError(f"LiveBatchNorm forward + backward: {launches} kernel launches, "
+                             f"more than {LIVE_BN_MOST_LAUNCHES}")
     n = xb.numel()
     t_bound, by = bound_ms(nbytes=5 * n * 2, ops=n * LIVE_BN_OPS_PER_ELEMENT)
     row = dict(name="live_batch_norm", shape="x".join(map(str, shape)) + " bfloat16 channels-last",
@@ -3733,8 +3926,8 @@ def live_batch_norm_on_card(seed: int):
         f"largest magnitude ({errs}); forward + backward on the kernels {ms[0]:.4f} / "
         f"{ms[1]:.4f} ms (device {dev:.4f}), the plain body {plain[0]:.4f} / {plain[1]:.4f} ms "
         f"(device {plain_dev:.4f}), F.batch_norm {lib[0]:.4f} / {lib[1]:.4f} ms (device "
-        f"{lib_dev:.4f}), bound {t_bound:.4f} ms ({by}); the device ms include the input "
-        f"gradient's accumulation, alike in all three; host ms to enqueue one: kernels "
+        f"{lib_dev:.4f}), bound {t_bound:.4f} ms ({by}); every call starts without "
+        f"gradients; host ms to enqueue one: kernels "
         f"{host:.4f}, plain body {plain_host:.4f}, F.batch_norm {lib_host:.4f}; kernel "
         f"launches a forward + backward: {launches}, {plain_launches}, {lib_launches}")
     return row
@@ -6332,10 +6525,12 @@ def phase_saved_model(seed: int, results, smi: str):
 
 def bn_kernel_rows(results):
     """The kernels line's rows of live batch norm's two kernels: timed at
-    BN_CASES[0] (phase 3) in the forward's form, their launches from the
-    SSD MobileNet-v1 train CLI's first run (phase 12), and their launches
-    a step on every path that trains live batch norm. The counts are
-    calls: a paired_sums call launches two kernels (kernels_a_call)."""
+    BN_CASES[0] (phase 3) in the forward's form (the sums kernel folding
+    the forward's constants, as the main path calls it), every form at
+    every case beside it, their launches from the SSD MobileNet-v1 train
+    CLI's first run (phase 12), and their launches a step on every path
+    that trains live batch norm. Every call of a wrapper is one kernel
+    launch."""
     cases = results["batch_norm"]
     main_tag = next(iter(cases))
     ssd, refine, classifier = results["ssd"], results["refine"], results["classifier"]
@@ -6353,27 +6548,59 @@ def bn_kernel_rows(results):
         classifier_cli_launches_per_step={model: c["bn_launches_per_step"]
                                           for model, c in classifier["clis"].items()})
     rows = []
-    for name, args, per_call in (("paired_sums", "(x, x)", 2), ("bn_affine", "(x, a, c)", 1)):
-        main = cases[main_tag][f"{name}_forward"]
+    forms = dict(paired_sums=("forward_sums", "(x, gamma, beta, eps): the sums of (x, x) "
+                                              "with the forward's constants",
+                              ("paired_sums", "forward_sums", "backward_sums",
+                               "forward_constants", "backward_constants")),
+                 bn_affine=("bn_affine_forward", "(x, a, c)", ("bn_affine",)))
+    for name, (main_form, args, prefixes) in forms.items():
+        main = cases[main_tag][main_form]
         recorded = {f"ssd {n}": ssd[n]["shapes"]["train"].get(name) for n, _, _ in SSD_CONFIGS}
         recorded.update({f"classifier {m}": r.get(name)
                          for m, r in classifier["recorded_steps"].items()})
         recorded.update({f"refine miner cap {cap}": r["shapes"].get(name)
                          for cap, r in refine["options"].items()})
+        mine = lambda case: {k: r for k, r in case.items() if k.startswith(prefixes)}
         rows.append(dict(
             name=name, route="cuda", source="mtlx_torch/kernels/csrc/batch_norm.cu",
-            replaces="mtlx/backbones/resnet.py:187",
+            replaces="mtlx/backbones/resnet.py:188",
             launches=ssd["ssd_mobilenet_v1_voc"]["bn_launches"][name],
-            max_abs_err=max(r["max_abs_err"] for k, r in cases[main_tag].items()
-                            if k.startswith(name)),
+            max_abs_err=max(r["max_abs_err"] for r in mine(cases[main_tag]).values()),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
-            shape=f"{main_tag} {args}", device_ms=main["device_ms"], kernels_a_call=per_call,
-            host_ms=main["host_ms"], op_host_ms=main["op_host_ms"],
-            cases={tag: {k: r for k, r in case.items() if k.startswith(name)}
-                   for tag, case in cases.items()},
+            shape=f"{main_tag} {args}", device_ms=main["device_ms"],
+            library_device_ms=main["library_device_ms"],
+            launches_a_call=main["launches_a_call"], host_ms=main["host_ms"],
+            op_host_ms=main["op_host_ms"],
+            cases={tag: mine(case) for tag, case in cases.items()},
             recorded_steps=recorded, **paths))
     return rows
+
+
+def ptxas_resources(text: str):
+    """Each kernel's registers and spills from nvcc's `-Xptxas -v` log:
+    ["kernel<args>: N registers, S bytes spill stores, L bytes spill
+    loads"], the kernel's name demangled where c++filt is on the path."""
+    out, name, spills = [], "?", ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), ""
+        elif "spill stores" in line:
+            spills = ", ".join(part.strip() for part in line.split(",")[1:])
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.append([name, f"{m.group(1)} registers, {spills or 'spills not reported'}"])
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(n for n, _ in out), capture_output=True,
+                               text=True).stdout.splitlines()
+        if len(names) == len(out):
+            for row, full in zip(out, names):
+                m = re.search(r"(\w+<[^()]*>)\(", full)
+                row[0] = m.group(1) if m else full
+    return [f"{n}: {r}" for n, r in out]
 
 
 def main(argv=None) -> int:
@@ -6395,8 +6622,7 @@ def main(argv=None) -> int:
     seconds = build.build_all()
     log(f"[build] {seconds} (wall {time.perf_counter() - t0:.2f} s)")
     for name, text in build.build_logs.items():
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-        log(f"[build] {name}: {'; '.join(regs)}")
+        log(f"[build] {name}: " + "; ".join(ptxas_resources(text)))
 
     results = {}
     if args.data_parallel > 1:

@@ -145,57 +145,58 @@ class _BatchNormTrain(torch.autograd.Function):
     inv) in the compute type. Backward: dx = dy * a_c + x * b_c + c_c with
     per-channel constants from the paired sums of dy and dy * x.
 
-    The full-size work is two ops of kernels/batch_norm_cuda.py, each
-    called once in each direction: `paired_sums` (mtlx's `_paired_sums`)
-    and the folded affine `bn_affine`, the CUDA kernels of
-    kernels/csrc/batch_norm.cu on the card and their plain versions on the
-    CPU. The per-channel constants between them are C-length torch ops.
+    Each direction is two calls of kernels/batch_norm_cuda.py, the CUDA
+    kernels of kernels/csrc/batch_norm.cu on the card and their plain
+    versions on the CPU: the sums (mtlx's `_paired_sums`) folded into the
+    per-channel constants (`forward_sums`, `backward_sums`), then the
+    folded affine (`bn_affine`).
 
     With `replicas` the paired sums are summed over the ranks, in the
     forward and in the backward, so every rank normalizes by the
     statistics of the global batch, as mtlx's step on the global batch
-    does. The gradients of gamma and beta come from this rank's sums: the
-    train step averages them over the ranks with every other gradient."""
+    does: the sums (`paired_sums`), their all-reduce, the constants from
+    them (`forward_constants`, `backward_constants`), the affine. The
+    gradients of gamma and beta come from this rank's sums: the train
+    step averages them over the ranks with every other gradient."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, epsilon, replicas):
         n = x.numel() // x.shape[1]
-        sums = batch_norm_cuda.paired_sums(x, x)
-        s1, s2 = sums[0], sums[1]  # two selects: unpacking unbinds, at 3 times the host cost
-        if replicas is not None:
-            s1, s2 = replicas.sums([s1, s2])
+        if replicas is None:
+            stats, consts = batch_norm_cuda.forward_sums(x, gamma, beta, epsilon)
+        else:
+            sums = replicas.sums([batch_norm_cuda.paired_sums(x, x)])[0]
             n *= replicas.world_size
-        mean = s1 / n
-        var = torch.clamp_min(s2 / n - mean * mean, 0.0)
-        inv = gamma * torch.rsqrt(var + epsilon)
-        dt = x.dtype
-        y = batch_norm_cuda.bn_affine(x, inv.to(dt), (beta - mean * inv).to(dt))
+            stats, consts = batch_norm_cuda.forward_constants(sums, gamma, beta, epsilon, n,
+                                                              x.dtype)
+        # selects: unpacking unbinds, at 3 times the host cost
+        mean, var, inv = stats[0], stats[1], stats[2]
+        y = batch_norm_cuda.bn_affine(x, consts[0], consts[1])
         ctx.save_for_backward(x, gamma, mean, var, inv)
         ctx.epsilon, ctx.n, ctx.replicas = epsilon, n, replicas
+        # an output without a gradient comes to backward as None, not as
+        # zeros that autograd would fill: the sums kernel reads a null
+        # gmean or gvar as 0
+        ctx.set_materialize_grads(False)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
         x, gamma, mean, var, inv = ctx.saved_tensors
-        gmean = torch.zeros_like(mean) if gmean is None else gmean
-        gvar = torch.zeros_like(var) if gvar is None else gvar
+        if gy is None:
+            gy = torch.zeros_like(x)
         # the incoming gradient in x's type and layout (the kernels read
         # both operands in one layout)
         gy = batch_norm_cuda.in_layout_of(gy.to(x.dtype), x)
-        sums = batch_norm_cuda.paired_sums(gy, x)
-        s1, sx = sums[0], sums[1]
-        rsig = torch.rsqrt(var + ctx.epsilon)  # inv / gamma, but gamma may be 0
-        dgamma = rsig * (sx - mean * s1)
-        dbeta = s1
-        if ctx.replicas is not None:
-            s1, sx = ctx.replicas.sums([s1, sx])
-        stot = sx - mean * s1
-        gv = gvar - 0.5 * rsig * rsig * rsig * gamma * stot
-        gmu = gmean - inv * s1 - 2.0 * mean * gv
-        dt, n = x.dtype, ctx.n
-        dx = batch_norm_cuda.bn_affine(gy, inv.to(dt), (gmu / n).to(dt), q=x,
-                                       b=(2.0 * gv / n).to(dt))
-        return dx, dgamma, dbeta, None, None
+        args = (mean, var, inv, gamma, gmean, gvar, ctx.epsilon, ctx.n)
+        if ctx.replicas is None:
+            grads, consts = batch_norm_cuda.backward_sums(gy, x, *args)
+        else:
+            local = batch_norm_cuda.paired_sums(gy, x)
+            sums = ctx.replicas.sums([local])[0]
+            grads, consts = batch_norm_cuda.backward_constants(sums, local, *args, x.dtype)
+        dx = batch_norm_cuda.bn_affine(gy, consts[0], consts[2], q=x, b=consts[1])
+        return dx, grads[0], grads[1], None, None
 
 
 # set while a rematerialized unit recomputes its forward in the backward

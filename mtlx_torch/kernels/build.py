@@ -50,8 +50,16 @@ SIGNATURES = {
         "mtlx_iou_f32": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     },
     "batch_norm": {
+        "mtlx_bn_tickets": ([], _I),
         "mtlx_bn_sums_workspace": ([_I, _L, _I, _L, _I], _L),
-        "mtlx_bn_paired_sums": ([_P, _P, _P, _P, _I, _L, _I, _L, _I, _P], _I),
+        "mtlx_bn_paired_sums": ([_P, _P, _P, _P, _P, _I, _L, _I, _L, _I, _P], _I),
+        "mtlx_bn_forward_sums": ([_P, _P, _P, _P, _P, _F, _L, _P, _P, _I, _L, _I, _L, _I, _P],
+                                 _I),
+        "mtlx_bn_backward_sums": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _L, _P, _P, _I,
+                                   _L, _I, _L, _I, _P], _I),
+        "mtlx_bn_forward_constants": ([_P, _P, _P, _F, _L, _P, _P, _I, _I, _P], _I),
+        "mtlx_bn_backward_constants": ([_P, _P, _P, _P, _P, _P, _P, _P, _F, _L, _P, _P, _I, _I,
+                                        _P], _I),
         "mtlx_bn_affine": ([_P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _I, _P], _I),
     },
 }

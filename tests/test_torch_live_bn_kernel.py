@@ -1,10 +1,12 @@
-"""Train-mode live batch norm on its two ops (mtlx_torch/kernels/
-batch_norm_cuda.py: `paired_sums` and `bn_affine`, the CUDA kernels of
-kernels/csrc/batch_norm.cu on the card and their plain versions here on
-the CPU), against mtlx on the CPU:
+"""Train-mode live batch norm on its ops (mtlx_torch/kernels/
+batch_norm_cuda.py: the sums folded into the per-channel constants,
+`forward_sums` and `backward_sums`, or with data-parallel ranks
+`paired_sums` and `forward_constants` / `backward_constants`, and the
+affine `bn_affine`; the CUDA kernels of kernels/csrc/batch_norm.cu on the
+card and their plain versions here on the CPU), against mtlx on the CPU:
 
   * `_BatchNormTrain` (mtlx_torch/backbones/resnet.py), composed of the
-    two plain versions, against mtlx's `_bn_train` custom_vjp, forward
+    plain versions, against mtlx's `_bn_train` custom_vjp, forward
     (y, mean, var) and VJP (dx, dgamma, dbeta, with cotangents on all
     three outputs), on seeded numpy inputs of 2x19x6x5 and 2x64x8x8 in
     float32 and bfloat16, the port's input in channels-last memory and in
@@ -15,14 +17,25 @@ the CPU), against mtlx on the CPU:
     1e-5;
   * `torch.autograd.gradcheck` of `_BatchNormTrain` in float64 in both
     layouts;
-  * `torch.library.opcheck` of `mtlx::paired_sums` and `mtlx::bn_affine`
-    (with and without q) on CPU tensors;
-  * LiveBatchNorm in training reaches the two ops once each way and no
-    other full-size op and no reduction (a dispatch mode records every
-    op), the wrappers called twice each;
-  * under fake tensors (as `torch.export` traces), CUDA calls go through
-    the registered ops' fake implementations and launch nothing, where
-    an eager CUDA call would launch its kernel directly;
+  * the fused plain versions (`forward_sums_plain`, `backward_sums_plain`,
+    and the constants alone on sums that differ from this rank's)
+    against mtlx's `_bn_train_impl` and `_bn_train_bwd` called directly,
+    float32, with the incoming gradients of mean and var given and absent
+    (mtlx takes zeros where the port takes None): y, mean, var, inv, dx,
+    dgamma, dbeta within 1e-5 of the largest magnitude, as above;
+  * `torch.library.opcheck` of `mtlx::paired_sums`, `mtlx::bn_affine`
+    (with and without q), `mtlx::bn_forward_sums`, `mtlx::bn_backward_sums`
+    (gmean and gvar given and absent), `mtlx::bn_forward_constants` and
+    `mtlx::bn_backward_constants` on CPU tensors;
+  * LiveBatchNorm in training reaches exactly four ops, the forward's sums
+    with its constants, the affine, the backward's sums with its
+    constants, the affine, and computes nothing else (a dispatch mode
+    records every op: no C-length op, no zeros for the unused gradients
+    of mean and var);
+  * under fake tensors (as `torch.export` traces), CUDA calls of every
+    wrapper go through the registered ops' fake implementations and
+    launch nothing, where an eager CUDA call would launch its kernel
+    directly;
   * the affine's plain version in bfloat16 equals the kernel's arithmetic
     (float32 operations, each rounded to bfloat16 in the plain order) bit
     for bit, and the layout helpers and the wrappers' argument checks.
@@ -97,6 +110,59 @@ def test_bn_train_on_plain_ops_equals_mtlx(shape, dtype, layout):
         assert _rel(got.detach().numpy(), np.asarray(want)) <= 1e-5, name
 
 
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_plain_versions_equal_mtlx(shape, given):
+    """The sums folded into the constants, forward and backward, against
+    mtlx's `_bn_train_impl` and `_bn_train_bwd` on the same float32
+    inputs; without data-parallel ranks (the sums of this rank) and with
+    them (the constants alone on sums added over two ranks, dgamma and
+    dbeta from this rank's)."""
+    from mtlx.backbones.resnet import _bn_train_bwd, _bn_train_impl
+
+    c = _case(shape, seed=shape[1] + 7)
+    eps, n = 1e-3, shape[0] * shape[2] * shape[3]
+    y, mean, var, inv = _bn_train_impl(jnp.asarray(c["x"]), jnp.asarray(c["gamma"]),
+                                       jnp.asarray(c["beta"]), eps, jnp.float32)
+    zero = np.zeros(shape[1], np.float32)
+    gmean, gvar = (c["gmean"], c["gvar"]) if given else (zero, zero)
+    jdx, jdgamma, jdbeta = _bn_train_bwd(eps, jnp.float32, (jnp.asarray(c["x"]),
+                                                            jnp.asarray(c["gamma"]), mean, var,
+                                                            inv, n),
+                                         (jnp.asarray(c["gy"]), jnp.asarray(gmean),
+                                          jnp.asarray(gvar)))
+
+    x, gy = _nchw(c["x"], torch.float32, "nchw"), _nchw(c["gy"], torch.float32, "nchw")
+    gamma, beta = torch.from_numpy(c["gamma"]), torch.from_numpy(c["beta"])
+    stats, consts = bn.forward_sums_plain(x, gamma, beta, eps)
+    got_y = bn.bn_affine_plain(x, consts[0], consts[1])
+    nhwc = lambda t: t.permute(0, 2, 3, 1).numpy()
+    assert _rel(nhwc(got_y), np.asarray(y)) <= 1e-5
+    for name, got, want in zip(("mean", "var", "inv"), stats, (mean, var, inv)):
+        assert _rel(got.numpy(), np.asarray(want)) <= 1e-5, name
+    tg = lambda k: torch.from_numpy(c[k]) if given else None
+    args = (stats[0], stats[1], stats[2], gamma, tg("gmean"), tg("gvar"), eps, n)
+    grads, consts = bn.backward_sums_plain(gy, x, *args)
+    dx = bn.bn_affine_plain(gy, consts[0], consts[2], q=x, b=consts[1])
+    assert _rel(nhwc(dx), np.asarray(jdx)) <= 1e-5
+    assert _rel(grads[0].numpy(), np.asarray(jdgamma)) <= 1e-5
+    assert _rel(grads[1].numpy(), np.asarray(jdbeta)) <= 1e-5
+    # two ranks: the constants alone on the sums of both ranks' halves
+    # equal the one-rank path; dgamma and dbeta are this rank's own
+    halves = [bn.paired_sums_plain(gy[i::2], x[i::2]) for i in range(2)]
+    grads2, consts2 = bn.backward_constants_plain(halves[0] + halves[1], halves[0], *args,
+                                                  torch.float32)
+    for got, want in zip(consts2, consts):
+        assert _rel(got.numpy(), want.numpy()) <= 1e-5
+    assert torch.equal(grads2[1], halves[0][0])
+    fstats, fconsts = bn.forward_constants_plain(
+        sum(bn.paired_sums_plain(x[i::2], x[i::2]) for i in range(2)), gamma, beta, eps, n,
+        torch.float32)
+    for got, want in zip((*fstats, *fconsts), (*stats, *bn.forward_sums_plain(x, gamma, beta,
+                                                                             eps)[1])):
+        assert _rel(got.numpy(), want.numpy()) <= 1e-5
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_bn_train_gradcheck_float64(layout):
     rs = np.random.RandomState(3)
@@ -113,10 +179,20 @@ def _op_cases():
     a, b = t(2, 19, 6, 5), t(2, 19, 6, 5)
     v = [t(19) for _ in range(3)]
     cl = a.contiguous(memory_format=torch.channels_last)
+    pos = v[2].abs() + 0.5  # a variance
+    sums, local = t(2, 19), t(2, 19)
     return [("paired_sums", (a, b)), ("paired_sums", (cl, cl)),
             ("bn_affine", (a, v[0], v[1])), ("bn_affine", (cl, v[0], v[1], cl, v[2])),
             ("bn_affine", (a.bfloat16(), *(x.bfloat16() for x in v[:2]), b.bfloat16(),
-                           v[2].bfloat16()))]
+                           v[2].bfloat16())),
+            ("bn_forward_sums", (a, v[0], v[1], 1e-3)),
+            ("bn_forward_sums", (cl.bfloat16(), v[0], v[1], 1e-3)),
+            ("bn_backward_sums", (b, a, v[0], pos, v[1], v[2], None, None, 1e-3, 60)),
+            ("bn_backward_sums", (cl.bfloat16(), cl.bfloat16(), v[0], pos, v[1], v[2], v[1],
+                                  v[0], 1e-3, 60)),
+            ("bn_forward_constants", (sums, v[0], v[1], 1e-3, 60, torch.bfloat16)),
+            ("bn_backward_constants", (sums, local, v[0], pos, v[1], v[2], None, v[0], 1e-3,
+                                       120, torch.float32))]
 
 
 @pytest.mark.parametrize("case", range(len(_op_cases())))
@@ -145,9 +221,13 @@ class _Ops(TorchDispatchMode):
 
 
 def test_live_batch_norm_reaches_only_the_two_ops(monkeypatch):
-    calls = {"paired_sums": 0, "bn_affine": 0}
-    wrappers = [bn.paired_sums, bn.bn_affine]
-    launches = [f.launches for f in wrappers]
+    """Each direction is two ops, the sums with their constants and the
+    affine: no other op computes anything."""
+    names = ("paired_sums", "forward_sums", "backward_sums", "forward_constants",
+             "backward_constants", "bn_affine")
+    calls = dict.fromkeys(names, 0)
+    counters = bn.paired_sums, bn.bn_affine
+    launches = [f.launches for f in counters]
     for name in calls:
         real = getattr(bn, name)
 
@@ -164,15 +244,16 @@ def test_live_batch_norm_reaches_only_the_two_ops(monkeypatch):
     norm = LiveBatchNorm(64).train()
     with _Ops() as mode:
         norm(x).backward(gy)
-    full = [name for name, size in mode.seen if size >= x.numel()]
-    assert sorted(full) == ["mtlx.bn_affine"] * 2 + ["mtlx.paired_sums"] * 2, mode.seen
-    reductions = [name for name, _ in mode.seen if name.startswith("aten.") and
-                  any(k in name for k in ("sum", "mean", "var", "norm", "reduce"))]
-    assert reductions == [], reductions
-    assert calls == {"paired_sums": 2, "bn_affine": 2}
+    assert [name for name, _ in mode.seen] == [
+        "mtlx.bn_forward_sums", "mtlx.bn_affine", "mtlx.bn_backward_sums", "mtlx.bn_affine"
+    ], mode.seen
+    assert all(size == x.numel() for _, size in mode.seen), mode.seen
+    assert calls == dict(paired_sums=0, forward_sums=1, backward_sums=1, forward_constants=0,
+                         backward_constants=0, bn_affine=2)
     assert norm.batch_stats is not None
+    assert x.grad is not None and norm.scale.grad is not None and norm.bias.grad is not None
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert [f.launches for f in wrappers] == launches
+    assert [f.launches for f in counters] == launches
 
 
 def test_tracers_take_the_registered_ops():
@@ -183,12 +264,20 @@ def test_tracers_take_the_registered_ops():
     with FakeTensorMode():
         x = torch.empty(2, 6, 5, 19, device="cuda", dtype=torch.bfloat16).permute(0, 3, 1, 2)
         v = torch.empty(19, device="cuda", dtype=torch.bfloat16)
+        f = torch.empty(19, device="cuda")
         assert not bn._eager(x)
         sums = bn.paired_sums(x, x)
         y = bn.bn_affine(x, v, v, q=x, b=v)
+        fwd = bn.forward_sums(x, f, f, 1e-3)
+        bwd = bn.backward_sums(x, x, f, f, f, f, None, f, 1e-3, 60)
+        fwd_c = bn.forward_constants(sums, f, f, 1e-3, 60, torch.bfloat16)
+        bwd_c = bn.backward_constants(sums, sums, f, f, f, f, f, None, 1e-3, 60, torch.bfloat16)
     assert sums.shape == (2, 19) and sums.dtype == torch.float32 and sums.is_cuda
     assert y.shape == x.shape and y.dtype == torch.bfloat16 and y.is_cuda
     assert bn.layout_of(y) == bn.CHANNELS_LAST
+    for (stats, consts), rows in ((fwd, (3, 2)), (bwd, (2, 3)), (fwd_c, (3, 2)), (bwd_c, (2, 3))):
+        assert stats.shape == (rows[0], 19) and stats.dtype == torch.float32 and stats.is_cuda
+        assert consts.shape == (rows[1], 19) and consts.dtype == torch.bfloat16 and consts.is_cuda
     assert (bn.paired_sums.launches, bn.bn_affine.launches) == launches
 
 
