@@ -1,0 +1,8 @@
+"""iou_roofline: the iou kernel's least time (work.py, from each
+recorded call's inputs) over its device time in the traced window."""
+
+from h100_bench.metrics import roofline
+
+
+def read(run):
+    return roofline(run, ["iou"])

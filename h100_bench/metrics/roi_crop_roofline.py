@@ -1,0 +1,8 @@
+"""roi_crop_roofline: the roi_crop kernel's least time (work.py, from each
+recorded call's inputs) over its device time in the traced window."""
+
+from h100_bench.metrics import roofline
+
+
+def read(run):
+    return roofline(run, ["roi_crop"])
